@@ -7,7 +7,7 @@ CUDA kernel written for Hopper (``csrc/``), built at first use into
 
 Layout:
   * ``ops``     — running top-k, task-list inversion, the fused IVF scan
-  * ``models``  — indexes (exhaustive, IVF-PQ) and k-means
+  * ``models``  — indexes (exhaustive, IVF, IVF-PQ) and k-means
   * ``utils``   — distances, synthetic data, metrics
   * ``interop`` — index state carried over from the JAX package
 """

@@ -22,6 +22,7 @@ __all__ = [
     "train_sample_size",
     "train_centroids",
     "assign_clusters",
+    "cluster_sums",
     "SegmentLayout",
     "segment_layout",
 ]
@@ -91,6 +92,20 @@ def _random_init(gen: torch.Generator, x: torch.Tensor, k: int) -> torch.Tensor:
     return x[idx]
 
 
+def cluster_sums(
+    x: torch.Tensor, a: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster row sums ``[k, d]`` and counts ``[k]`` (int64), in a
+    fixed order: rows sorted by cluster (stable), then one segmented sum
+    per cluster. ``index_add_`` would add with float atomics on the card,
+    in an order that changes from run to run, so two builds from one seed
+    would differ."""
+    counts = torch.bincount(a, minlength=k)
+    order = torch.argsort(a, stable=True)
+    sums = torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+    return sums, counts
+
+
 def _lloyd(
     x: torch.Tensor,
     init_centroids: torch.Tensor,
@@ -108,8 +123,8 @@ def _lloyd(
     shift = float("inf")
     while it < max_iters and shift > tol:
         a, _ = _assign_chunked(x, c, xs)
-        sums = torch.zeros_like(c).index_add_(0, a, x)
-        counts = torch.bincount(a, minlength=k).to(x.dtype)
+        sums, counts = cluster_sums(x, a, k)
+        counts = counts.to(x.dtype)
         new_c = torch.where(
             counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], c
         )

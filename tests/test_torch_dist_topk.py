@@ -48,6 +48,18 @@ def _ids_match_outside_ties(i_a, i_b, d_ref, gap=1e-5):
     np.testing.assert_array_equal(np.asarray(i_a)[sep], np.asarray(i_b)[sep])
 
 
+@pytest.mark.parametrize(
+    "name,kw",
+    [("lowrank", dict(intrinsic_dim=8)), ("correlated", {}), ("quantisation", {}),
+     ("gaussian", {})],
+)
+def test_generate_data_suites_match_bit_for_bit(name, kw):
+    got = tdata.generate_data(name, 900, 40, 7, seed=11, **kw)
+    want = jdata.generate_data(name, 900, 40, 7, seed=11, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_data_generators_match_bit_for_bit():
     x_t, l_t = tdata.generate_clustered_data(777, 33, 9, seed=5)
     x_j, l_j = jdata.generate_clustered_data(777, 33, 9, seed=5)
@@ -156,8 +168,42 @@ def test_exhaustive_contract(small_points):
     np.testing.assert_allclose(d.numpy(), (diff ** 2).sum(-1), atol=1e-6)
     with pytest.raises(ValueError, match="dim"):
         idx.query(np.zeros((2, 4), np.float32), 1)
-    with pytest.raises(NotImplementedError, match="f64"):
-        ExhaustiveIndex(small_points.astype(np.float64), device="cpu")
+    # f64 data: f64 queries answer in f64, f32 queries in f32
+    idx64 = ExhaustiveIndex(small_points.astype(np.float64), device="cpu")
+    assert idx64.query(small_points.astype(np.float64), 2)[1].dtype == torch.float64
+    assert idx64.query(small_points, 2)[1].dtype == torch.float32
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_exhaustive_f64_matches_jax(xq, metric):
+    """A 2k pool from the f32 scan, rescored in f64 on the host: the same
+    ids and f64 distances as the JAX package's."""
+    x, q = xq
+    x64, q64 = x.astype(np.float64) + 1e-9, q.astype(np.float64)
+    ti, td = ExhaustiveIndex(x64, metric, device="cpu").query(q64, 10)
+    ji, jd = JExhaustive(x64, metric).query(q64, 10)
+    assert td.dtype == torch.float64
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_allclose(td.numpy(), jd, rtol=1e-12, atol=1e-12)
+    dx = ((q64[:, None, :] - x64[ti.numpy()]) ** 2).sum(-1)
+    if metric == "euclidean":
+        np.testing.assert_allclose(td.numpy(), dx, rtol=1e-12, atol=1e-12)
+
+
+def test_rescore_f64_pool_matches_jax():
+    """Duplicate pool entries keep one copy; the rest rank by f64 distance."""
+    from annsearch_tpu.models.base import rescore_f64_pool as j_rescore
+    from annsearch_tpu_torch.models.base import rescore_f64_pool
+
+    rng = np.random.default_rng(3)
+    x, q = rng.standard_normal((50, 6)), rng.standard_normal((4, 6))
+    pool = rng.integers(0, 50, (4, 12))
+    pool[:, 5] = pool[:, 0]                       # a clipped sentinel slot
+    for metric in ("euclidean", "cosine"):
+        got = rescore_f64_pool(x, q, pool, 8, tdist.parse_ann_dist(metric))
+        want = j_rescore(x, q, pool, 8, jdist.parse_ann_dist(metric))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
 
 
 def test_calculate_recall_matches_jax():

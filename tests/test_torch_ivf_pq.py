@@ -166,8 +166,10 @@ def test_facade(data128):
 def test_unported_options_raise(data128):
     x, q = data128
     idx = at.build_ivf_pq_index(x, nlist=8, m=128, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        idx.query(q, 5, approx=True, certify=True)
+    with pytest.raises(ValueError, match="exact f32 tier"):
+        idx.query(q, 5, approx=True, certify=True)   # quantised cells
+    with pytest.raises(NotImplementedError, match="ivf_cluster_scan"):
+        idx.query(q, 5)                               # the exact tier
     with pytest.raises(NotImplementedError, match="K1b"):
         idx.query(q, 5, approx=True, q_split=True)
     with pytest.raises(NotImplementedError, match="K1b"):
@@ -176,8 +178,6 @@ def test_unported_options_raise(data128):
         at.build_ivf_pq_index(x, nlist=8, m=16, device="cpu")
     with pytest.raises(ValueError, match="dim"):
         idx.query(q[:, :64], 5, approx=True)
-    with pytest.raises(NotImplementedError, match="f64"):
-        at.build_ivf_pq_index(x.astype(np.float64), nlist=8, m=128, device="cpu")
 
 
 def test_interop_rejects_incomplete_state(carried):

@@ -1,6 +1,12 @@
-"""Parity of the port's fused IVF cell scan (K1a: int8 residual cells, l2,
-depth-2 fold, one bf16 query term) with the JAX package's Pallas scan,
-which runs here in interpret mode.
+"""Parity of the port's fused IVF cell scan with the JAX package's Pallas
+scan, which runs here in interpret mode: K1a (int8 residual cells, l2,
+depth-2 fold, one bf16 query term), K1c-f32 (f32 cells, exact selection)
+and K1d-f32 (f32 cells, fold).
+
+K1c-f32 and K1d-f32 are held to the Pallas kernel bit for bit: their
+cells and queries are multiples of 1/8 in [−15/8, 15/8], so each value is
+exact in bf16 (the JAX side's hi/lo mantissa split has a zero lo term),
+and every product and every sum of up to 128 of them is exact in f32.
 
 Both sides get the same task inputs: the cell scan alone against
 ``_fused_cell_scan``, and the host side end to end against
@@ -21,6 +27,7 @@ from annsearch_tpu.ops import ivf_scan_pallas as jsp
 from annsearch_tpu.ops.probe_device import build_probe_lists_device as j_build
 from annsearch_tpu.ops.probe_device import device_probe_shapes
 from annsearch_tpu.utils.dist import Dist as JDist
+from annsearch_tpu.utils.dist import mantissa_split
 from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
 from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
 from annsearch_tpu_torch.utils.dist import Dist
@@ -223,18 +230,129 @@ def test_fused_ivf_scan_pads_when_fewer_candidates_than_k():
 
 
 def test_fused_eligible():
-    assert tsf.fused_eligible("i8dec_residual", 1024, 128, 10)
-    assert tsf.fused_eligible("i8dec_residual", 128, 384, 128)
-    assert not tsf.fused_eligible("i8dec_residual", 1000, 128, 10)   # seg % 128
-    assert not tsf.fused_eligible("i8dec_residual", 1024, 128, 129)  # k > 128
-    assert not tsf.fused_eligible("i8dec_residual", 1024, 400, 10)   # wide rows
-    for mode in ("f32", "bf16", "sq8", "i8dec", "pq_residual"):
+    for mode in ("i8dec_residual", "f32"):
+        assert tsf.fused_eligible(mode, 1024, 128, 10)
+        assert tsf.fused_eligible(mode, 128, 384, 128)
+        assert not tsf.fused_eligible(mode, 1000, 128, 10)   # seg % 128
+        assert not tsf.fused_eligible(mode, 1024, 128, 129)  # k > 128
+        assert not tsf.fused_eligible(mode, 1024, 400, 10)   # wide rows
+    for mode in ("bf16", "sq8", "i8dec", "pq_residual"):
         assert not tsf.fused_eligible(mode, 1024, 128, 10)
 
 
 def test_fused_ivf_scan_unported_variants_raise():
     z = torch.zeros(1)
-    for mode, metric in (("sq8", Dist.EUCLIDEAN), ("i8dec_residual", Dist.COSINE)):
+    for mode, metric, sel in (("sq8", Dist.EUCLIDEAN, "fold"),
+                              ("i8dec_residual", Dist.COSINE, "fold"),
+                              ("i8dec_residual", Dist.EUCLIDEAN, "exact")):
         with pytest.raises(NotImplementedError, match="K1"):
             tsf.fused_ivf_scan(torch.zeros((1, 8)), z, z, z, z, z, z, z, z, 1,
-                               metric, mode, z, 8)
+                               metric, mode, z, 8, selection=sel)
+
+
+# -- K1c-f32 and K1d-f32 ------------------------------------------------------
+
+
+def _grid_tasks(seed, d, R=24, maxq=32, seg=256, nseg=6, nq=50):
+    """f32 task inputs on the 1/8 grid, with sentinel rows (cnt 0), rows
+    shorter than kb and partial rows; ``cells`` padded to 16 columns."""
+    rng = np.random.default_rng(seed)
+    dp = -(-d // 16) * 16
+    cells = np.zeros((nseg + 1, seg, dp), np.float32)
+    cells[:-1, :, :d] = rng.integers(-15, 16, (nseg, seg, d)) / np.float32(8)
+    sn = (cells * cells).sum(-1).astype(np.float32)
+    queries_x = (rng.integers(-15, 16, (nq + 1, d)) / np.float32(8)).astype(np.float32)
+    queries_x[-1] = 0
+    task_seg = rng.integers(0, nseg, R).astype(np.int32)
+    cnt = np.full(R, seg, np.int32)
+    cnt[1::5] = rng.integers(1, seg, len(cnt[1::5]))
+    cnt[2] = 5                       # fewer valid lanes than kb
+    cnt[3::7] = 0
+    task_seg[3::7] = nseg
+    lists = rng.integers(0, nq + 1, (R, maxq)).astype(np.int32)
+    return lists, task_seg, cnt, queries_x, cells, sn
+
+
+def _jax_f32_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, selection):
+    """The JAX scan on port-style task inputs, as ``fused_ivf_scan`` runs it
+    for f32 cells (layout "plain"): hi/lo mantissa terms of queries and
+    cells, qadd = ‖q‖² (l2) or 0 (cos_plain), ``_fused_cell_scan`` in
+    interpret mode."""
+    R, maxq = lists.shape
+    seg, dp = cells.shape[1:]
+    qg = jnp.asarray(queries_x)[jnp.asarray(lists)]
+    qadd = jnp.zeros((R, maxq), jnp.float32) if cosine else jnp.sum(qg * qg, axis=-1)
+    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, dp - qg.shape[-1])))
+    cd, ci = jsp._fused_cell_scan(
+        mantissa_split(qg, 2), jnp.broadcast_to(qadd[:, None, :], (R, 8, maxq)),
+        jnp.asarray(task_seg), jnp.asarray(cnt), mantissa_split(jnp.asarray(cells), 2),
+        jnp.broadcast_to(jnp.asarray(sn)[:, None, :], (sn.shape[0], 8, seg)),
+        kb, "cos_plain" if cosine else "l2", True, fold_depth=2, selection=selection,
+    )
+    return np.asarray(cd), np.asarray(ci)
+
+
+@pytest.mark.parametrize(
+    "seed,d,kb,selection,cosine",
+    [
+        (0, 64, 24, "exact", False),     # the exact tier's kb at k = 15
+        (1, 128, 24, "exact", True),
+        (2, 40, 8, "exact", False),      # columns padded to 48
+        (3, 64, 128, "exact", True),     # kb = 128: every lane of a chunk
+        (4, 128, 16, "fold", False),
+        (5, 64, 16, "fold", True),
+        (6, 40, 8, "fold", False),
+    ],
+)
+def test_f32_cell_scan_matches_jax_bit_for_bit(seed, d, kb, selection, cosine):
+    args = _grid_tasks(seed, d)
+    gd, gi = tsf.ivf_cell_scan_f32_plain(
+        *(torch.as_tensor(a) for a in args), kb, cosine, exact=selection == "exact"
+    )
+    wd, wi = _jax_f32_cell_scan(*args, kb, cosine, selection)
+    assert gd.shape == (24, 32, kb) and gi.dtype == torch.int32
+    np.testing.assert_array_equal(gd.numpy(), wd)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+    cnt = args[2]
+    assert (gd.numpy()[cnt == 0] == np.float32(3e38)).all()
+    assert (gi.numpy()[cnt == 0] == 0).all()
+    if selection == "exact":
+        # past the valid rows: (3e38, lane 0), the Pallas extraction's rule
+        assert (gd.numpy()[2, :, 5:] == np.float32(3e38)).all()
+        assert (gi.numpy()[2, :, 5:] == 0).all()
+
+
+def test_f32_exact_selection_takes_the_lowest_lane_on_ties():
+    """Equal distances order by lane; a row's tail past cnt is (3e38, 0)."""
+    lists, task_seg, cnt, queries_x, cells, sn = _grid_tasks(7, 16, R=3, seg=128)
+    cells[0] = cells[0, :1]          # every row of segment 0 alike
+    sn = (cells * cells).sum(-1).astype(np.float32)
+    task_seg[:] = [0, 0, 6]
+    cnt[:] = [128, 10, 0]
+    args = (lists, task_seg, cnt, queries_x, cells, sn)
+    gd, gi = tsf.ivf_cell_scan_f32_plain(*(torch.as_tensor(a) for a in args), 16,
+                                         False, exact=True)
+    wd, wi = _jax_f32_cell_scan(*args, 16, False, "exact")
+    np.testing.assert_array_equal(gi.numpy(), wi)
+    np.testing.assert_array_equal(gd.numpy(), wd)
+    assert (gi.numpy()[0] == np.arange(16)).all()
+    assert (gi.numpy()[1, :, :10] == np.arange(10)).all()
+    assert (gi.numpy()[1, :, 10:] == 0).all()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_f32_wrappers_on_cpu_are_the_plain_version(exact):
+    args = tuple(torch.as_tensor(a) for a in _grid_tasks(8, 64, R=6))
+    wrapper = tsf.ivf_cell_scan_f32_exact if exact else tsf.ivf_cell_scan_f32_fold
+    before = wrapper.launches
+    gd, gi = wrapper(*args, 16, cosine=True)
+    pd, pi = tsf.ivf_cell_scan_f32_plain(*args, 16, True, exact=exact)
+    assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    assert wrapper.launches == before    # no kernel launched
+
+
+def test_repack_blocks_keeps_f32_cells():
+    storage = torch.randn(300, 40)
+    cells, sn = tsf.repack_blocks(storage, (storage ** 2).sum(1), torch.tensor([0, 128]), 128)
+    assert cells.dtype == torch.float32 and cells.shape == (3, 128, 48)
+    assert torch.equal(cells[1, :, :40], storage[128:256]) and (cells[:, :, 40:] == 0).all()

@@ -95,3 +95,37 @@ def test_segment_layout_identical(n, nlist, seg_size, empty):
         got, want = getattr(lt, name), getattr(lj, name)
         assert got.dtype == want.dtype, name
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_cluster_sums_in_a_fixed_order(k):
+    """Per-cluster sums by a stable sort and a segmented sum (no float
+    atomics), empty clusters included: numpy's sums within f32 rounding,
+    and bit-identical from one call to the next."""
+    rng = np.random.default_rng(k)
+    x = torch.as_tensor(rng.standard_normal((3000, 16)).astype(np.float32))
+    a = torch.as_tensor(rng.integers(0, k, 3000) * (rng.random(3000) < 0.9))
+    sums, counts = tk.cluster_sums(x, a, k)
+    want = np.zeros((k, 16))
+    np.add.at(want, a.numpy(), x.numpy().astype(np.float64))
+    assert counts.tolist() == np.bincount(a.numpy(), minlength=k).tolist()
+    np.testing.assert_allclose(sums.numpy(), want, rtol=1e-5, atol=1e-4)
+    again, _ = tk.cluster_sums(x, a, k)
+    assert torch.equal(sums, again)
+
+
+def test_lowrank_cells_are_balanced_in_both_packages():
+    """On lowrank data (12 blobs in 16 of 64 dimensions) the f32 k-means of
+    both packages splits the blobs into cells of similar size (random
+    init, k > 200): no cell many times the median, none empty."""
+    from annsearch_tpu.utils.dist import Dist as JDist
+    from annsearch_tpu_torch.utils.data import generate_data
+
+    x, _ = generate_data("lowrank", 60_000, 64, 12, seed=42, intrinsic_dim=16)
+    jc = jk.train_centroids(jnp.asarray(x), 240, seed=42)
+    ja, _ = jk.assign_clusters(jnp.asarray(x), jc, JDist.EUCLIDEAN)
+    tc = tk.train_centroids(torch.as_tensor(x), 240, seed=42)
+    ta, _ = tk.assign_clusters(torch.as_tensor(x), tc)
+    for a in (np.asarray(ja), ta.numpy()):
+        counts = np.bincount(a, minlength=240)
+        assert counts.min() > 0 and counts.max() < 3 * np.median(counts)
