@@ -7,7 +7,8 @@ CUDA kernel written for Hopper (``csrc/``), built at first use into
 
 Layout:
   * ``ops``     — running top-k, task-list inversion, the fused IVF scan
-  * ``models``  — indexes (exhaustive, IVF, IVF-PQ) and k-means
+  * ``models``  — indexes (exhaustive, IVF, bf16 / SQ8 IVF, IVF-PQ) and
+    k-means
   * ``utils``   — distances, synthetic data, metrics
   * ``interop`` — index state carried over from the JAX package
 """

@@ -1,21 +1,35 @@
-// IVF cell scan: one kernel template, three variants of the Pallas kernel
+// IVF cell scan: one kernel template, seven variants of the Pallas kernel
 // annsearch_tpu/ops/ivf_scan_pallas.py (_scan_kernel / _scan_body, launched
 // by _fused_cell_scan):
 //
-//   K1a      int8 residual cells ("i8dec_residual"), l2, depth-2 fold, one
-//            bf16 query term (the IVF-PQ main path);
-//   K1d-f32  f32 cells, l2 or cos_plain, depth-2 fold (IvfIndex, approx);
-//   K1c-f32  f32 cells, l2 or cos_plain, exact selection (IvfIndex, the
-//            recall-1.0 tier).
+//   K1a       int8 residual cells ("i8dec_residual"), l2, depth-2 fold, one
+//             bf16 query term (the IVF-PQ main path);
+//   K1d-f32   f32 cells, l2 or cos_plain, depth-2 fold (IvfIndex, approx);
+//   K1c-f32   f32 cells, l2 or cos_plain, exact selection (IvfIndex, the
+//             recall-1.0 tier);
+//   K1d-bf16  bf16 cells, the query rounded to bf16 (one bf16 pass), l2 or
+//             cos_plain, fold (IvfIndexBf16, approx);
+//   K1c-bf16  bf16 cells, the f32 query, l2 or cos_plain, exact selection
+//             (IvfIndexBf16, the default tier);
+//   K1d-sq8   int8 cells and int8 query codes (carried as integer-valued
+//             f32), l2 or cos_qnorm, fold (IvfSq8Index, approx);
+//   K1c-sq8   the same, exact selection (IvfSq8Index, the default tier).
 //
 // What it computes, for task row r (segment s = task_seg[r], n = cnt[r]
 // valid rows) and each query slot j < maxq (query id qid = lists[r, j]):
 //   K1a:  qr = q[qid] - cent[s], qadd = sum(qr * qr), qk = bf16_rne(qr * scales)
-//   f32:  qk = q[qid]; qadd = sum(q * q) (l2) or unused (cos_plain)
-//   dot_l = sum_c qk[c] * cell[s, l, c]   l < seg    (f32 FFMA; for K1a the
-//                                          int8 x bf16 products are exact)
-//   dist  = max(qadd + sn[s, l] - 2 dot_l, 0) (l2) or 1 - dot_l (cos_plain);
-//           lanes l >= n are 3e38
+//   else: qk = q[qid] (K1d-bf16: bf16_rne(q[qid])); qadd = sum(q * q) (l2),
+//         unused (cos_plain), or q_sq = sum(q * q) and qadd = 1 / sqrt(q_sq)
+//         or 0 for a zero query (cos_qnorm)
+//   dot_l = sum_c qk[c] * cell[s, l, c]   l < seg    (f32 FFMA; the int8 x
+//           bf16, bf16 x bf16 and int8 x int8 products are exact in f32, and
+//           sq8's sums stay integers below 2^24, so they are exact too)
+//   dist  = max(qadd + sn[s, l] - 2 dot_l, 0) (l2), 1 - dot_l (cos_plain),
+//           or 1 - (dot_l * qadd) * (1 / sqrt(max(sn[s, l], 1e-12)))
+//           (cos_qnorm); lanes l >= n are 3e38. The square roots and
+//           quotients are IEEE-rounded (__fsqrt_rn, __fdiv_rn), not the
+//           approximate rsqrtf, so the plain PyTorch version gives the
+//           same bits.
 //   fold:  stride class t = l mod 128 keeps its best and runner-up over the
 //          chunks c = 0 .. seg/128-1 in order, updated with a strict <; then
 //          kb rounds of the lexicographic minimum (value, lane) over the 256
@@ -29,17 +43,23 @@
 // (3e38, 0) everywhere, as the computation itself would.
 //
 // Bound on the H100: the multiply-adds, about (real query slots) x n x d per
-// task row, done here on the CUDA cores in f32 (K1a's bf16 x int8 products
-// are exact in bf16 MMA, so its bound is the bf16 tensor-core peak; the f32
-// variants' is the fp32 peak). Each cell row is read from device memory
-// once per block of 8 slots; f32 rows are 4x the bytes of int8 ones.
+// task row, done here on the CUDA cores in f32 (K1a's bf16 x int8, K1d-bf16's
+// bf16 x bf16 and sq8's int8 x int8 products are exact in tensor-core MMA,
+// so their bounds are the bf16 or int8 tensor-core peaks; K1c-bf16's f32
+// query is three exact bf16 terms, so its bound is three passes at the bf16
+// peak; the f32 variants' is the fp32 peak). Each cell row is read from
+// device memory once per block of 8 slots; f32 rows are 4x the bytes of int8
+// ones, bf16 rows 2x.
 // Design: one block per (task row, 8 query slots), one warp per slot. The
-// segment's rows are staged 128 at a time into shared memory as f32 and
-// shared by the block's 8 warps; thread t of a warp owns lanes t, t+32,
-// t+64, t+96 of each chunk and keeps its selection state in registers, so
-// the [maxq, seg] distance tile never leaves the SM. The row stride in
-// shared memory is padded by 4 floats, so the 128-bit loads of a
-// quarter-warp fall in distinct banks.
+// segment's rows are staged 128 at a time, and at most 128 columns at a
+// time, into shared memory as f32 and shared by the block's 8 warps, so a
+// block holds at most 128 x 132 floats of cells whatever d is (three blocks
+// fit an SM at d 256); thread t of a warp owns lanes t, t+32, t+64, t+96 of
+// each chunk and keeps its selection state in registers, so the [maxq, seg]
+// distance tile never leaves the SM. Chunks wholly past the row's valid
+// rows are skipped (their lanes are 3e38 and change no selection state).
+// The row stride in shared memory is padded by 4 floats, so the 128-bit
+// loads of a quarter-warp fall in distinct banks.
 //   fold:  each thread holds the (best, runner-up) of its 4 stride classes.
 //   exact: the warp holds a sorted top-kb list (slot t in thread t mod 32,
 //          register t / 32). A chunk whose lanes all rank after the list's
@@ -58,12 +78,15 @@
 namespace {
 
 constexpr int kLanes = 128;   // chunk width: stride classes per query
+constexpr int kCols = 128;    // columns staged at a time
 constexpr int kWarps = 8;     // query slots per block
 constexpr int kThreads = kWarps * 32;
 constexpr float kBig = 3.0e38f;
 constexpr float kEmpty = 3.4028234663852886e38f;  // FLT_MAX: an empty exact slot
 
-enum Epilogue { kL2 = 0, kCosPlain = 1 };
+enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2 };
+// the query term: K1a's residual, the query as it is, or rounded to bf16
+enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2 };
 
 __device__ __forceinline__ bool lex_less(float va, int ia, float vb, int ib) {
   return va < vb || (va == vb && ia < ib);
@@ -79,14 +102,15 @@ __device__ __forceinline__ void warp_lex_min(float& bv, int& bi) {
   }
 }
 
-// stage rows [0, 128) of `src` ([128, dp] cells) into cell_s as f32
+// stage columns [c0, c0 + w) of rows [0, 128) of `src` ([128, dp] cells)
+// into cell_s as f32 (w a multiple of 16)
 __device__ __forceinline__ void stage_chunk(const int8_t* src, float* cell_s,
-                                            int dp, int stride) {
-  const int vec_per_row = dp / 16;
+                                            int dp, int c0, int w, int stride) {
+  const int vec_per_row = w / 16;
   for (int v = threadIdx.x; v < kLanes * vec_per_row; v += kThreads) {
     const int row = v / vec_per_row;
     const int col = (v - row * vec_per_row) * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)row * dp + col);
+    const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)row * dp + c0 + col);
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
     float4* dst = reinterpret_cast<float4*>(cell_s + row * stride + col);
 #pragma unroll
@@ -97,18 +121,35 @@ __device__ __forceinline__ void stage_chunk(const int8_t* src, float* cell_s,
   }
 }
 
+__device__ __forceinline__ void stage_chunk(const __nv_bfloat16* src, float* cell_s,
+                                            int dp, int c0, int w, int stride) {
+  const int vec_per_row = w / 8;
+  for (int v = threadIdx.x; v < kLanes * vec_per_row; v += kThreads) {
+    const int row = v / vec_per_row;
+    const int col = (v - row * vec_per_row) * 8;
+    const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)row * dp + c0 + col);
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    float4* dst = reinterpret_cast<float4*>(cell_s + row * stride + col);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dst[e] = make_float4(__bfloat162float(b[4 * e]), __bfloat162float(b[4 * e + 1]),
+                           __bfloat162float(b[4 * e + 2]), __bfloat162float(b[4 * e + 3]));
+    }
+  }
+}
+
 __device__ __forceinline__ void stage_chunk(const float* src, float* cell_s,
-                                            int dp, int stride) {
-  const int vec_per_row = dp / 4;
+                                            int dp, int c0, int w, int stride) {
+  const int vec_per_row = w / 4;
   for (int v = threadIdx.x; v < kLanes * vec_per_row; v += kThreads) {
     const int row = v / vec_per_row;
     const int col = (v - row * vec_per_row) * 4;
     *reinterpret_cast<float4*>(cell_s + row * stride + col) =
-        *reinterpret_cast<const float4*>(src + (size_t)row * dp + col);
+        *reinterpret_cast<const float4*>(src + (size_t)row * dp + c0 + col);
   }
 }
 
-template <typename CellT, bool kResidual, int kEpi, bool kExact>
+template <typename CellT, int kPro, int kEpi, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 ivf_scan_kernel(const int* __restrict__ lists,
                 const int* __restrict__ task_seg,
@@ -121,8 +162,9 @@ ivf_scan_kernel(const int* __restrict__ lists,
                 float* __restrict__ out_d, int* __restrict__ out_i,
                 int maxq, int seg, int d, int dp, int kb) {
   extern __shared__ __align__(16) float smem[];
-  const int stride = dp + 4;
-  float* cell_s = smem;                            // [kLanes][dp + 4]
+  const int cols = min(dp, kCols);
+  const int stride = cols + 4;
+  float* cell_s = smem;                            // [kLanes][cols + 4]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* qk = smem + kLanes * stride + warp * dp;  // this warp's [dp]
@@ -152,13 +194,14 @@ ivf_scan_kernel(const int* __restrict__ lists,
     for (int c = lane; c < dp; c += 32) {
       float v = 0.f;
       if (c < d) {
-        if constexpr (kResidual) {
+        if constexpr (kPro == kResidual) {
           const float qr = __fsub_rn(qrow[c], cents[(size_t)s * d + c]);
           qadd = __fadd_rn(qadd, __fmul_rn(qr, qr));
           v = __bfloat162float(__float2bfloat16_rn(__fmul_rn(qr, scales[c])));
         } else {
           v = qrow[c];
-          if constexpr (kEpi == kL2) qadd = __fadd_rn(qadd, __fmul_rn(v, v));
+          if constexpr (kEpi != kCosPlain) qadd = __fadd_rn(qadd, __fmul_rn(v, v));
+          if constexpr (kPro == kBf16Query) v = __bfloat162float(__float2bfloat16_rn(v));
         }
       }
       qk[c] = v;
@@ -166,6 +209,9 @@ ivf_scan_kernel(const int* __restrict__ lists,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       qadd += __shfl_xor_sync(0xffffffffu, qadd, o);
+    }
+    if constexpr (kEpi == kCosQnorm) {  // qadd = 1 / |q| (0 for a zero query)
+      qadd = qadd > 0.f ? __fdiv_rn(1.f, __fsqrt_rn(fmaxf(qadd, 1e-12f))) : 0.f;
     }
   }
 
@@ -182,35 +228,43 @@ ivf_scan_kernel(const int* __restrict__ lists,
 
   const CellT* blk = cells + (size_t)s * seg * dp;
   const float* snr = sn + (size_t)s * seg;
-  const int nchunks = seg / kLanes;
+  // chunks past the valid rows hold only 3e38 lanes: skipped
+  const int nchunks = (n_valid + kLanes - 1) / kLanes;
 
   for (int ch = 0; ch < nchunks; ++ch) {
-    __syncthreads();  // the previous chunk's reads are done (and qk written)
-    stage_chunk(blk + (size_t)ch * kLanes * dp, cell_s, dp, stride);
-    __syncthreads();
-    if (!active) continue;
-
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c = 0; c < dp; c += 4) {
-      const float4 q4 = *reinterpret_cast<const float4*>(qk + c);
+    for (int c0 = 0; c0 < dp; c0 += cols) {
+      const int w = min(cols, dp - c0);
+      __syncthreads();  // the previous block's reads are done (and qk written)
+      stage_chunk(blk + (size_t)ch * kLanes * dp, cell_s, dp, c0, w, stride);
+      __syncthreads();
+      if (!active) continue;
+      // columns in order, as without the column blocks
+      for (int c = 0; c < w; c += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qk + c0 + c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x4 =
-            *reinterpret_cast<const float4*>(cell_s + (lane + 32 * i) * stride + c);
-        acc[i] = __fmaf_rn(q4.x, x4.x, acc[i]);
-        acc[i] = __fmaf_rn(q4.y, x4.y, acc[i]);
-        acc[i] = __fmaf_rn(q4.z, x4.z, acc[i]);
-        acc[i] = __fmaf_rn(q4.w, x4.w, acc[i]);
+        for (int i = 0; i < 4; ++i) {
+          const float4 x4 =
+              *reinterpret_cast<const float4*>(cell_s + (lane + 32 * i) * stride + c);
+          acc[i] = __fmaf_rn(q4.x, x4.x, acc[i]);
+          acc[i] = __fmaf_rn(q4.y, x4.y, acc[i]);
+          acc[i] = __fmaf_rn(q4.z, x4.z, acc[i]);
+          acc[i] = __fmaf_rn(q4.w, x4.w, acc[i]);
+        }
       }
     }
+    if (!active) continue;
     float dist[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int l = ch * kLanes + lane + 32 * i;
       if constexpr (kEpi == kL2) {
         dist[i] = fmaxf(__fsub_rn(__fadd_rn(qadd, snr[l]), 2.f * acc[i]), 0.f);
-      } else {
+      } else if constexpr (kEpi == kCosPlain) {
         dist[i] = __fsub_rn(1.f, acc[i]);
+      } else {
+        const float rs = __fdiv_rn(1.f, __fsqrt_rn(fmaxf(snr[l], 1e-12f)));
+        dist[i] = __fsub_rn(1.f, __fmul_rn(__fmul_rn(acc[i], qadd), rs));
       }
       if (l >= n_valid) dist[i] = kBig;
     }
@@ -313,15 +367,16 @@ ivf_scan_kernel(const int* __restrict__ lists,
 }
 
 size_t smem_bytes(int dp) {
-  return ((size_t)kLanes * (dp + 4) + (size_t)kWarps * dp) * sizeof(float);
+  const int cols = dp < kCols ? dp : kCols;
+  return ((size_t)kLanes * (cols + 4) + (size_t)kWarps * dp) * sizeof(float);
 }
 
-template <typename CellT, bool kResidual, int kEpi, bool kExact>
+template <typename CellT, int kPro, int kEpi, bool kExact>
 int launch(const void* lists, const void* task_seg, const void* cnt,
            const void* queries, const void* cents, const void* scales,
            const void* cells, const void* sn, void* out_d, void* out_i,
            int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  auto kern = ivf_scan_kernel<CellT, kResidual, kEpi, kExact>;
+  auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kExact>;
   const size_t smem = smem_bytes(dp);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -335,6 +390,38 @@ int launch(const void* lists, const void* task_seg, const void* cnt,
   return (int)cudaGetLastError();
 }
 
+// The dense-cell variants, by cell type: [cosine][exact]
+using DenseLaunch = decltype(&launch<float, kPlain, kL2, false>);
+
+// K1c-f32 (exact) and K1d-f32 (fold): f32 cells, l2 or cos_plain
+const DenseLaunch kF32[2][2] = {
+    {launch<float, kPlain, kL2, false>, launch<float, kPlain, kL2, true>},
+    {launch<float, kPlain, kCosPlain, false>, launch<float, kPlain, kCosPlain, true>},
+};
+// K1c-bf16 (exact: the f32 query) and K1d-bf16 (fold: the query rounded to
+// bf16): bf16 cells, l2 or cos_plain
+const DenseLaunch kBf16[2][2] = {
+    {launch<__nv_bfloat16, kBf16Query, kL2, false>,
+     launch<__nv_bfloat16, kPlain, kL2, true>},
+    {launch<__nv_bfloat16, kBf16Query, kCosPlain, false>,
+     launch<__nv_bfloat16, kPlain, kCosPlain, true>},
+};
+// K1c-sq8 and K1d-sq8: int8 cells, integer-valued query codes, l2 or cos_qnorm
+const DenseLaunch kSq8[2][2] = {
+    {launch<int8_t, kPlain, kL2, false>, launch<int8_t, kPlain, kL2, true>},
+    {launch<int8_t, kPlain, kCosQnorm, false>, launch<int8_t, kPlain, kCosQnorm, true>},
+};
+
+int launch_dense(const DenseLaunch (&variants)[2][2], const void* lists,
+                 const void* task_seg, const void* cnt, const void* queries,
+                 const void* cells, const void* sn, void* out_d, void* out_i,
+                 int R, int maxq, int seg, int d, int dp, int kb, int cosine,
+                 int exact, void* stream) {
+  return variants[cosine != 0][exact != 0](
+      lists, task_seg, cnt, queries, nullptr, nullptr, cells, sn, out_d, out_i,
+      R, maxq, seg, d, dp, kb, stream);
+}
+
 }  // namespace
 
 // Launches on `stream`; each returns the launch's cudaError_t (0 on
@@ -346,24 +433,37 @@ extern "C" int annsearch_ivf_scan_k1a(
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
     int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  return launch<int8_t, true, kL2, false>(
+  return launch<int8_t, kResidual, kL2, false>(
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }
 
-// K1c-f32 (exact != 0) and K1d-f32 (fold): f32 cells, l2 or cos_plain
+// K1c-f32 / K1d-f32: f32 cells (f32 queries)
 extern "C" int annsearch_ivf_scan_f32(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
     int exact, void* stream) {
-  using Launch = decltype(&launch<float, false, kL2, false>);
-  const Launch variants[2][2] = {
-      {launch<float, false, kL2, false>, launch<float, false, kL2, true>},
-      {launch<float, false, kCosPlain, false>,
-       launch<float, false, kCosPlain, true>},
-  };
-  return variants[cosine != 0][exact != 0](
-      lists, task_seg, cnt, queries, nullptr, nullptr, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+  return launch_dense(kF32, lists, task_seg, cnt, queries, cells, sn, out_d,
+                      out_i, R, maxq, seg, d, dp, kb, cosine, exact, stream);
+}
+
+// K1c-bf16 / K1d-bf16: bf16 cells (f32 queries)
+extern "C" int annsearch_ivf_scan_bf16(
+    const void* lists, const void* task_seg, const void* cnt,
+    const void* queries, const void* cells, const void* sn, void* out_d,
+    void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
+    int exact, void* stream) {
+  return launch_dense(kBf16, lists, task_seg, cnt, queries, cells, sn, out_d,
+                      out_i, R, maxq, seg, d, dp, kb, cosine, exact, stream);
+}
+
+// K1c-sq8 / K1d-sq8: int8 cells (f32 queries holding int8 codes)
+extern "C" int annsearch_ivf_scan_sq8(
+    const void* lists, const void* task_seg, const void* cnt,
+    const void* queries, const void* cells, const void* sn, void* out_d,
+    void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
+    int exact, void* stream) {
+  return launch_dense(kSq8, lists, task_seg, cnt, queries, cells, sn, out_d,
+                      out_i, R, maxq, seg, d, dp, kb, cosine, exact, stream);
 }

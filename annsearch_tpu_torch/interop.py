@@ -2,8 +2,10 @@
 
 ``ivf_pq_from_jax_arrays`` builds the port's ``IvfPqIndex`` from the arrays
 and scalars of an ``annsearch_tpu`` ``IvfPqIndex`` (in ``i8dec_residual``
-mode), and ``ivf_from_jax_arrays`` the port's ``IvfIndex`` from those of an
-f32 ``IvfIndex``, as their ``save`` writes them to npz; each class's
+mode), ``ivf_from_jax_arrays`` the port's ``IvfIndex`` from those of an
+f32 ``IvfIndex``, and ``ivf_bf16_from_jax_arrays`` /
+``ivf_sq8_from_jax_arrays`` the quantised ``IvfIndexBf16`` /
+``IvfSq8Index``, as their ``save`` writes them to npz; each class's
 ``load`` reads such a file through them. Both packages then query the same
 centroids and cells, so differences between their random streams drop out
 of a comparison.
@@ -19,6 +21,7 @@ import torch
 __all__ = [
     "ivf_pq_from_jax_arrays", "IVF_PQ_ARRAYS", "IVF_PQ_SCALARS",
     "ivf_from_jax_arrays", "IVF_ARRAYS", "IVF_SCALARS",
+    "ivf_bf16_from_jax_arrays", "ivf_sq8_from_jax_arrays", "IVF_SQ8_ARRAYS",
 ]
 
 IVF_ARRAYS = (
@@ -28,17 +31,19 @@ IVF_ARRAYS = (
 IVF_SCALARS = ("n", "dim", "nlist", "seg_size")
 IVF_PQ_ARRAYS = IVF_ARRAYS + ("codebooks", "dec_scales")
 IVF_PQ_SCALARS = IVF_SCALARS + ("m",)
+IVF_SQ8_ARRAYS = IVF_ARRAYS + ("scales",)
 
 #: device dtypes of the index arrays (``storage`` keeps its own: int8 or
-#: float32); the rest are float32
+#: float32, unless the caller casts it); the rest are float32
 _DTYPES = {
     "seg_offsets": torch.int32, "seg_counts": torch.int32,
     "original_ids": torch.int64,
 }
 
 
-def _ivf_state(cls, arrays, meta, names, scalars, storage_dtype, device):
-    """An instance of ``cls`` (an IVF index) holding the given state."""
+def _ivf_state(cls, arrays, meta, names, scalars, storage_dtype, device, dtypes=None):
+    """An instance of ``cls`` (an IVF index) holding the given state;
+    ``dtypes`` overrides the device dtype of named arrays."""
     from .utils.dist import parse_ann_dist
 
     missing = [a for a in names if arrays.get(a) is None]
@@ -61,6 +66,7 @@ def _ivf_state(cls, arrays, meta, names, scalars, storage_dtype, device):
             continue
         t = torch.tensor(np.asarray(arrays[name]))
         dtype = t.dtype if name == "storage" else _DTYPES.get(name, torch.float32)
+        dtype = (dtypes or {}).get(name, dtype)
         setattr(obj, name, t.to(device=dev, dtype=dtype))
     obj._cluster_ptr = np.asarray(arrays["cluster_ptr"], dtype=np.int64)
     obj.vectors = None
@@ -92,4 +98,28 @@ def ivf_pq_from_jax_arrays(
         IvfPqIndex, arrays, meta, IVF_PQ_ARRAYS, IVF_PQ_SCALARS, np.int8, device
     )
     obj.quantiser = ProductQuantiser(obj.codebooks, obj.m, obj.dim)
+    return obj
+
+
+def ivf_bf16_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``IvfIndexBf16`` from a JAX bf16 index's state: ``arrays`` holds
+    :data:`IVF_ARRAYS` with ``storage`` as float32 (npz holds no bf16),
+    cast back to bf16 here; ``meta`` the scalars :data:`IVF_SCALARS`."""
+    from .models.quantised.ivf import IvfIndexBf16
+
+    return _ivf_state(IvfIndexBf16, arrays, meta, IVF_ARRAYS, IVF_SCALARS,
+                      np.float32, device, {"storage": torch.bfloat16})
+
+
+def ivf_sq8_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``IvfSq8Index`` from a JAX SQ8 index's state: ``arrays`` holds
+    :data:`IVF_SQ8_ARRAYS` (``storage`` int8, ``store_sqnorms`` the int32
+    squared norms of the codes, ``scales``), ``meta`` the scalars
+    :data:`IVF_SCALARS`. The quantiser is rebuilt from ``scales``."""
+    from .models.quantised.ivf import IvfSq8Index
+    from .models.quantised.quantisers import ScalarQuantiser
+
+    obj = _ivf_state(IvfSq8Index, arrays, meta, IVF_SQ8_ARRAYS, IVF_SCALARS,
+                     np.int8, device, {"store_sqnorms": torch.int32})
+    obj.quantiser = ScalarQuantiser(obj.scales)
     return obj

@@ -1,5 +1,5 @@
-"""Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, IVF
-and IVF-PQ rows).
+"""Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, IVF,
+quantised IVF (bf16, SQ8) and IVF-PQ rows).
 
 Queries return ``(ids [nq, k], dists [nq, k] | None)`` as tensors on the
 index's device: ids int64, distances float32 ascending (euclidean squared).
@@ -12,7 +12,7 @@ from typing import Any
 
 from .models.exhaustive import ExhaustiveIndex
 from .models.ivf import IvfIndex
-from .models.quantised.ivf import IvfPqIndex
+from .models.quantised.ivf import IvfIndexBf16, IvfPqIndex, IvfSq8Index
 
 __all__ = [
     "build_exhaustive_index",
@@ -21,6 +21,12 @@ __all__ = [
     "build_ivf_index",
     "query_ivf_index",
     "query_ivf_self",
+    "build_ivf_bf16_index",
+    "query_ivf_bf16_index",
+    "query_ivf_bf16_self",
+    "build_ivf_sq8_index",
+    "query_ivf_sq8_index",
+    "query_ivf_sq8_self",
     "build_ivf_pq_index",
     "query_ivf_pq_index",
 ]
@@ -70,6 +76,48 @@ def query_ivf_index(
 
 
 def query_ivf_self(index: IvfIndex, k: int, nprobe=None, return_dist=False):
+    return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)
+
+
+def build_ivf_bf16_index(
+    mat: Any, nlist=None, max_iters=None, dist_metric="euclidean", seed=42,
+    verbose=False, device="cuda",
+) -> IvfIndexBf16:
+    return IvfIndexBf16(
+        mat, dist_metric, nlist=nlist,
+        max_iters=30 if max_iters is None else max_iters, seed=seed,
+        verbose=verbose, device=device,
+    )
+
+
+def query_ivf_bf16_index(query_mat, index: IvfIndexBf16, k: int, nprobe=None, return_dist=False):
+    """The exact tier (kernel K1c-bf16 and an f32 rescore over the bf16
+    rows), as the JAX row runs it."""
+    return _maybe_dist(*index.query(query_mat, k, nprobe=nprobe), return_dist)
+
+
+def query_ivf_bf16_self(index: IvfIndexBf16, k: int, nprobe=None, return_dist=False):
+    return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)
+
+
+def build_ivf_sq8_index(
+    mat: Any, nlist=None, max_iters=None, dist_metric="euclidean", seed=42,
+    verbose=False, device="cuda",
+) -> IvfSq8Index:
+    return IvfSq8Index(
+        mat, dist_metric, nlist=nlist,
+        max_iters=30 if max_iters is None else max_iters, seed=seed,
+        verbose=verbose, device=device,
+    )
+
+
+def query_ivf_sq8_index(query_mat, index: IvfSq8Index, k: int, nprobe=None, return_dist=False):
+    """The exact tier (kernel K1c-sq8: integer-space distances), as the JAX
+    row runs it."""
+    return _maybe_dist(*index.query(query_mat, k, nprobe=nprobe), return_dist)
+
+
+def query_ivf_sq8_self(index: IvfSq8Index, k: int, nprobe=None, return_dist=False):
     return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)
 
 

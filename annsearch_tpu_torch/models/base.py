@@ -125,12 +125,23 @@ class BaseIndex:
 
     # -- persistence: the npz layout of the JAX package's save() ----------
 
+    def memory_usage_bytes(self) -> int:
+        """Bytes of the index's device state (its ``_state_arrays``)."""
+        return sum(
+            t.numel() * t.element_size()
+            for t in (getattr(self, name, None) for name in self._state_arrays)
+            if t is not None
+        )
+
     def _save_arrays(self) -> dict[str, np.ndarray]:
-        return {
-            name: getattr(self, name).cpu().numpy()
-            for name in self._state_arrays
-            if getattr(self, name, None) is not None
-        }
+        # npz holds no bfloat16: such arrays are saved as f32, as the JAX
+        # package saves them, and cast back on load
+        out = {}
+        for name in self._state_arrays:
+            t = getattr(self, name, None)
+            if t is not None:
+                out[name] = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        return out
 
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -11,12 +11,14 @@ Query, two tiers:
 * approximate (``approx=True``): route each query to its nearest
   segments → invert into per-segment task rows on the device → fused cell
   scan with the stride-class fold → remap to original ids;
-* exact (``approx=False``, f32 cells): route to the nearest *clusters* →
-  expand to (query, segment) pairs (dense when no cell is split, else the
-  compact pair lists) → fused scan with exact per-segment selection (kb ≥
-  k + 8) → elementwise f32 rescore of a 2k pool. ``certify=True`` adds the
-  triangle-inequality certificate, which re-probes every query whose k-th
-  distance an unprobed cell could still beat.
+* exact (``approx=False``; f32, bf16 and sq8 cells): route to the nearest
+  *clusters* → expand to (query, segment) pairs (dense when no cell is
+  split, else the compact pair lists) → fused scan with exact per-segment
+  selection → for f32 and bf16 cells (kb ≥ k + 8) an elementwise f32
+  rescore of a 2k pool; sq8 distances are exact in integer space, so its
+  selection keeps k with no margin and no rescore. ``certify=True`` (f32
+  cells) adds the triangle-inequality certificate, which re-probes every
+  query whose k-th distance an unprobed cell could still beat.
 
 f64 queries to an index built from f64 data take a 2k pool from the f32
 scan and rescore it in f64 on the host.
@@ -45,6 +47,14 @@ from .base import BaseIndex, host_f64
 from .kmeans import assign_clusters, segment_layout, train_centroids
 
 __all__ = ["IvfBase", "route_to_cells"]
+
+#: modes whose exact tier is the fused scan (K1c), and those of them whose
+#: scan distances are rounded: their selection keeps a margin of 8 and a 2k
+#: pool is rescored in f32 (sq8's integer-space distances are exact)
+_EXACT_MODES = ("f32", "bf16", "sq8")
+_RESCORED_MODES = ("f32", "bf16")
+#: modes where ``q_split`` chooses the query terms of the approximate tier
+_Q_SPLIT_MODES = ("i8dec", "i8dec_residual")
 
 
 def route_to_cells(
@@ -109,9 +119,10 @@ def _cert_flags(q, centroids, radii, dk, npr_used, metric: Dist):
 def _exact_rescore(q, storage, d, i, k: int, metric: Dist):
     """f32 rescore of a candidate pool, elementwise (``Σ(q−v)²`` or
     ``1 − Σ q·v``; no matmul identity); pool entries whose scan distance is
-    not finite stay +inf. A stable top-k: ties go to the lower pool
-    position, as ``lax.top_k`` breaks them."""
-    v = storage[torch.clamp(i, 0, storage.shape[0] - 1)]     # [nq, kp, d]
+    not finite stay +inf. bf16 rows are upcast first: exact at storage
+    precision. A stable top-k: ties go to the lower pool position, as
+    ``lax.top_k`` breaks them."""
+    v = storage[torch.clamp(i, 0, storage.shape[0] - 1)].float()   # [nq, kp, d]
     if metric == Dist.COSINE:
         dx = 1.0 - (q[:, None, :] * v).sum(dim=-1)
     else:
@@ -125,7 +136,8 @@ def _exact_rescore(q, storage, d, i, k: int, metric: Dist):
 class IvfBase(BaseIndex):
     """k-means routing + segmented cells + fused cell scan. Subclasses set
     ``mode`` and define ``_encode_storage`` and ``_decoded_sorted`` (and
-    ``_scan_scales`` for the int8 modes)."""
+    ``_scan_scales`` for the int8 residual mode, ``_encode_queries`` where
+    the scan scores queries in another space than routing)."""
 
     _state_arrays = (
         "storage", "store_sqnorms", "centroids", "seg_centroids",
@@ -200,8 +212,12 @@ class IvfBase(BaseIndex):
         return cached
 
     def _scan_scales(self) -> torch.Tensor | None:
-        """Decode scales of the int8 modes (None for f32 cells)."""
+        """Decode scales of the int8 residual mode (None elsewhere)."""
         return None
+
+    def _encode_queries(self, q: torch.Tensor) -> torch.Tensor:
+        """The queries as the scan scores them (routing takes ``q``)."""
+        return q
 
     def _segment_rows(self) -> tuple[np.ndarray, np.ndarray]:
         """``(rows, seg)``: every stored row's sorted position and its
@@ -278,19 +294,16 @@ class IvfBase(BaseIndex):
         ``approx=True`` is the fused approximate tier: each (query,
         segment) keeps kb ≥ k candidates from a depth-2 stride-class fold,
         and the cross-segment top-k is exact. ``approx=False`` (the default)
-        is the exact tier, ported for f32 cells: exact within the probed
-        cells at f32 grade. ``certify=True`` (exact f32 tier only) makes it
-        provably exact at f32-selection grain: ``nprobe`` then sets the
-        starting probe count. ``k_scan`` widens the scanned pool (the
-        result then has ``k_scan`` columns). f64 queries to an index built
-        from f64 data answer at f64 grade (dists float64). ``q_split``
-        resolves to one bf16 query pass for the int8 modes, as in the JAX
-        package; ``True`` is kernel K1b."""
-        if q_split:
-            raise NotImplementedError(
-                "q_split=True (two bf16 query terms) is kernel K1b, "
-                "ROADMAP Queue 2"
-            )
+        is the exact tier, ported for f32, bf16 and sq8 cells: exact within
+        the probed cells at storage precision. ``certify=True`` (exact f32
+        tier only) makes it provably exact at f32-selection grain:
+        ``nprobe`` then sets the starting probe count. ``k_scan`` widens the
+        scanned pool (the result then has ``k_scan`` columns). f64 queries
+        to an index built from f64 data answer at f64 grade (dists
+        float64). ``q_split`` acts, as in the JAX package, only in the
+        approximate tier of the int8-decode modes, where ``None`` means one
+        bf16 query pass and ``True`` two (kernel K1b, not ported: it
+        raises); everywhere else it is ignored."""
         if certify and (approx or self.mode != "f32"):
             raise ValueError(
                 "certify=True requires the exact f32 tier (approx=False and a "
@@ -301,7 +314,7 @@ class IvfBase(BaseIndex):
         if q64 is not None:
             k_scan = min(2 * self._clamp_k(k), self.n)
         q = self._prep_queries(query_mat)
-        ids, d = self._query_prepped(q, k, nprobe, k_scan, approx)
+        ids, d = self._query_prepped(q, k, nprobe, k_scan, approx, q_split)
         if q64 is not None:
             ids, d = self._rescore_f64(q64, ids, k)
         if certify:
@@ -359,21 +372,26 @@ class IvfBase(BaseIndex):
             )
         return ids, d
 
-    def _scan(self, q: torch.Tensor, k: int, nprobe: int, approx: bool):
+    def _scan(self, q: torch.Tensor, k: int, nprobe: int, approx: bool,
+              q_split: bool | None = None):
         """Route → task lists → fused scan. Returns (dists [nq, k],
         sorted-storage positions [nq, k])."""
-        if not approx and self.mode != "f32":
+        if not approx and self.mode not in _EXACT_MODES:
             raise NotImplementedError(
                 f"approx=False on mode {self.mode!r}: the exact tier of the "
-                "int8 modes needs the XLA-style cluster scan ivf_cluster_scan "
-                "(ROADMAP Queue 1 item 10); that of bf16 / sq8 cells needs "
-                "kernel K1c-bf16 / K1c-sq8 (ROADMAP Queue 2)"
+                "int8-decode modes needs the XLA-style cluster scan "
+                "ivf_cluster_scan (ROADMAP Queue 1 item 10)"
             )
         if not fused_eligible(self.mode, self.seg_size, self.dim, k):
             raise NotImplementedError(
                 f"mode={self.mode!r} seg_size={self.seg_size} dim={self.dim} "
                 f"k={k} needs the XLA-style cluster scan ivf_cluster_scan "
                 "(ROADMAP Queue 1 item 10)"
+            )
+        if approx and q_split and self.mode in _Q_SPLIT_MODES:
+            raise NotImplementedError(
+                "q_split=True (two bf16 query terms) is kernel K1b, "
+                "ROADMAP Queue 2"
             )
         cells, sn = self._fused_blocks()
         scan_args = (
@@ -395,19 +413,23 @@ class IvfBase(BaseIndex):
         probes = route_to_cells(q, self.seg_centroids, nprobe_seg, self.metric)
         cluster_ids, lists, gmap = build_probe_lists_device(probes, nseg, maxq, R)
         return fused_ivf_scan(
-            q, cluster_ids, lists, gmap, *scan_args, k, self.metric, self.mode,
-            self._scan_scales(), kb,
+            self._encode_queries(q), cluster_ids, lists, gmap, *scan_args, k,
+            self.metric, self.mode, self._scan_scales(), kb,
         )
 
     def _scan_exact(self, q, k, nprobe, scan_args):
         """Recall-1.0 tier: route to clusters, expand to segments, exact
-        per-segment selection of kb ≥ k + 8 (a margin against f32 rank
-        flips), a 2k pool rescored elementwise in f32."""
+        per-segment selection. f32 and bf16 cells: kb ≥ k + 8 (a margin
+        against rank flips of rounded distances), a 2k pool rescored
+        elementwise in f32. sq8 cells: kb ≥ k and no rescore, since their
+        integer-space distances are exact."""
         nq = q.shape[0]
         nseg = int(self.seg_offsets.shape[0])
         s_max = self._seg_s_max()
         ptr = self._cluster_ptr_dev()
-        kb = min(max(8, -(-(k + 8) // 8) * 8), 128)
+        rescored = self.mode in _RESCORED_MODES
+        margin = 8 if rescored else 0
+        kb = min(max(8, -(-(k + margin) // 8) * 8), 128)
         probes = route_to_cells(q, self.centroids, nprobe, self.metric)
         if s_max == 1:
             # no split cells: the dense expansion is the identity
@@ -424,16 +446,19 @@ class IvfBase(BaseIndex):
                 probes, ptr, P, T_g, nseg, maxq, R
             )
         d, i = fused_ivf_scan(
-            q, cluster_ids, lists, gmap, *scan_args, min(2 * k, 128),
-            self.metric, self.mode, self._scan_scales(), kb, selection="exact",
+            self._encode_queries(q), cluster_ids, lists, gmap, *scan_args,
+            min(2 * k, 128) if rescored else k, self.metric, self.mode,
+            self._scan_scales(), kb, selection="exact",
         )
+        if not rescored:
+            return d, i
         return _exact_rescore(q, self.storage, d, i, k, self.metric)
 
-    def _query_prepped(self, q, k, nprobe=None, k_scan=None, approx=False):
+    def _query_prepped(self, q, k, nprobe=None, k_scan=None, approx=False, q_split=None):
         k = self._clamp_k(k)
         nprobe = self.default_nprobe() if nprobe is None else nprobe
         nprobe = max(1, min(nprobe, self.nlist))
-        d, i = self._scan(q, k if k_scan is None else k_scan, nprobe, approx)
+        d, i = self._scan(q, k if k_scan is None else k_scan, nprobe, approx, q_split)
         ids = self.original_ids[torch.clamp(i, 0, self.n - 1)]
         return ids, d
 

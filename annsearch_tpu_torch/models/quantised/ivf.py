@@ -1,10 +1,22 @@
-"""IVF + residual PQ (port of
-``annsearch_tpu.models.quantised.ivf.IvfPqIndex``, int8 fast-scan mode).
+"""Quantised IVF indexes (port of ``annsearch_tpu.models.quantised.ivf``):
+bf16 cells (``IvfIndexBf16``), SQ8 cells (``IvfSq8Index``) and IVF +
+residual PQ (``IvfPqIndex``, int8 fast-scan mode).
 
-Codebooks are trained on ``vec − centroid``. With ``m = dim`` (scalar
-sub-codebooks) the decoded residuals are requantised per dimension to int8
-at build (error ≤ absmax/254, far below the PQ error), and the scan is a
-pure int8 × bf16 dot product with no decode work: mode ``i8dec_residual``.
+Routing uses the f32 centroids; the cells are stored compressed and
+scanned in the quantised domain:
+
+* bf16: rows cast to bf16 (round to nearest even); the exact tier rescores
+  its pool in f32 over the bf16 rows (kernels K1c-bf16, K1d-bf16);
+* SQ8: per-dimension symmetric int8 codes (``ScalarQuantiser``); queries
+  are encoded with the same scales and scored in integer space, where the
+  distances are exact (kernels K1c-sq8, K1d-sq8);
+* IVF-PQ: codebooks are trained on ``vec − centroid``. With ``m = dim``
+  (scalar sub-codebooks) the decoded residuals are requantised per
+  dimension to int8 at build (error ≤ absmax/254, far below the PQ error),
+  and the scan is a pure int8 × bf16 dot product with no decode work: mode
+  ``i8dec_residual`` (kernel K1a).
+
+f64 input is cast to f32: quantised storage keeps no f64 copy.
 """
 
 from __future__ import annotations
@@ -13,9 +25,63 @@ import torch
 
 from ...utils.dist import Dist, sq_norms
 from ..ivf_base import IvfBase
-from .quantisers import ProductQuantiser
+from .quantisers import ProductQuantiser, ScalarQuantiser, bf16_decode, bf16_encode
 
-__all__ = ["IvfPqIndex"]
+__all__ = ["IvfIndexBf16", "IvfSq8Index", "IvfPqIndex"]
+
+
+class IvfIndexBf16(IvfBase):
+    """IVF routing (f32 centroids) + bf16 cells."""
+
+    mode = "bf16"
+
+    def _encode_storage(self, x, order, seed):
+        s16 = bf16_encode(x[order])
+        self._pad_storage(s16, sq_norms(s16.float()))
+
+    def _decoded_sorted(self) -> torch.Tensor:
+        return bf16_decode(self.storage[: self.n])
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "IvfIndexBf16":
+        """Load an index saved by either package's ``save`` (npz; the bf16
+        storage is saved as f32 and cast back)."""
+        from ...interop import ivf_bf16_from_jax_arrays
+
+        arrays, meta = cls._read_npz(path, cls.__name__)
+        return ivf_bf16_from_jax_arrays(arrays, meta, device)
+
+
+class IvfSq8Index(IvfBase):
+    """IVF routing + SQ8 int8 cells, integer-space distances: euclidean is
+    the squared distance between the int8 codes of query and row, cosine
+    ``1 − codes·codes / (‖q codes‖·‖row codes‖)``."""
+
+    mode = "sq8"
+    _state_arrays = IvfBase._state_arrays + ("scales",)
+
+    def _encode_storage(self, x, order, seed):
+        x_sorted = x[order]
+        self.quantiser = ScalarQuantiser.train(x_sorted)
+        self.scales = self.quantiser.scales
+        codes = self.quantiser.encode(x_sorted)
+        c32 = codes.int()
+        # int32 squared norms of the codes (exact), as the JAX package keeps
+        self._pad_storage(codes, (c32 * c32).sum(dim=-1, dtype=torch.int32))
+
+    def _encode_queries(self, q: torch.Tensor) -> torch.Tensor:
+        return self.quantiser.encode(q)
+
+    def _decoded_sorted(self) -> torch.Tensor:
+        return self.quantiser.decode(self.storage[: self.n])
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "IvfSq8Index":
+        """Load an index saved by either package's ``save`` (npz)."""
+        from ...interop import ivf_sq8_from_jax_arrays
+
+        arrays, meta = cls._read_npz(path, cls.__name__)
+        return ivf_sq8_from_jax_arrays(arrays, meta, device)
 
 
 class IvfPqIndex(IvfBase):

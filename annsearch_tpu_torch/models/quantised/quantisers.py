@@ -1,23 +1,61 @@
-"""Product quantiser, scalar-codebook case (port of
-``annsearch_tpu.models.quantised.quantisers.ProductQuantiser`` for
-``ds = dim / m == 1``).
+"""Quantisers (port of ``annsearch_tpu.models.quantised.quantisers``): the
+bf16 codec, the scalar quantiser (SQ8) and the product quantiser in its
+scalar-codebook case (``ds = dim / m == 1``).
 
-With one dimension per subspace, each of the m codebooks is a 1-d k-means
-over one column, trained for all columns at once on the sorted rows; the
-encode is a per-subspace argmin of ``c² − 2·x·c``.
+With one dimension per subspace, each of the m PQ codebooks is a 1-d
+k-means over one column, trained for all columns at once on the sorted
+rows; the encode is a per-subspace argmin of ``c² − 2·x·c``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ProductQuantiser", "N_CLUSTERS_PQ"]
+__all__ = [
+    "bf16_encode", "bf16_decode", "ScalarQuantiser", "ProductQuantiser",
+    "N_CLUSTERS_PQ",
+]
 
 #: sub-codebook size (fits u8 codes)
 N_CLUSTERS_PQ = 256
 
 #: training rows kept for the scalar codebooks (stride sample above this)
 SCALAR_TRAIN_CAP = 262_144
+
+
+def bf16_encode(x: torch.Tensor) -> torch.Tensor:
+    """f32 → bf16, round to nearest even (the JAX package's cast)."""
+    return x.to(torch.bfloat16)
+
+
+def bf16_decode(x: torch.Tensor) -> torch.Tensor:
+    return x.float()
+
+
+class ScalarQuantiser:
+    """Per-dimension symmetric int8 quantiser: ``scales[d] = max|x[:, d]| /
+    128`` (1.0 for an all-zero dim); encode rounds half away from zero and
+    clamps to [-128, 127]. Every step is one IEEE f32 operation, so the
+    codes equal the JAX package's bit for bit."""
+
+    def __init__(self, scales: torch.Tensor):
+        self.scales = scales  # [d] f32
+
+    @classmethod
+    def train(cls, x: torch.Tensor) -> "ScalarQuantiser":
+        maxabs = x.abs().max(dim=0).values
+        return cls(torch.where(maxabs > 0, maxabs / 128.0, 1.0).float())
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        scaled = x / self.scales
+        rounded = torch.trunc(scaled + 0.5 * torch.sign(scaled))
+        return torch.clamp(rounded, -128, 127).to(torch.int8)
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        return codes.float() * self.scales
+
+    def memory_usage_bytes(self) -> int:
+        return self.scales.numel() * 4
 
 
 def _prefix_sum(v: torch.Tensor, base: int = 16) -> torch.Tensor:

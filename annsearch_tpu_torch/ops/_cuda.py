@@ -36,6 +36,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "annsearch_ivf_scan_k1a": [_P] * 10 + [_I] * 6 + [_P],
     "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
+    "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + [_P],
+    "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 

@@ -1,23 +1,31 @@
 """Fused IVF cell scan (port of ``annsearch_tpu.ops.ivf_scan_pallas``).
 
-Three variants of the Pallas ``_scan_kernel`` / ``_scan_body`` (launched
+Seven variants of the Pallas ``_scan_kernel`` / ``_scan_body`` (launched
 by ``_fused_cell_scan``) are ported, each a hand-written kernel in
 ``csrc/ivf_scan.cu`` with a wrapper and a plain PyTorch version here:
 
 * K1a, ``ivf_cell_scan``: int8 residual cells (``i8dec_residual``), ``l2``
   epilogue, depth-2 stride-class fold, one bf16 query term — the IVF-PQ
   main path;
-* K1d-f32, ``ivf_cell_scan_f32_fold``: f32 cells, ``l2`` or ``cos_plain``,
-  the same fold — ``IvfIndex.query(approx=True)``;
-* K1c-f32, ``ivf_cell_scan_f32_exact``: f32 cells, ``l2`` or
-  ``cos_plain``, exact per-segment selection — the recall-1.0 tier of
-  ``IvfIndex.query(approx=False)``.
+* K1d-f32 / K1c-f32, ``ivf_cell_scan_f32_fold`` / ``_exact``: f32 cells,
+  ``l2`` or ``cos_plain``, the fold or the exact per-segment selection —
+  ``IvfIndex.query(approx=True)`` and its recall-1.0 default tier;
+* K1d-bf16 / K1c-bf16, ``ivf_cell_scan_bf16_fold`` / ``_exact``: bf16
+  cells, ``l2`` or ``cos_plain`` — ``IvfIndexBf16``. The fold scores the
+  query rounded to bf16 (the JAX package's single bf16 pass); the exact
+  selection scores the f32 query, where the JAX package splits it into
+  hi/lo bf16 terms to carry about 16 of its bits through the MXU: the
+  CUDA cores carry all 24;
+* K1d-sq8 / K1c-sq8, ``ivf_cell_scan_sq8_fold`` / ``_exact``: int8 cells
+  and int8 query codes, ``l2`` or ``cos_qnorm`` — ``IvfSq8Index``. Every
+  product and partial sum is an integer below 2²⁴, so the dots, and the
+  ``l2`` distances, equal the JAX package's bit for bit.
 
 A wrapper launches its kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors; there is no fallback between the two. The
 JAX package reaches f32 grade on a bf16 MXU with hi/lo mantissa splits
-and the ``packed2`` lane layout; here the f32 dots are FP32 FFMA on the
-CUDA cores.
+and the ``packed2`` lane layout; here the dots are FP32 FFMA on the CUDA
+cores.
 
 On the H100 every variant is bound by its multiply-adds, about
 R·maxq·seg·d (1.3e11 at the 1M×128d main path, nprobe 16), done on the
@@ -45,6 +53,12 @@ __all__ = [
     "ivf_cell_scan_f32_exact",
     "ivf_cell_scan_f32_fold",
     "ivf_cell_scan_f32_plain",
+    "ivf_cell_scan_bf16_exact",
+    "ivf_cell_scan_bf16_fold",
+    "ivf_cell_scan_bf16_plain",
+    "ivf_cell_scan_sq8_exact",
+    "ivf_cell_scan_sq8_fold",
+    "ivf_cell_scan_sq8_plain",
     "fused_ivf_scan",
 ]
 
@@ -53,21 +67,23 @@ LANES = 128
 BIG = 3.0e38
 #: the kernel reads rows in 16-byte vectors: cells pad d to this
 _D_ALIGN = 16
-#: widest padded row the kernel's shared-memory tile takes (128 staged rows
-#: of dp + 4 floats and 8 query rows of dp floats: 210,944 bytes at 384, of
-#: the 232,448 a block may use)
-_D_MAX = 384
+#: widest padded row the kernel takes: its shared memory holds 128 staged
+#: rows of at most 132 floats and 8 query rows of dp floats (198,656 bytes
+#: at 4096, of the 232,448 a block may use)
+_D_MAX = 4096
 #: task rows per step of the plain versions (bounds their [rows, maxq, seg]
 #: tiles)
 _PLAIN_ROWS = 64
 #: storage modes with a ported fused kernel
-_FUSED_MODES = ("i8dec_residual", "f32")
+_FUSED_MODES = ("i8dec_residual", "f32", "bf16", "sq8")
 
 
 def fused_eligible(mode: str, seg_size: int, dim_w: int, k: int) -> bool:
-    """Whether the fused scan handles this index: int8 residual cells (K1a)
-    or f32 cells (K1c-f32, K1d-f32). The bf16, sq8 and i8dec modes wait for
-    their K1c/K1d variants (ROADMAP Queue 2)."""
+    """Whether the fused scan handles this index: int8 residual cells (K1a),
+    or f32, bf16 or sq8 cells (K1c / K1d). Mode i8dec waits for K1d-i8dec
+    (ROADMAP Queue 2). Unlike the JAX package's rule, rows wider than
+    ``_D_MAX`` are not eligible: the kernel's shared memory holds each
+    query slot's whole padded row."""
     return (
         mode in _FUSED_MODES
         and seg_size % LANES == 0
@@ -84,8 +100,9 @@ def repack_blocks(
     """Gather the segmented storage into block-aligned tiles
     ``cells [nseg+1, seg, dp]`` and ``sn [nseg+1, seg]`` (+1 = the zero
     sentinel block of task rows that scan nothing). ``dp`` is ``d`` rounded
-    up to 16 with zero columns, which add nothing to the dots. f32 cells
-    stay f32 (no mantissa split)."""
+    up to 16 with zero columns, which add nothing to the dots. Cells keep
+    the storage's type (f32, bf16 or int8: no mantissa split), ``sn`` is
+    f32."""
     idx = seg_offsets.long()[:, None] + torch.arange(seg_size, device=storage.device)
     d = storage.shape[1]
     dp = -(-d // _D_ALIGN) * _D_ALIGN
@@ -184,13 +201,14 @@ def ivf_cell_scan_plain(
     return out_d, out_i
 
 
-def ivf_cell_scan_f32_plain(
-    lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
-    exact: bool,
+def _dense_plain(
+    lists, task_seg, cnt, queries_x, cells, sn, kb: int, epilogue: str,
+    exact: bool, bf16_query: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1c-f32 (``exact``) and K1d-f32 (fold),
-    chunked over task rows. Arguments and result as
-    :func:`ivf_cell_scan_f32_exact`."""
+    """Plain PyTorch version of the dense-cell variants (f32, bf16 and
+    int8 cells), chunked over task rows: the query as it is (or rounded to
+    bf16), f32 dots, the epilogue in the JAX package's order of operations,
+    then the exact selection or the fold."""
     R, maxq = lists.shape
     seg, dp = cells.shape[1], cells.shape[2]
     out_d = torch.empty((R, maxq, kb), device=lists.device)
@@ -199,21 +217,60 @@ def ivf_cell_scan_f32_plain(
     for r0 in range(0, R, _PLAIN_ROWS):
         rs = slice(r0, r0 + _PLAIN_ROWS)
         s = task_seg[rs].long()
-        qk = queries_x[lists[rs].long()]
-        # f32 × f32 dots summed in f32 (fp32 batched matmul, TF32 off)
+        qg = queries_x[lists[rs].long()]
+        qk = qg.to(torch.bfloat16).float() if bf16_query else qg
+        # dots of f32 (or exact bf16 / int8) values summed in f32 (fp32
+        # batched matmul, TF32 off)
         with fp32_matmul():
-            dots = torch.bmm(_pad_cols(qk, dp), cells[s].transpose(1, 2))
-        if cosine:
+            dots = torch.bmm(_pad_cols(qk, dp), cells[s].float().transpose(1, 2))
+        snr = sn[s][:, None, :]
+        if epilogue == "l2":
+            qadd = (qg * qg).sum(dim=-1)
+            dist = torch.clamp(qadd[:, :, None] + snr - 2.0 * dots, min=0.0)
+        elif epilogue == "cos_plain":
             dist = 1.0 - dots
-        else:
-            qadd = (qk * qk).sum(dim=-1)
-            dist = torch.clamp(qadd[:, :, None] + sn[s][:, None, :] - 2.0 * dots, min=0.0)
+        else:  # cos_qnorm: IEEE square roots and quotients, as the kernel
+            q_sq = (qg * qg).sum(dim=-1)
+            qadd = torch.where(q_sq > 0, 1.0 / torch.sqrt(torch.clamp(q_sq, min=1e-12)), 0.0)
+            rsn = 1.0 / torch.sqrt(torch.clamp(snr, min=1e-12))
+            dist = 1.0 - dots * qadd[:, :, None] * rsn
         dist = torch.where(lane < cnt[rs].long()[:, None, None], dist, BIG)
         if exact:
             out_d[rs], out_i[rs] = _exact_extract(dist, kb, cnt[rs])
         else:
             out_d[rs], out_i[rs] = _fold_extract(dist, kb)
     return out_d, out_i
+
+
+def ivf_cell_scan_f32_plain(
+    lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
+    exact: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1c-f32 (``exact``) and K1d-f32 (fold).
+    Arguments and result as :func:`ivf_cell_scan_f32_exact`."""
+    return _dense_plain(lists, task_seg, cnt, queries_x, cells, sn, kb,
+                        "cos_plain" if cosine else "l2", exact)
+
+
+def ivf_cell_scan_bf16_plain(
+    lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
+    exact: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1c-bf16 (``exact``: the f32 query) and
+    K1d-bf16 (fold: the query rounded to bf16) over bf16 ``cells``."""
+    return _dense_plain(lists, task_seg, cnt, queries_x, cells, sn, kb,
+                        "cos_plain" if cosine else "l2", exact, bf16_query=not exact)
+
+
+def ivf_cell_scan_sq8_plain(
+    lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
+    exact: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1c-sq8 (``exact``) and K1d-sq8 (fold):
+    int8 ``cells``, ``queries_x`` the int8 query codes as f32, epilogue
+    ``l2`` or ``cos_qnorm``."""
+    return _dense_plain(lists, task_seg, cnt, queries_x, cells, sn, kb,
+                        "cos_qnorm" if cosine else "l2", exact)
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -307,20 +364,21 @@ def ivf_cell_scan(
 ivf_cell_scan.launches = 0
 
 
-def _launch_f32(name, lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, exact):
+def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
+                  cells, sn, kb, cosine, exact):
     from ._cuda import load_library
 
     _check_inputs(
         (("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
          ("cnt", cnt, torch.int32, 1), ("queries_x", queries_x, torch.float32, 2),
-         ("cells", cells, torch.float32, 3), ("sn", sn, torch.float32, 2)),
+         ("cells", cells, cell_dtype, 3), ("sn", sn, torch.float32, 2)),
         lists.device,
     )
     _check_shapes(name, lists, task_seg, cnt, queries_x, cells, sn, kb)
     R, maxq = lists.shape
     _, seg, dp = cells.shape
     out_d, out_i = _outputs(lists, kb)
-    err = load_library().annsearch_ivf_scan_f32(
+    err = getattr(load_library(), entry)(
         lists.data_ptr(), task_seg.data_ptr(), cnt.data_ptr(),
         queries_x.data_ptr(), cells.data_ptr(), sn.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), R, maxq, seg, queries_x.shape[1],
@@ -332,52 +390,75 @@ def _launch_f32(name, lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, ex
     return out_d, out_i
 
 
-def ivf_cell_scan_f32_exact(
-    lists: torch.Tensor,      # [R, maxq] int32 query ids (pad = nq, a zero row)
-    task_seg: torch.Tensor,   # [R] int32 segment block of each task row
-    cnt: torch.Tensor,        # [R] int32 valid rows of that block (0 = skip)
-    queries_x: torch.Tensor,  # [nq+1, d] f32 queries, last row zero
-    cells: torch.Tensor,      # [nseg+1, seg, dp] f32 (repack_blocks)
-    sn: torch.Tensor,         # [nseg+1, seg] f32 row sq norms
-    kb: int,
-    cosine: bool = False,     # epilogue cos_plain (1 − dot), else l2
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1c-f32: per task row and query slot, the kb lexicographically
-    smallest ``(distance, lane)`` pairs of the row's segment, then
-    (3e38, 0) past its valid rows; shapes as :func:`ivf_cell_scan`. CUDA
-    tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
-    if not lists.is_cuda:
-        return ivf_cell_scan_f32_plain(
-            lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, exact=True
-        )
-    out = _launch_f32("ivf_scan_f32_exact", lists, task_seg, cnt, queries_x,
-                      cells, sn, kb, cosine, exact=True)
-    ivf_cell_scan_f32_exact.launches += 1
-    return out
+def _dense_wrapper(name, entry, cell_dtype, plain, exact, doc):
+    """The wrapper of one dense-cell variant: its kernel on CUDA tensors,
+    ``plain`` on CPU tensors, and its own launch count."""
+
+    def wrapper(lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool = False):
+        if not lists.is_cuda:
+            return plain(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, exact=exact)
+        out = _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt,
+                            queries_x, cells, sn, kb, cosine, exact)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    #: kernel launches since the last reset (plain-version calls do not count)
+    wrapper.launches = 0
+    return wrapper
 
 
-ivf_cell_scan_f32_exact.launches = 0
+_DENSE_ARGS = """
 
+    Arguments: ``lists [R, maxq]`` int32 query ids (pad = nq, a zero row),
+    ``task_seg [R]`` int32 segment block of each task row, ``cnt [R]``
+    int32 valid rows of that block (0 = skip), ``queries_x [nq+1, d]`` f32
+    (last row zero), ``cells [nseg+1, seg, dp]`` (:func:`repack_blocks`),
+    ``sn [nseg+1, seg]`` f32 row squared norms, ``kb``, and ``cosine``
+    (the mode's cosine epilogue, else ``l2``). Returns ``out_d [R, maxq,
+    kb]`` f32 and ``out_i [R, maxq, kb]`` int32 lanes. CUDA tensors launch
+    the kernel (or raise); CPU tensors run the plain version."""
 
-def ivf_cell_scan_f32_fold(
-    lists: torch.Tensor, task_seg: torch.Tensor, cnt: torch.Tensor,
-    queries_x: torch.Tensor, cells: torch.Tensor, sn: torch.Tensor, kb: int,
-    cosine: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1d-f32: as :func:`ivf_cell_scan_f32_exact`, with K1a's depth-2
-    stride-class fold in place of the exact selection."""
-    if not lists.is_cuda:
-        return ivf_cell_scan_f32_plain(
-            lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, exact=False
-        )
-    out = _launch_f32("ivf_scan_f32_fold", lists, task_seg, cnt, queries_x,
-                      cells, sn, kb, cosine, exact=False)
-    ivf_cell_scan_f32_fold.launches += 1
-    return out
-
-
-ivf_cell_scan_f32_fold.launches = 0
+ivf_cell_scan_f32_exact = _dense_wrapper(
+    "ivf_scan_f32_exact", "annsearch_ivf_scan_f32", torch.float32,
+    ivf_cell_scan_f32_plain, True,
+    "K1c-f32: per task row and query slot, the kb lexicographically "
+    "smallest ``(distance, lane)`` pairs of the row's f32 segment, then "
+    "(3e38, 0) past its valid rows; ``cos_plain`` under cosine." + _DENSE_ARGS,
+)
+ivf_cell_scan_f32_fold = _dense_wrapper(
+    "ivf_scan_f32_fold", "annsearch_ivf_scan_f32", torch.float32,
+    ivf_cell_scan_f32_plain, False,
+    "K1d-f32: as K1c-f32, with K1a's depth-2 stride-class fold in place of "
+    "the exact selection." + _DENSE_ARGS,
+)
+ivf_cell_scan_bf16_exact = _dense_wrapper(
+    "ivf_scan_bf16_exact", "annsearch_ivf_scan_bf16", torch.bfloat16,
+    ivf_cell_scan_bf16_plain, True,
+    "K1c-bf16: K1c-f32's exact selection over bf16 cells, scored with the "
+    "f32 query (the JAX package's hi/lo query split carries about 16 of its "
+    "bits; FP32 FFMA carries all 24)." + _DENSE_ARGS,
+)
+ivf_cell_scan_bf16_fold = _dense_wrapper(
+    "ivf_scan_bf16_fold", "annsearch_ivf_scan_bf16", torch.bfloat16,
+    ivf_cell_scan_bf16_plain, False,
+    "K1d-bf16: the fold over bf16 cells, scored with the query rounded to "
+    "bf16 (one bf16 pass, as the JAX package); ``qadd`` is the f32 query's "
+    "squared norm." + _DENSE_ARGS,
+)
+ivf_cell_scan_sq8_exact = _dense_wrapper(
+    "ivf_scan_sq8_exact", "annsearch_ivf_scan_sq8", torch.int8,
+    ivf_cell_scan_sq8_plain, True,
+    "K1c-sq8: the exact selection over int8 cells, ``queries_x`` holding "
+    "int8 query codes; ``l2`` in integer space, ``cos_qnorm`` under "
+    "cosine." + _DENSE_ARGS,
+)
+ivf_cell_scan_sq8_fold = _dense_wrapper(
+    "ivf_scan_sq8_fold", "annsearch_ivf_scan_sq8", torch.int8,
+    ivf_cell_scan_sq8_plain, False,
+    "K1d-sq8: as K1c-sq8, with the fold." + _DENSE_ARGS,
+)
 
 
 # -- host side ----------------------------------------------------------------
@@ -398,10 +479,12 @@ def fused_ivf_scan(
     mode: str,
     scales: torch.Tensor | None, # [d] f32 decode scales (i8dec_residual)
     kb: int,
-    selection: str = "fold",     # "fold" or "exact" (f32 only)
+    selection: str = "fold",     # "fold" or "exact" (dense cells only)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused scan of the task lists; ``(best_d, best_i)`` of shape
-    ``[nq, k]`` ascending, ``best_i`` positions in the sorted storage."""
+    ``[nq, k]`` ascending, ``best_i`` positions in the sorted storage.
+    ``queries`` are the scoring-space queries: for mode ``sq8`` the int8
+    query codes."""
     nq, d = queries.shape
     nseg = seg_offsets.shape[0]
     dev = queries.device
@@ -413,8 +496,15 @@ def fused_ivf_scan(
     qid = torch.clamp(probe_lists, max=nq).int().contiguous()
     task = (qid, cid.int(), cnts_x[cid].contiguous(), queries_x)
 
-    if mode == "f32" and selection in ("fold", "exact"):
-        scan = ivf_cell_scan_f32_exact if selection == "exact" else ivf_cell_scan_f32_fold
+    # the cosine epilogue: cos_plain for f32 / bf16 rows (stored
+    # normalised), cos_qnorm for sq8 codes
+    dense = {
+        "f32": (ivf_cell_scan_f32_exact, ivf_cell_scan_f32_fold),
+        "bf16": (ivf_cell_scan_bf16_exact, ivf_cell_scan_bf16_fold),
+        "sq8": (ivf_cell_scan_sq8_exact, ivf_cell_scan_sq8_fold),
+    }
+    if mode in dense and selection in ("fold", "exact"):
+        scan = dense[mode][selection == "fold"]
         cd, ci = scan(*task, cells, sn, kb, cosine=metric == Dist.COSINE)
     elif mode == "i8dec_residual" and metric == Dist.EUCLIDEAN and selection == "fold":
         cent_x = torch.cat([seg_centroids.float(), zero_row])
@@ -423,8 +513,8 @@ def fused_ivf_scan(
         raise NotImplementedError(
             f"fused scan mode={mode!r} metric={metric.value!r} "
             f"selection={selection!r}: the ported variants are K1a (euclidean "
-            "i8dec_residual, fold), K1c-f32 and K1d-f32; see ROADMAP Queue 2 "
-            "(K1b–K1d)"
+            "i8dec_residual, fold) and K1c / K1d for f32, bf16 and sq8 cells; "
+            "see ROADMAP Queue 2 (K1b, K1d-i8dec)"
         )
     # lane → sorted-storage row; a sentinel lane of a short segment lands
     # in the padded trailing storage rows

@@ -5,7 +5,9 @@
 Phase 1 builds the CUDA kernels from ``annsearch_tpu_torch/csrc``.
 Phase 2 holds K1a against its plain PyTorch version; phase 2b holds
 K1c-f32 and K1d-f32 against theirs at seg 1024, d 64 and 128, maxq 64 and
-256, both epilogues, with sentinel and short task rows.
+256, both epilogues, with sentinel and short task rows; phase 2c holds
+K1c-bf16, K1d-bf16, K1c-sq8 and K1d-sq8 against theirs in the same way at
+d 128 and 256 (sq8 bit for bit).
 Phase 3 drives the IVF-PQ main path through the port's facade: nlist 1024,
 m = 128 (int8 fast-scan mode) over 1M × 128d Gaussian-cluster data, 30k
 queries at nprobe 16, recall@10 against an exact scan of the first 2,000.
@@ -17,6 +19,13 @@ index twice from one seed and checks that the builds agree.
 Phase 5 drives the cosine IVF index on phase 3's data (nlist 1024,
 nprobe 16): the approximate tier (K1d-f32) and the exact tier, recall@10
 on the first 1,000 queries; and the euclidean exact tier beside IVF-PQ.
+Phase 6 drives the quantised IVF workload of
+``benchmarks/bench_quantised_1m.py``: 1M × 256d Gaussian-cluster data,
+30k queries, k 10, nlist 1024, through ``IvfIndex``, ``IvfIndexBf16`` and
+``IvfSq8Index``: the approximate tier at nprobe 16 and 32 and the exact
+tier at nprobe 16, recall@10 on the first 2,000 queries against an exact
+scan and against the f32 index. Phase 6b builds the cosine bf16 and SQ8
+indexes on the same data and runs one batch of each tier at nprobe 16.
 
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
@@ -43,10 +52,15 @@ RECALL_MIN = 0.90
 EX_N, EX_D, EX_NQ, EX_K, EX_NLIST, EX_NPROBE = 500_000, 64, 15_000, 15, 500, 22
 # phase 5: benchmarks/bench_ivf_1m_cosine.py at nprobe 16
 COS_NQ_GT = 1_000
+# phase 6: benchmarks/bench_quantised_1m.py (BASELINE config 3)
+Q_N, Q_D, Q_NPROBES = 1_000_000, 256, (16, 32)
+#: recall@10 of IvfSq8Index at nprobe 16 that docs/benchmarks_tpu.md states
+#: for the JAX package (TPU, its own data generator): printed, not asserted
+JAX_SQ8_RECALL = 0.8437
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory, fp32 on the
 #: CUDA cores, bf16 on the tensor cores
-HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S = 3.35e12, 67e12, 989e12
+HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S, INT8_OP_S = 3.35e12, 67e12, 989e12, 1979e12
 BIG = np.float32(3e38)
 
 
@@ -121,16 +135,21 @@ class _Capture:
             setattr(self.tsf, n, fn)
 
 
-def _agree(name, kd, ki, pd, pi, scale=None) -> float:
+def _agree(name, kd, ki, pd, pi, scale=None, exact=False) -> float:
     """Kernel vs plain: distances within 1e-4·(1 + |d|), plus 2⁻¹⁶ of
     ``scale [R, maxq]`` where given, ≥ 99.9% of ids, sentinel entries
-    exactly. Returns the largest distance error."""
+    exactly; with ``exact``, every distance and id equal. Returns the
+    largest distance error."""
     torch.cuda.synchronize()
     tol = 1e-4 * (1.0 + pd.abs())
     if scale is not None:
         tol = tol + 2.0 ** -16 * scale[..., None]
+    if exact:
+        tol = torch.zeros_like(pd)
     ok_d = bool(((kd - pd).abs() <= tol).all())
     id_agree = (ki == pi).float().mean().item()
+    if exact and id_agree < 1.0:
+        ok_d = False
     sent = pd == BIG
     ok_s = bool(torch.equal(kd == BIG, sent)) and bool((ki[sent] == pi[sent]).all())
     err = (kd - pd).abs().max().item()
@@ -139,8 +158,9 @@ def _agree(name, kd, ki, pd, pi, scale=None) -> float:
           flush=True)
     if not (ok_d and ok_s) or id_agree < 0.999:
         raise AssertionError(
-            f"{name} disagrees with its plain version (1e-4·(1+|d|) on "
-            "distances, ≥ 99.9% of ids, sentinel entries exactly)"
+            f"{name} disagrees with its plain version ("
+            + ("bit for bit" if exact else "1e-4·(1+|d|) on distances, ≥ 99.9% of ids")
+            + ", sentinel entries exactly)"
         )
     return err
 
@@ -175,7 +195,7 @@ def _l2_scale(a, kw):
     """Per (task row, slot), a bound on the terms of the l2 identity
     ``qadd + sn − 2·dots`` (2|dots| ≤ qadd + sn): f32 sums taken in two
     orders differ by a few ulps of it, however small the distance. None
-    under cos_plain, whose terms are ≤ 1."""
+    under the cosine epilogues, whose terms are ≤ 1."""
     if kw.get("cosine"):
         return None
     lists, task_seg, _, queries_x = a[:4]
@@ -186,13 +206,15 @@ def _l2_scale(a, kw):
     return qn * qn + sn.max(dim=1).values[task_seg.long()][:, None]
 
 
-def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0):
-    """Check ``wrapper`` against ``plain`` on the captured call, time both,
-    and return the kernel's JSON entry (launches filled in by the caller)."""
+def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exact=False):
+    """Check ``wrapper`` against ``plain`` on the captured call (``exact``:
+    bit for bit), time both, and return the kernel's JSON entry (launches
+    filled in by the caller)."""
     a, kw = call
     kb = next(v for v in a if isinstance(v, int))
     cells = next(t for t in a[4:] if torch.is_tensor(t) and t.ndim == 3)
-    err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, kw))
+    err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, kw),
+                 exact=exact)
     ms = _cuda_ms(lambda: wrapper(*a, **kw))
     plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=5)
     bound_ms, bound_by, macs = _bound(a, kb, cell_bytes, peak, seg_bytes)
@@ -235,15 +257,25 @@ def _k1a_inputs(gen: torch.Generator, dev):
             cells, sn, 16)
 
 
-def _f32_inputs(gen: torch.Generator, dev, d: int, maxq: int, R=192, seg=1024,
-                nseg=150, nq=4096):
-    """f32 task inputs: rows with cnt == 0, rows shorter than kb (cnt 5)
-    and partial rows."""
+def _dense_inputs(gen: torch.Generator, dev, mode: str, d: int, maxq: int, R=192,
+                  seg=1024, nseg=150, nq=4096):
+    """Task inputs of the dense-cell kernels: f32 cells (random normal),
+    the same rounded to bf16, or int8 cells and int8 query codes (as f32)
+    at full range; rows with cnt == 0, rows shorter than kb (cnt 5) and
+    partial rows."""
     cells = torch.zeros((nseg + 1, seg, d), device=dev)
     cells[:-1] = torch.randn((nseg, seg, d), generator=gen, device=dev)
-    sn = (cells * cells).sum(-1)
     queries = torch.randn(nq + 1, d, generator=gen, device=dev)
+    if mode == "sq8":
+        cells = torch.randint(-128, 128, cells.shape, generator=gen, device=dev,
+                              dtype=torch.int8)
+        cells[-1] = 0
+        queries = torch.randint(-128, 128, queries.shape, generator=gen,
+                                device=dev).float()
+    elif mode == "bf16":
+        cells = cells.to(torch.bfloat16)
     queries[-1] = 0
+    sn = (cells.float() ** 2).sum(-1)
     task_seg = torch.randint(0, nseg, (R,), generator=gen, device=dev)
     cnt = torch.full((R,), seg, device=dev)
     cnt[::7] = torch.randint(1, seg, (len(range(0, R, 7)),), generator=gen, device=dev)
@@ -265,20 +297,30 @@ def phase_kernels(dev) -> None:
           f"{_cuda_ms(lambda: tsf.ivf_cell_scan_plain(*args), reps=5):.3f} ms",
           flush=True)
 
-    for d in (64, 128):
-        for maxq in (64, 256):
-            t = _f32_inputs(gen, dev, d, maxq)
-            for exact, kb in ((True, 24), (False, 16)):
-                wrapper = tsf.ivf_cell_scan_f32_exact if exact else tsf.ivf_cell_scan_f32_fold
-                for cosine in (False, True):
-                    name = (f"{'K1c' if exact else 'K1d'}-f32 {'cos_plain' if cosine else 'l2'} "
-                            f"(R=192, maxq={maxq}, seg=1024, d={d}, kb={kb})")
-                    _agree(name, *wrapper(*t, kb, cosine=cosine),
-                           *tsf.ivf_cell_scan_f32_plain(*t, kb, cosine, exact=exact))
-                    ms = _cuda_ms(lambda: wrapper(*t, kb, cosine=cosine), reps=5)
-                    pms = _cuda_ms(lambda: tsf.ivf_cell_scan_f32_plain(
-                        *t, kb, cosine, exact=exact), reps=5)
-                    print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+
+def phase_dense_kernels(dev, modes, dims, seed) -> None:
+    """K1c / K1d of each mode against their plain versions at seg 1024,
+    each d of ``dims``, maxq 64 and 256, both epilogues. The sq8 kernels
+    agree bit for bit (integer dots, IEEE square roots and quotients)."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for mode in modes:
+        plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+        for d in dims:
+            for maxq in (64, 256):
+                t = _dense_inputs(gen, dev, mode, d, maxq)
+                for exact, kb in ((True, 16 if mode == "sq8" else 24), (False, 16)):
+                    wrapper = getattr(tsf, f"ivf_cell_scan_{mode}_{'exact' if exact else 'fold'}")
+                    for cosine in (False, True):
+                        epi = ("cos_qnorm" if mode == "sq8" else "cos_plain") if cosine else "l2"
+                        name = (f"{'K1c' if exact else 'K1d'}-{mode} {epi} "
+                                f"(R=192, maxq={maxq}, seg=1024, d={d}, kb={kb})")
+                        _agree(name, *wrapper(*t, kb, cosine=cosine),
+                               *plain(*t, kb, cosine, exact=exact), exact=mode == "sq8")
+                        ms = _cuda_ms(lambda: wrapper(*t, kb, cosine=cosine), reps=5)
+                        pms = _cuda_ms(lambda: plain(*t, kb, cosine, exact=exact), reps=5)
+                        print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
 
 
 # -- phase 3: the IVF-PQ main path --------------------------------------------
@@ -423,7 +465,7 @@ def phase_exact_tier(dev) -> dict:
     )
     xd = torch.as_tensor(x, device=dev)
     # the tier's promise, apart from routing: exact within the probed cells
-    within = calculate_recall(_probed_truth(index, xd, qd, probes, EX_K), ids32, EX_K)
+    within = calculate_recall(_probed_truth(index, xd, qd, probes, EX_K)[0], ids32, EX_K)
     print(f"  f32 queries vs an f64 scan of their probed cells: recall@15 {within:.6f}",
           flush=True)
     rec = {}
@@ -473,21 +515,24 @@ def phase_exact_tier(dev) -> dict:
 
 
 def _probed_truth(index, xd, qd, probes, k, block=1024):
-    """Top-k ids of an f64 scan of each query's probed cells (f64, so that
-    the ‖q‖² + ‖x‖² − 2q·x identity adds no rank flips of its own)."""
+    """Top-k ``(ids, dists)`` of an f64 scan of each query's probed cells
+    (f64, so that the ‖q‖² + ‖x‖² − 2q·x identity adds no rank flips of its
+    own); ``xd`` the rows in original order."""
     owner = torch.empty(index.n, dtype=torch.long, device=xd.device)
     owner[index.original_ids] = index._owner_clusters()
     x64 = xd.double()
     xn = (x64 * x64).sum(1)
-    out = []
+    ids, dists = [], []
     for s in range(0, qd.shape[0], block):
         qb = qd[s : s + block].double()
         d = (qb * qb).sum(1)[:, None] + xn[None, :] - 2.0 * qb @ x64.T
         probed = torch.zeros((d.shape[0], index.nlist), dtype=torch.bool, device=xd.device)
         probed.scatter_(1, probes[s : s + block], True)
         d = torch.where(probed[:, owner], d, float("inf"))
-        out.append(torch.topk(d, k, dim=1, largest=False).indices)
-    return torch.cat(out)
+        top = torch.topk(d, k, dim=1, largest=False)
+        ids.append(top.indices)
+        dists.append(top.values)
+    return torch.cat(ids), torch.cat(dists)
 
 
 # -- phase 5: the IVF index at 1M x 128d, cosine and euclidean ----------------
@@ -544,6 +589,199 @@ def phase_ivf_1m(dev, x, q, ti_euc, pq_recall) -> dict:
     return entry
 
 
+# -- phase 6 / 6b: the quantised IVF indexes at 1M x 256d ----------------------
+
+
+def _stored_measure(index, q, ids, block=4096) -> torch.Tensor:
+    """Distances of the result ``ids [nq, k]`` recomputed elementwise from
+    the stored rows in the exact tier's measure: f32 over the f32 or upcast
+    bf16 rows with the f32 query; SQ8 in integer space over the codes of
+    row and query (cosine ``1 − c·c / (‖c‖·‖c‖)``, 1 for a zero query)."""
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    qp = index._prep_queries(q)
+    if index.mode == "sq8":
+        rows = torch.empty_like(index.storage[: index.n])
+        rows[index.original_ids] = index.storage[: index.n]
+        rows, qp = rows.float(), index._encode_queries(qp).float()
+    else:
+        rows = index.vectors_original_order()
+    out = []
+    for s in range(0, qp.shape[0], block):
+        qb, v = qp[s : s + block, None, :], rows[ids[s : s + block]]
+        if index.metric == Dist.EUCLIDEAN:
+            d = ((qb - v) ** 2).sum(-1)
+        elif index.mode == "sq8":
+            qn, vn = (qb * qb).sum(-1).sqrt(), (v * v).sum(-1).sqrt().clamp_min(1e-6)
+            d = torch.where(qn > 0, 1.0 - (qb * v).sum(-1) / (qn * vn), 1.0)
+        else:
+            d = 1.0 - (qb * v).sum(-1)
+        out.append(d)
+    return torch.cat(out)
+
+
+def _covers(index, q, ids_e, ids_a) -> float:
+    """Share of the exact tier's (query, id) entries that the approximate
+    tier returns too or beats: none of its k rows lies farther than the
+    entry, both tiers' rows measured alike by ``_stored_measure`` (the
+    approximate tier routes to segments, and so can probe cells that the
+    exact tier's cluster routing does not)."""
+    d_e = _stored_measure(index, q, ids_e)
+    d_a = _stored_measure(index, q, ids_a)
+    found = (ids_a[:, :, None] == ids_e[:, None, :]).any(dim=1)
+    beaten = d_a.max(dim=1, keepdim=True).values <= d_e
+    return (found | beaten).float().mean().item()
+
+
+def _check_result(name, ids, d, n):
+    if ids.shape != (NQ, K) or d.shape != (NQ, K):
+        raise AssertionError(f"{name}: bad result shapes {ids.shape} {d.shape}")
+    if not torch.isfinite(d).all() or (d.diff(dim=1) < 0).any():
+        raise AssertionError(f"{name}: distances not finite and ascending")
+    if ids.min() < 0 or ids.max() >= n:
+        raise AssertionError(f"{name}: ids out of range")
+
+
+def _quant_runs(index, name, mode, q, ti, f32_ids, tiers):
+    """Each (tier, nprobe) of ``tiers``: time the 30k batch (median of 3
+    after a warm-up) with the tier's kernel's launches counted from 0 and
+    its last call captured; print recall@10 against the ground truth and
+    against the f32 index. Returns {(tier, nprobe): (ids, d, launches,
+    captured call)}."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    runs = {}
+    for tier, npb in tiers:
+        wname = f"ivf_cell_scan_{mode}_{'fold' if tier == 'approx' else 'exact'}"
+        wrapper = getattr(tsf, wname)
+        wrapper.launches = 0
+        with _Capture(wname) as cap:
+            ms, (ids, d) = _wall_ms(
+                lambda: index.query(q, K, nprobe=npb, approx=tier == "approx"))
+        launches = wrapper.launches
+        _check_result(f"{name} {tier} nprobe {npb}", ids, d, index.n)
+        rec = at.calculate_recall(ti, ids[: ti.shape[0]], K)
+        vs = ""
+        if f32_ids is not None and (tier, npb) in f32_ids:
+            vs = (f", vs the f32 index {at.calculate_recall(f32_ids[tier, npb], ids[: ti.shape[0]], K):.4f}")
+        print(f"  {name} {tier} nprobe {npb}: {ms:.1f} ms (median of 3) = "
+              f"{NQ / ms * 1e3:.0f} QPS, recall@10 {rec:.4f}{vs}; {wname} launches "
+              f"{launches}", flush=True)
+        if launches == 0:
+            raise AssertionError(f"{name} {tier} never launched {wname}")
+        runs[tier, npb] = (ids, d, launches, cap.args[wname])
+    return runs
+
+
+def phase_quantised(dev, x, q) -> list[dict]:
+    """Phase 6: f32, bf16 and SQ8 IVF at 1M × 256d, nlist 1024."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.ivf_base import route_to_cells
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    t0 = time.time()
+    ti, _ = at.build_exhaustive_index(x, device=dev).query(q[:NQ_GT], K)
+    print(f"  exact scan of the first {NQ_GT} queries in {time.time() - t0:.1f} s", flush=True)
+    tiers = [("approx", npb) for npb in Q_NPROBES] + [("exact", NPROBE)]
+    f32_ids, entries = {}, []
+    for name, build, mode in (("ivf-f32", at.build_ivf_index, "f32"),
+                              ("ivf-bf16", at.build_ivf_bf16_index, "bf16"),
+                              ("ivf-sq8", at.build_ivf_sq8_index, "sq8")):
+        index = None
+        for _ in range(2):       # the second build is the warm one
+            index = None
+            torch.cuda.synchronize()
+            t0 = time.time()
+            index = build(x, nlist=NLIST, seed=SEED, device=dev)
+            torch.cuda.synchronize()
+            build_s = time.time() - t0
+        print(f"  {name}: build {build_s:.2f} s (warm), index {index.memory_usage_bytes():,} "
+              f"bytes, nseg {index.seg_offsets.shape[0]}, s_max {index._seg_s_max()}",
+              flush=True)
+        runs = _quant_runs(index, name, mode, q, ti, None if mode == "f32" else f32_ids, tiers)
+        ids_e, d_e = runs["exact", NPROBE][:2]
+        ids_a = runs["approx", NPROBE][0]
+        cov = _covers(index, q, ids_e, ids_a)
+        print(f"  {name}: the approximate tier covers its exact tier at nprobe {NPROBE} "
+              f"on {cov:.6f} of entries (recall vs it "
+              f"{at.calculate_recall(ids_e, ids_a, K):.4f})", flush=True)
+        if cov < 0.99:
+            raise AssertionError(f"{name}: the approximate tier covers < 0.99 of the exact tier")
+        if mode == "f32":
+            f32_ids = {key: r[0][:NQ_GT] for key, r in runs.items()}
+            del index
+            continue
+        qd = q[:NQ_GT]
+        probes = route_to_cells(qd, index.centroids, NPROBE, index.metric)
+        if mode == "sq8":
+            # integer space: the codes of the rows and of the queries
+            codes = torch.empty_like(index.storage[: index.n])
+            codes[index.original_ids] = index.storage[: index.n]
+            t_ids, t_d = _probed_truth(index, codes.float(), index._encode_queries(qd).float(),
+                                       probes, K)
+            kth_ok = bool((d_e[:NQ_GT, -1].double() <= t_d[:, -1]).all())
+            within = at.calculate_recall(t_ids, ids_e[:NQ_GT], K)
+            rec16 = at.calculate_recall(ti, ids_a[:NQ_GT], K)
+            print(f"  ivf-sq8 exact tier vs an integer-space scan of its probed cells: "
+                  f"recall@10 {within:.6f}, every 10th distance ≤ the scan's: {kth_ok}; "
+                  f"approx nprobe {NPROBE} recall@10 {rec16:.4f} (the JAX package's TPU "
+                  f"table: {JAX_SQ8_RECALL}, on its own data)", flush=True)
+            if not kth_ok or within < 0.999:
+                raise AssertionError("ivf-sq8 exact tier is not exact in integer space")
+        else:
+            t_ids, _ = _probed_truth(index, index.vectors_original_order(), qd, probes, K)
+            within = at.calculate_recall(t_ids, ids_e[:NQ_GT], K)
+            rec16 = min(at.calculate_recall(ti, ids[:NQ_GT], K) for ids in (ids_e, ids_a))
+            print(f"  ivf-bf16 exact tier vs a scan of its probed bf16 rows: recall@10 "
+                  f"{within:.6f}", flush=True)
+            if within < 0.999 or rec16 < RECALL_MIN:
+                raise AssertionError(f"ivf-bf16 exact tier: {within:.6f} within its cells, "
+                                     f"{rec16:.4f} vs the ground truth (floor {RECALL_MIN})")
+        # K1c-bf16 keeps the f32 query's 24 bits: three exact bf16 terms, so
+        # the tensor cores would take three passes over the bf16 cells
+        peaks = {"bf16": (BF16_FLOP_S, BF16_FLOP_S / 3, 2),
+                 "sq8": (INT8_OP_S, INT8_OP_S, 1)}[mode]
+        plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+        for tier, sel, peak in (("approx", "fold", peaks[0]), ("exact", "exact", peaks[1])):
+            entry = _kernel_entry(
+                f"ivf_scan_{mode}_{sel}", getattr(tsf, f"ivf_cell_scan_{mode}_{sel}"),
+                lambda *a, _p=plain, _e=sel == "exact", **kw: _p(*a, exact=_e, **kw),
+                runs[tier, NPROBE][3], peaks[2], peak, exact=mode == "sq8",
+            )
+            entry["launches"] = runs[tier, NPROBE][2]
+            entries.append(entry)
+        del index, runs
+    return entries
+
+
+def phase_quantised_cosine(dev, x, q) -> None:
+    """Phase 6b: the cosine bf16 and SQ8 indexes (cos_plain, cos_qnorm)."""
+    import annsearch_tpu_torch as at
+
+    ti, _ = at.build_exhaustive_index(x, "cosine", device=dev).query(q[:NQ_GT], K)
+    for name, build, mode in (("ivf-bf16", at.build_ivf_bf16_index, "bf16"),
+                              ("ivf-sq8", at.build_ivf_sq8_index, "sq8")):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        index = build(x, nlist=NLIST, dist_metric="cosine", seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        print(f"  cosine {name}: build {time.time() - t0:.2f} s", flush=True)
+        runs = _quant_runs(index, f"cosine {name}", mode, q, ti, None,
+                           [("approx", NPROBE), ("exact", NPROBE)])
+        ids_a, ids_e = runs["approx", NPROBE][0], runs["exact", NPROBE][0]
+        cov = _covers(index, q, ids_e, ids_a)
+        rec = at.calculate_recall(ti, ids_e[:NQ_GT], K)
+        print(f"  cosine {name}: the approximate tier covers its exact tier on "
+              f"{cov:.6f} of entries", flush=True)
+        if cov < 0.99:
+            raise AssertionError(f"cosine {name}: the approximate tier covers < 0.99 "
+                                 "of the exact tier")
+        if mode == "bf16" and rec < RECALL_MIN:
+            raise AssertionError(f"cosine ivf-bf16 exact recall@10 {rec:.4f} < {RECALL_MIN}")
+        del index, runs
+
+
 def phase_kmeans_sums(dev) -> None:
     """One Lloyd iteration's cluster sums at 250k × 128 rows, k 1024: the
     fixed-order sum against ``index_add_`` (float atomics), beside the
@@ -597,8 +835,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "smem" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    phase("2/2b: kernels against their plain versions")
+    phase("2: K1a against its plain version")
     phase_kernels(dev)
+    phase("2b: the f32 kernels against their plain versions")
+    phase_dense_kernels(dev, ("f32",), (64, 128), SEED)
+    phase("2c: the bf16 and sq8 kernels against their plain versions")
+    phase_dense_kernels(dev, ("bf16", "sq8"), (128, 256), SEED + 1)
 
     phase("3: IVF-PQ 1M x 128d, nprobe 16")
     t0 = time.time()
@@ -619,13 +861,27 @@ def main() -> int:
     fold = phase_ivf_1m(dev, x, q, ti, pq_recall)
     del x, q
 
+    phase("6: IvfIndex, IvfIndexBf16, IvfSq8Index 1M x 256d, nlist 1024")
+    t0 = time.time()
+    x_np, _ = generate_clustered_data(Q_N, Q_D, NCLUST, seed=SEED)
+    q_np = subsample_with_noise(x_np, NQ, seed=SEED)
+    x = torch.as_tensor(x_np, device=dev)
+    q = torch.as_tensor(q_np, device=dev)
+    del x_np, q_np
+    print(f"  data {Q_N}x{Q_D} + {NQ} queries in {time.time() - t0:.1f} s", flush=True)
+    quant = phase_quantised(dev, x, q)
+
+    phase("6b: cosine IvfIndexBf16 and IvfSq8Index, nprobe 16")
+    phase_quantised_cosine(dev, x, q)
+    del x, q
+
     phase("k-means cluster sums")
     phase_kmeans_sums(dev)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1a, exact, fold]}), flush=True)
+    print(json.dumps({"kernels": [k1a, exact, fold, *quant]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1a, K1c-f32, K1d-f32) against their plain
-PyTorch versions, on the card, and the IVF paths on the card against the
-CPU.
+"""The port's CUDA kernels (K1a, K1c-f32, K1d-f32, K1c-bf16, K1d-bf16,
+K1c-sq8, K1d-sq8) against their plain PyTorch versions, on the card, and
+the IVF paths on the card against the CPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present. On a
 machine with a card and without JAX, run them with
@@ -10,7 +10,9 @@ machine with a card and without JAX, run them with
 (``tests/conftest.py`` configures JAX for the rest of the suite). Distances
 agree within 1e-4·(1 + |d|) (the f32 dot sums run in another order) and
 ≥ 99.9% of ids agree (orders can swap near-ties); end to end, where
-routing also runs on another device, ≥ 99% of ids."""
+routing also runs on another device, ≥ 99% of ids. The sq8 kernels agree
+bit for bit: their dots are sums of integers below 2²⁴, and their square
+roots and quotients IEEE-rounded on both sides."""
 
 import numpy as np
 import pytest
@@ -158,7 +160,7 @@ def _f32_tasks(gen, dev, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300):
         (dict(d=40), 8),                    # columns padded to 48
         (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
         (dict(R=256, maxq=256, seg=1024, d=64), 24),   # the exact tier's shapes
-        (dict(R=64, maxq=64, seg=2048, d=384), 16),    # the widest rows
+        (dict(R=64, maxq=64, seg=2048, d=384), 16),    # three column blocks
     ],
 )
 def test_f32_kernels_match_plain(dev, shape, kb, cosine, exact):
@@ -227,3 +229,91 @@ def test_ivf_f32_on_the_card_matches_the_cpu(dev, tmp_path):
         assert (gi.cpu() == ci).float().mean().item() >= 0.99
         same = gi.cpu() == ci
         assert torch.all((gd.cpu() - cd).abs()[same] <= 1e-4 * (1.0 + cd.abs()[same]))
+
+
+def _quant_tasks(gen, dev, mode, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300):
+    """bf16 cells (random normal) or int8 cells and int8 query codes (as
+    f32), with the task layout of :func:`_f32_tasks`."""
+    lists, task_seg, cnt, queries, cells, _ = _f32_tasks(gen, dev, R, maxq, seg, d, nseg, nq)
+    if mode == "sq8":
+        codes = torch.randint(-128, 128, cells.shape, generator=gen, device=dev,
+                              dtype=torch.int8)
+        codes[:, :, d:] = 0
+        codes[-1] = 0
+        cells = codes
+        queries = torch.randint(-128, 128, queries.shape, generator=gen, device=dev).float()
+        queries[-1] = 0
+    else:
+        cells = cells.to(torch.bfloat16)
+    return lists, task_seg, cnt, queries, cells, (cells.float() ** 2).sum(-1)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "sq8"])
+@pytest.mark.parametrize("exact", [True, False], ids=["K1c", "K1d"])
+@pytest.mark.parametrize("cosine", [False, True], ids=["l2", "cos"])
+@pytest.mark.parametrize(
+    "shape,kb",
+    [
+        (dict(), 16),
+        (dict(maxq=36, d=40), 8),           # slots past maxq; columns padded to 48
+        (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
+        (dict(R=128, maxq=256, seg=1024, d=256), 24),   # the 1M × 256d shapes
+        (dict(R=32, maxq=40, seg=256, d=1000), 16),     # 8 column blocks
+    ],
+)
+def test_quantised_kernels_match_plain(dev, shape, kb, cosine, exact, mode):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = _quant_tasks(gen, dev, mode, **shape)
+    wrapper = getattr(tsf, f"ivf_cell_scan_{mode}_{'exact' if exact else 'fold'}")
+    plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+    kd, ki = wrapper(*args, kb, cosine=cosine)
+    pd, pi = plain(*args, kb, cosine, exact=exact)
+    torch.cuda.synchronize()
+    if mode == "sq8":
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    else:
+        _assert_close(kd, ki, pd, pi)
+    cnt = args[2]
+    assert (kd[cnt == 0] == np.float32(3e38)).all() and (ki[cnt == 0] == 0).all()
+    assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "sq8"])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_quantised_tiers_launch_only_their_kernel(dev, tmp_path, kind, metric):
+    """Each tier of IvfIndexBf16 / IvfSq8Index launches its own kernel once
+    per batch and no other, and answers as the same index on the CPU."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.quantised import ivf as qivf
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 96, 20, seed=7)
+    q = subsample_with_noise(x, 400, seed=7)
+    cpu = getattr(at, f"build_ivf_{kind}_index")(x, nlist=32, dist_metric=metric, seed=1,
+                                                  device="cpu")
+    # the approximate tier's distances come from the ‖q‖² + ‖x‖² − 2q·x
+    # identity: f32 sums of d = 96 terms in another order differ by up to
+    # about d ulps of its terms, 2⁻¹⁶ of ‖q‖² + max‖x‖², however small the
+    # distance (as chip_smoke.py's kernel checks allow)
+    scale = 0.0
+    if metric == "euclidean":
+        scale = torch.as_tensor((q * q).sum(1) + (x * x).sum(1).max())[:, None] * 2.0 ** -16
+    path = str(tmp_path / f"{kind}.npz")
+    cpu.save(path)
+    gpu = (qivf.IvfIndexBf16 if kind == "bf16" else qivf.IvfSq8Index).load(path, device=dev)
+    names = [f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold")]
+    names.append("ivf_cell_scan")
+    for approx, own in ((False, f"ivf_cell_scan_{kind}_exact"), (True, f"ivf_cell_scan_{kind}_fold")):
+        before = {n: getattr(tsf, n).launches for n in names}
+        gi, gd = gpu.query(q, 10, nprobe=4, approx=approx)
+        after = {n: getattr(tsf, n).launches for n in names}
+        assert {n for n in names if after[n] != before[n]} == {own}
+        assert after[own] == before[own] + 1
+        ci, cd = cpu.query(q, 10, nprobe=4, approx=approx)
+        assert (gi.cpu() == ci).float().mean().item() >= 0.99
+        same = gi.cpu() == ci
+        if kind == "sq8" and metric == "euclidean":
+            assert torch.equal(gd.cpu()[same], cd[same])
+        else:
+            tol = 1e-4 * (1.0 + cd.abs()) + scale
+            assert torch.all((gd.cpu() - cd).abs()[same] <= tol[same])

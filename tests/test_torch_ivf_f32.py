@@ -270,11 +270,25 @@ def test_result_contract_and_k_clamp(data48):
     assert wide.shape == (len(q), 2 * K)
 
 
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "approx"])
+@pytest.mark.parametrize("cls", ["IvfIndex", "IvfIndexBf16", "IvfSq8Index"])
+def test_q_split_is_ignored_outside_the_int8_decode_tier(data48, cls, approx):
+    """As in the JAX package, ``q_split`` picks the query terms only in the
+    approximate tier of the int8-decode modes (IVF-PQ, where ``True`` is
+    kernel K1b); every other index and tier ignores it."""
+    from annsearch_tpu_torch.models.quantised import ivf as qivf
+
+    x, q = data48
+    index_cls = IvfIndex if cls == "IvfIndex" else getattr(qivf, cls)
+    idx = index_cls(x, nlist=6, device="cpu")
+    ids, d = idx.query(q, 5, nprobe=2, approx=approx, q_split=True)
+    ids0, d0 = idx.query(q, 5, nprobe=2, approx=approx)
+    assert torch.equal(ids, ids0) and torch.equal(d, d0)
+
+
 def test_unported_options_raise(data48):
     x, q = data48
     idx = IvfIndex(x, nlist=6, device="cpu")
-    with pytest.raises(NotImplementedError, match="K1b"):
-        idx.query(q, 5, q_split=True)
     with pytest.raises(ValueError, match="exact f32 tier"):
         idx.query(q, 5, approx=True, certify=True)
     with pytest.raises(NotImplementedError, match="ivf_cluster_scan"):

@@ -1,7 +1,8 @@
 """Parity of the port's fused IVF cell scan with the JAX package's Pallas
 scan, which runs here in interpret mode: K1a (int8 residual cells, l2,
 depth-2 fold, one bf16 query term), K1c-f32 (f32 cells, exact selection)
-and K1d-f32 (f32 cells, fold).
+and K1d-f32 (f32 cells, fold); K1c/K1d-bf16 and K1c/K1d-sq8 (tolerances
+in their own section below).
 
 K1c-f32 and K1d-f32 are held to the Pallas kernel bit for bit: their
 cells and queries are multiples of 1/8 in [−15/8, 15/8], so each value is
@@ -16,6 +17,7 @@ swap near-ties). The data is scaled by 1/8 so that the residual norms
 stay small: ``qadd + sn − 2·dots`` cancels near a match, and its f32
 rounding grows with the norms."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,19 +232,19 @@ def test_fused_ivf_scan_pads_when_fewer_candidates_than_k():
 
 
 def test_fused_eligible():
-    for mode in ("i8dec_residual", "f32"):
+    for mode in ("i8dec_residual", "f32", "bf16", "sq8"):
         assert tsf.fused_eligible(mode, 1024, 128, 10)
-        assert tsf.fused_eligible(mode, 128, 384, 128)
+        assert tsf.fused_eligible(mode, 128, 4096, 128)
         assert not tsf.fused_eligible(mode, 1000, 128, 10)   # seg % 128
         assert not tsf.fused_eligible(mode, 1024, 128, 129)  # k > 128
-        assert not tsf.fused_eligible(mode, 1024, 400, 10)   # wide rows
-    for mode in ("bf16", "sq8", "i8dec", "pq_residual"):
+        assert not tsf.fused_eligible(mode, 1024, 4100, 10)  # wide rows
+    for mode in ("i8dec", "pq_residual"):
         assert not tsf.fused_eligible(mode, 1024, 128, 10)
 
 
 def test_fused_ivf_scan_unported_variants_raise():
     z = torch.zeros(1)
-    for mode, metric, sel in (("sq8", Dist.EUCLIDEAN, "fold"),
+    for mode, metric, sel in (("i8dec", Dist.EUCLIDEAN, "fold"),
                               ("i8dec_residual", Dist.COSINE, "fold"),
                               ("i8dec_residual", Dist.EUCLIDEAN, "exact")):
         with pytest.raises(NotImplementedError, match="K1"):
@@ -356,3 +358,184 @@ def test_repack_blocks_keeps_f32_cells():
     cells, sn = tsf.repack_blocks(storage, (storage ** 2).sum(1), torch.tensor([0, 128]), 128)
     assert cells.dtype == torch.float32 and cells.shape == (3, 128, 48)
     assert torch.equal(cells[1, :, :40], storage[128:256]) and (cells[:, :, 40:] == 0).all()
+
+
+def test_repack_blocks_keeps_bf16_and_int8_cells():
+    storage = torch.randn(300, 40).to(torch.bfloat16)
+    cells, sn = tsf.repack_blocks(storage, (storage.float() ** 2).sum(1),
+                                  torch.tensor([0, 128]), 128)
+    assert cells.dtype == torch.bfloat16 and cells.shape == (3, 128, 48)
+    assert torch.equal(cells[1, :, :40], storage[128:256]) and sn.dtype == torch.float32
+    codes = torch.randint(-128, 128, (300, 40), dtype=torch.int8)
+    sq = (codes.int() ** 2).sum(1, dtype=torch.int32)
+    cells, sn = tsf.repack_blocks(codes, sq, torch.tensor([0, 128]), 128)
+    assert cells.dtype == torch.int8 and torch.equal(sn[1], sq[128:256].float())
+
+
+# -- K1c-bf16, K1d-bf16, K1c-sq8 and K1d-sq8 ------------------------------------
+#
+# sq8: query codes and cell codes are integers with |v| ≤ 128, so every
+# product and partial sum is an integer below 2²⁴ and the dots, and the l2
+# distances, are exact in both packages: they agree bit for bit. Under
+# cos_qnorm the JAX package's CPU rsqrt is not correctly rounded (it
+# differs from the IEEE 1/√x, which the kernel and the plain version take,
+# by up to 2 ulp) and XLA fuses 1 − a·b into one FMA: bit for bit on rows
+# whose squared norms are powers of 4 (every factor then exact), within
+# 1e-6 otherwise.
+# bf16: the fold rounds the query to bf16 in both packages, so the products
+# are exact and only the order of the f32 sums differs; the exact
+# selection scores the f32 query, which the JAX package splits into hi/lo
+# bf16 terms (about 16 of its bits). Distances within 1e-5 relative, lanes
+# on ≥ 99.99% of (task, slot, rank), sentinel entries equal.
+
+
+def _quant_tasks(seed, d, cell_dtype, R=24, maxq=32, seg=256, nseg=6, nq=50, pow4=False,
+                 unit=False):
+    """Task inputs over bf16 or int8 cells (padded to 16 columns), with
+    sentinel rows (cnt 0), rows shorter than kb and partial rows. int8:
+    query codes as f32; ``pow4`` puts one nonzero ±2^j per row, so every
+    squared norm is a power of 4. bf16: ``unit`` rows and queries (the
+    cosine index stores them normalised)."""
+    rng = np.random.default_rng(seed)
+    dp = -(-d // 16) * 16
+    if cell_dtype == "int8":
+        if pow4:
+            cells = np.zeros((nseg + 1, seg, dp), np.int8)
+            cols = rng.integers(0, d, (nseg, seg))
+            vals = rng.choice([-64, -16, -4, -1, 1, 2, 8, 32], (nseg, seg))
+            np.put_along_axis(cells[:-1], cols[..., None], vals[..., None].astype(np.int8), axis=2)
+            queries_x = np.zeros((nq + 1, d), np.float32)
+            queries_x[np.arange(nq), rng.integers(0, d, nq)] = rng.choice([-32, -2, 1, 4, 16], nq)
+            queries_x[0, :4] = 8             # ‖q‖² = 256
+            queries_x[1] = 0                 # a zero query: qadd = 0
+        else:
+            cells = np.zeros((nseg + 1, seg, dp), np.int8)
+            cells[:-1, :, :d] = rng.integers(-128, 128, (nseg, seg, d))
+            queries_x = rng.integers(-128, 128, (nq + 1, d)).astype(np.float32)
+        sn = (cells.astype(np.float32) ** 2).sum(-1).astype(np.float32)
+    else:
+        cells32 = np.zeros((nseg + 1, seg, dp), np.float32)
+        cells32[:-1, :, :d] = rng.standard_normal((nseg, seg, d))
+        queries_x = rng.standard_normal((nq + 1, d)).astype(np.float32)
+        if unit:
+            cells32 /= np.maximum(np.linalg.norm(cells32, axis=-1, keepdims=True), 1e-30)
+            queries_x /= np.linalg.norm(queries_x, axis=-1, keepdims=True)
+        cells = np.asarray(jnp.asarray(cells32).astype(jnp.bfloat16))
+        sn = (np.asarray(cells, np.float32) ** 2).sum(-1).astype(np.float32)
+    queries_x[-1] = 0
+    task_seg = rng.integers(0, nseg, R).astype(np.int32)
+    cnt = np.full(R, seg, np.int32)
+    cnt[1::5] = rng.integers(1, seg, len(cnt[1::5]))
+    cnt[2] = 5                       # fewer valid lanes than kb
+    cnt[3::7] = 0
+    task_seg[3::7] = nseg
+    lists = rng.integers(0, nq + 1, (R, maxq)).astype(np.int32)
+    return lists, task_seg, cnt, queries_x, cells, sn
+
+
+def _jax_quant_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, mode, cosine, selection):
+    """The JAX scan on port-style task inputs, with the query terms, qadd and
+    epilogue that ``fused_ivf_scan`` picks for mode bf16 or sq8;
+    ``_fused_cell_scan`` in interpret mode."""
+    R, maxq = lists.shape
+    seg, dp = cells.shape[1:]
+    qg = jnp.asarray(queries_x)[jnp.asarray(lists)]
+    q_sq = jnp.sum(qg * qg, axis=-1)
+    if mode == "sq8":
+        epilogue = "cos_qnorm" if cosine else "l2"
+        qadd = jnp.where(q_sq > 0, jax.lax.rsqrt(jnp.maximum(q_sq, 1e-12)), 0.0) if cosine else q_sq
+    else:
+        epilogue = "cos_plain" if cosine else "l2"
+        qadd = jnp.zeros((R, maxq), jnp.float32) if cosine else q_sq
+    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, dp - qg.shape[-1])))
+    if mode == "bf16" and selection == "exact":
+        qk_t = mantissa_split(qg, 2)
+    else:
+        qk_t = (qg.astype(jnp.bfloat16),)
+    cd, ci = jsp._fused_cell_scan(
+        qk_t, jnp.broadcast_to(qadd[:, None, :], (R, 8, maxq)),
+        jnp.asarray(task_seg), jnp.asarray(cnt), (jnp.asarray(cells),),
+        jnp.broadcast_to(jnp.asarray(sn)[:, None, :], (sn.shape[0], 8, seg)),
+        kb, epilogue, True, fold_depth=2, selection=selection,
+    )
+    return np.asarray(cd), np.asarray(ci)
+
+
+def _port_quant_plain(args, kb, mode, cosine, selection):
+    lists, task_seg, cnt, queries_x, cells, sn = args
+    cells_t = (torch.tensor(np.asarray(cells, np.float32)).to(torch.bfloat16)
+               if mode == "bf16" else torch.as_tensor(cells))
+    plain = tsf.ivf_cell_scan_bf16_plain if mode == "bf16" else tsf.ivf_cell_scan_sq8_plain
+    return plain(torch.as_tensor(lists), torch.as_tensor(task_seg), torch.as_tensor(cnt),
+                 torch.as_tensor(queries_x), cells_t, torch.as_tensor(sn), kb, cosine,
+                 exact=selection == "exact")
+
+
+def _assert_sentinels(gd, gi, wd, wi, cnt, selection):
+    big = np.float32(3e38)
+    np.testing.assert_array_equal(gd == big, wd == big)
+    np.testing.assert_array_equal(gi[wd == big], wi[wd == big])
+    assert (gd[cnt == 0] == big).all() and (gi[cnt == 0] == 0).all()
+    if selection == "exact":         # past the valid rows: (3e38, lane 0)
+        assert (gd[2, :, 5:] == big).all() and (gi[2, :, 5:] == 0).all()
+
+
+@pytest.mark.parametrize("selection", ["exact", "fold"], ids=["K1c-sq8", "K1d-sq8"])
+@pytest.mark.parametrize(
+    "seed,d,kb,cosine,pow4",
+    [
+        (0, 40, 8, False, False),     # l2, columns padded to 48
+        (1, 64, 16, False, False),
+        (2, 40, 16, True, True),      # cos_qnorm, powers-of-4 norms
+        (3, 64, 8, True, True),
+    ],
+)
+def test_sq8_cell_scan_matches_jax_bit_for_bit(seed, d, kb, cosine, pow4, selection):
+    args = _quant_tasks(seed, d, "int8", pow4=pow4)
+    gd, gi = _port_quant_plain(args, kb, "sq8", cosine, selection)
+    wd, wi = _jax_quant_cell_scan(*args, kb, "sq8", cosine, selection)
+    assert gd.shape == (24, 32, kb) and gi.dtype == torch.int32
+    np.testing.assert_array_equal(gd.numpy(), wd)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+    _assert_sentinels(gd.numpy(), gi.numpy(), wd, wi, args[2], selection)
+
+
+@pytest.mark.parametrize("selection", ["exact", "fold"], ids=["K1c-sq8", "K1d-sq8"])
+def test_sq8_cos_qnorm_matches_jax_on_any_codes(selection):
+    args = _quant_tasks(4, 40, "int8")
+    gd, gi = _port_quant_plain(args, 16, "sq8", True, selection)
+    wd, wi = _jax_quant_cell_scan(*args, 16, "sq8", True, selection)
+    np.testing.assert_allclose(gd.numpy(), wd, rtol=0, atol=1e-6)
+    assert (gi.numpy() == wi).mean() >= 0.9999
+    _assert_sentinels(gd.numpy(), gi.numpy(), wd, wi, args[2], selection)
+
+
+@pytest.mark.parametrize("selection", ["exact", "fold"], ids=["K1c-bf16", "K1d-bf16"])
+@pytest.mark.parametrize(
+    "seed,d,kb,cosine", [(5, 40, 8, False), (6, 64, 16, False), (7, 40, 16, True), (8, 64, 8, True)]
+)
+def test_bf16_cell_scan_matches_jax(seed, d, kb, cosine, selection):
+    args = _quant_tasks(seed, d, "bf16", unit=cosine)
+    gd, gi = _port_quant_plain(args, kb, "bf16", cosine, selection)
+    wd, wi = _jax_quant_cell_scan(*args, kb, "bf16", cosine, selection)
+    real = wd != np.float32(3e38)
+    np.testing.assert_allclose(gd.numpy()[real], wd[real], rtol=1e-5, atol=0)
+    assert (gi.numpy() == wi).mean() >= 0.9999
+    _assert_sentinels(gd.numpy(), gi.numpy(), wd, wi, args[2], selection)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "sq8"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_quantised_wrappers_on_cpu_are_the_plain_version(mode, exact):
+    lists, task_seg, cnt, queries_x, cells, sn = _quant_tasks(9, 48, "int8" if mode == "sq8" else "bf16", R=6)
+    cells_t = (torch.tensor(np.asarray(cells, np.float32)).to(torch.bfloat16)
+               if mode == "bf16" else torch.as_tensor(cells))
+    args = (torch.as_tensor(lists), torch.as_tensor(task_seg), torch.as_tensor(cnt),
+            torch.as_tensor(queries_x), cells_t, torch.as_tensor(sn))
+    wrapper = getattr(tsf, f"ivf_cell_scan_{mode}_{'exact' if exact else 'fold'}")
+    plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+    before = wrapper.launches
+    gd, gi = wrapper(*args, 16, cosine=True)
+    pd, pi = plain(*args, 16, True, exact=exact)
+    assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    assert wrapper.launches == before    # no kernel launched

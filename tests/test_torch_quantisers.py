@@ -118,3 +118,47 @@ def test_unported_and_invalid_configurations_raise():
         tq.ProductQuantiser.train(x, 48)
     with pytest.raises(ValueError, match="dim >= 32"):
         tq.ProductQuantiser.train(torch.zeros((300, 16)), 16)
+
+
+# -- the bf16 codec and the scalar quantiser (SQ8) -----------------------------
+
+
+def _sq8_data():
+    """Clustered rows, an all-zero column, and values exactly on the ±0.5
+    steps of the quantisation grid (and at ±128 steps, which clamp)."""
+    x, _ = generate_clustered_data(1500, 48, 6, seed=7)
+    x[:, 5] = 0.0
+    s = np.abs(x).max(0) / 128.0
+    x[:40, 7] = (np.arange(-20, 20) + 0.5) * s[7]
+    x[40, 8], x[41, 8] = 128 * s[8], -128 * s[8]
+    return x.astype(np.float32)
+
+
+def test_scalar_quantiser_matches_jax_bit_for_bit():
+    x = _sq8_data()
+    qt = tq.ScalarQuantiser.train(torch.as_tensor(x))
+    qj = jq.ScalarQuantiser.train(jnp.asarray(x))
+    np.testing.assert_array_equal(qt.scales.numpy(), np.asarray(qj.scales))
+    assert qt.scales[5] == 1.0                       # the all-zero column
+    probe = np.concatenate([x, x * np.float32(1.7), -x[:100]])   # clamps too
+    ct = qt.encode(torch.as_tensor(probe))
+    cj = np.asarray(qj.encode(jnp.asarray(probe)))
+    assert ct.dtype == torch.int8
+    np.testing.assert_array_equal(ct.numpy(), cj)
+    assert ct.min() == -128 and ct.max() == 127
+    np.testing.assert_array_equal(qt.decode(ct).numpy(), np.asarray(qj.decode(jnp.asarray(cj))))
+    assert qt.memory_usage_bytes() == qj.memory_usage_bytes() == 48 * 4
+
+
+def test_scalar_quantiser_rounds_half_away_from_zero():
+    q = tq.ScalarQuantiser(torch.ones(6))
+    codes = q.encode(torch.tensor([[-2.5, -1.5, -0.5, 0.5, 1.5, 2.5]]))
+    np.testing.assert_array_equal(codes.numpy()[0], [-3, -2, -1, 1, 2, 3])
+
+
+def test_bf16_codec_matches_jax_bit_for_bit():
+    x = np.random.default_rng(2).standard_normal((200, 33)).astype(np.float32) * 7
+    t = tq.bf16_encode(torch.as_tensor(x))
+    j = jq.bf16_encode(jnp.asarray(x))
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tq.bf16_decode(t).numpy(), np.asarray(jq.bf16_decode(j)))
