@@ -6,9 +6,10 @@ CUDA kernel written for Hopper (``csrc/``), built at first use into
 ``_build/``.
 
 Layout:
-  * ``ops``     — running top-k, task-list inversion, the fused IVF scan
-  * ``models``  — indexes (exhaustive, IVF, bf16 / SQ8 IVF, IVF-PQ) and
-    k-means
+  * ``ops``     — running top-k, task-list inversion, the fused IVF scan,
+    the cluster scan, PQ decode
+  * ``models``  — indexes (exhaustive, IVF, bf16 / SQ8 IVF, IVF-PQ,
+    IVF-OPQ), quantisers and k-means
   * ``utils``   — distances, synthetic data, metrics
   * ``interop`` — index state carried over from the JAX package
 """

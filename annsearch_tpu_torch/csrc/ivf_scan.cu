@@ -1,9 +1,15 @@
-// IVF cell scan: one kernel template, seven variants of the Pallas kernel
+// IVF cell scan: one kernel template, ten variants of the Pallas kernel
 // annsearch_tpu/ops/ivf_scan_pallas.py (_scan_kernel / _scan_body, launched
 // by _fused_cell_scan):
 //
 //   K1a       int8 residual cells ("i8dec_residual"), l2, depth-2 fold, one
 //             bf16 query term (the IVF-PQ main path);
+//   K1b-l2    the same with two bf16 query terms (q_split: the mantissa
+//             split hi + lo of the scaled residual);
+//   K1b-cos   int8 residual cells, cos_renorm, fold, one or two query terms
+//             (cosine IVF-PQ / IVF-OPQ);
+//   K1d-i8dec int8 decode cells without centroids ("i8dec"), l2 or
+//             cos_renorm, fold, one or two query terms;
 //   K1d-f32   f32 cells, l2 or cos_plain, depth-2 fold (IvfIndex, approx);
 //   K1c-f32   f32 cells, l2 or cos_plain, exact selection (IvfIndex, the
 //             recall-1.0 tier);
@@ -17,7 +23,20 @@
 //
 // What it computes, for task row r (segment s = task_seg[r], n = cnt[r]
 // valid rows) and each query slot j < maxq (query id qid = lists[r, j]):
-//   K1a:  qr = q[qid] - cent[s], qadd = sum(qr * qr), qk = bf16_rne(qr * scales)
+//   K1a, K1b-l2: qr = q[qid] - cent[s], qadd = sum(qr * qr), qk = T(qr * scales)
+//   K1b-cos:     qk = T(q[qid] * scales), qadd = sum(q[qid] * cent[s])
+//   K1d-i8dec:   qk = T(q[qid] * scales), qadd = sum(q * q) (l2) or 0
+//         T(v) = bf16_rne(v) with one query term. With two, hi is v rounded
+//         to bf16 by integer add-then-mask ((bits + 0x8000) & 0xFFFF0000:
+//         ties away from zero, as the JAX package's mantissa_split), lo =
+//         bf16_rne(v - hi), and T(v) = hi + lo. That sum is exact in f32
+//         (both terms are multiples of ulp(v) and |hi + lo| <= 2^(e+1)), so
+//         the kernel carries ONE f32 query value of up to 16 mantissa bits
+//         and one FFMA per cell value: the FMA forms (hi + lo) * x exactly
+//         and rounds only the running sum, where two separately accumulated
+//         dots hi.x + lo.x round twice as often. The Pallas kernel sums two
+//         MXU passes; either way the order of the f32 sums differs, so a
+//         tolerance, not bits, holds the two packages together.
 //   else: qk = q[qid] (K1d-bf16: bf16_rne(q[qid])); qadd = sum(q * q) (l2),
 //         unused (cos_plain), or q_sq = sum(q * q) and qadd = 1 / sqrt(q_sq)
 //         or 0 for a zero query (cos_qnorm)
@@ -25,8 +44,9 @@
 //           bf16, bf16 x bf16 and int8 x int8 products are exact in f32, and
 //           sq8's sums stay integers below 2^24, so they are exact too)
 //   dist  = max(qadd + sn[s, l] - 2 dot_l, 0) (l2), 1 - dot_l (cos_plain),
-//           or 1 - (dot_l * qadd) * (1 / sqrt(max(sn[s, l], 1e-12)))
-//           (cos_qnorm); lanes l >= n are 3e38. The square roots and
+//           1 - (dot_l * qadd) * (1 / sqrt(max(sn[s, l], 1e-12)))
+//           (cos_qnorm), or 1 - (dot_l + qadd) * (1 / sqrt(max(sn[s, l],
+//           1e-12))) (cos_renorm); lanes l >= n are 3e38. The square roots and
 //           quotients are IEEE-rounded (__fsqrt_rn, __fdiv_rn), not the
 //           approximate rsqrtf, so the plain PyTorch version gives the
 //           same bits.
@@ -45,9 +65,10 @@
 // Bound on the H100: the multiply-adds, about (real query slots) x n x d per
 // task row, done here on the CUDA cores in f32 (K1a's bf16 x int8, K1d-bf16's
 // bf16 x bf16 and sq8's int8 x int8 products are exact in tensor-core MMA,
-// so their bounds are the bf16 or int8 tensor-core peaks; K1c-bf16's f32
-// query is three exact bf16 terms, so its bound is three passes at the bf16
-// peak; the f32 variants' is the fp32 peak). Each cell row is read from
+// so their bounds are the bf16 or int8 tensor-core peaks; the two-term
+// variants' is two passes at the bf16 peak; K1c-bf16's f32 query is three
+// exact bf16 terms, so its bound is three passes at the bf16 peak; the f32
+// variants' is the fp32 peak). Each cell row is read from
 // device memory once per block of 8 slots; f32 rows are 4x the bytes of int8
 // ones, bf16 rows 2x.
 // Design: one block per (task row, 8 query slots), one warp per slot. The
@@ -84,12 +105,27 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kBig = 3.0e38f;
 constexpr float kEmpty = 3.4028234663852886e38f;  // FLT_MAX: an empty exact slot
 
-enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2 };
-// the query term: K1a's residual, the query as it is, or rounded to bf16
-enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2 };
+enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2, kCosRenorm = 3 };
+// the query term: the scaled residual (K1a, K1b-l2), the query as it is,
+// rounded to bf16, the scaled query (K1d-i8dec), or the scaled query with
+// qadd = q . centroid (K1b-cos)
+enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2, kScaled = 3, kScaledCent = 4 };
 
 __device__ __forceinline__ bool lex_less(float va, int ia, float vb, int ib) {
   return va < vb || (va == vb && ia < ib);
+}
+
+// the scaled query value as the scan scores it: one bf16 term, or the exact
+// f32 sum of the two bf16 terms of the mantissa split (see the file header)
+template <bool kSplit>
+__device__ __forceinline__ float query_term(float v) {
+  if constexpr (!kSplit) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    const float hi = __uint_as_float((__float_as_uint(v) + 0x8000u) & 0xFFFF0000u);
+    const float lo = __bfloat162float(__float2bfloat16_rn(__fsub_rn(v, hi)));
+    return __fadd_rn(hi, lo);
+  }
 }
 
 // warp-wide lexicographic arg-min of (bv, bi); every lane gets the winner
@@ -149,14 +185,14 @@ __device__ __forceinline__ void stage_chunk(const float* src, float* cell_s,
   }
 }
 
-template <typename CellT, int kPro, int kEpi, bool kExact>
+template <typename CellT, int kPro, int kEpi, bool kExact, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 ivf_scan_kernel(const int* __restrict__ lists,
                 const int* __restrict__ task_seg,
                 const int* __restrict__ cnt,
                 const float* __restrict__ queries,
-                const float* __restrict__ cents,   // K1a only
-                const float* __restrict__ scales,  // K1a only
+                const float* __restrict__ cents,   // kResidual, kScaledCent
+                const float* __restrict__ scales,  // the int8-decode variants
                 const CellT* __restrict__ cells,
                 const float* __restrict__ sn,
                 float* __restrict__ out_d, int* __restrict__ out_i,
@@ -186,7 +222,7 @@ ivf_scan_kernel(const int* __restrict__ lists,
   }
   const int s = task_seg[r];
 
-  // prologue: this warp's query term (K1a: the bf16 residual) and norm
+  // prologue: this warp's query term and qadd
   float qadd = 0.f;
   if (active) {
     const int qid = lists[(size_t)r * maxq + j];
@@ -197,7 +233,15 @@ ivf_scan_kernel(const int* __restrict__ lists,
         if constexpr (kPro == kResidual) {
           const float qr = __fsub_rn(qrow[c], cents[(size_t)s * d + c]);
           qadd = __fadd_rn(qadd, __fmul_rn(qr, qr));
-          v = __bfloat162float(__float2bfloat16_rn(__fmul_rn(qr, scales[c])));
+          v = query_term<kSplit>(__fmul_rn(qr, scales[c]));
+        } else if constexpr (kPro == kScaled || kPro == kScaledCent) {
+          const float qv = qrow[c];
+          if constexpr (kPro == kScaledCent) {
+            qadd = __fadd_rn(qadd, __fmul_rn(qv, cents[(size_t)s * d + c]));
+          } else if constexpr (kEpi == kL2) {
+            qadd = __fadd_rn(qadd, __fmul_rn(qv, qv));
+          }
+          v = query_term<kSplit>(__fmul_rn(qv, scales[c]));
         } else {
           v = qrow[c];
           if constexpr (kEpi != kCosPlain) qadd = __fadd_rn(qadd, __fmul_rn(v, v));
@@ -264,7 +308,11 @@ ivf_scan_kernel(const int* __restrict__ lists,
         dist[i] = __fsub_rn(1.f, acc[i]);
       } else {
         const float rs = __fdiv_rn(1.f, __fsqrt_rn(fmaxf(snr[l], 1e-12f)));
-        dist[i] = __fsub_rn(1.f, __fmul_rn(__fmul_rn(acc[i], qadd), rs));
+        if constexpr (kEpi == kCosQnorm) {
+          dist[i] = __fsub_rn(1.f, __fmul_rn(__fmul_rn(acc[i], qadd), rs));
+        } else {  // cos_renorm
+          dist[i] = __fsub_rn(1.f, __fmul_rn(__fadd_rn(acc[i], qadd), rs));
+        }
       }
       if (l >= n_valid) dist[i] = kBig;
     }
@@ -371,12 +419,12 @@ size_t smem_bytes(int dp) {
   return ((size_t)kLanes * (cols + 4) + (size_t)kWarps * dp) * sizeof(float);
 }
 
-template <typename CellT, int kPro, int kEpi, bool kExact>
+template <typename CellT, int kPro, int kEpi, bool kExact, bool kSplit = false>
 int launch(const void* lists, const void* task_seg, const void* cnt,
            const void* queries, const void* cents, const void* scales,
            const void* cells, const void* sn, void* out_d, void* out_i,
            int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kExact>;
+  auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kExact, kSplit>;
   const size_t smem = smem_bytes(dp);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -390,7 +438,8 @@ int launch(const void* lists, const void* task_seg, const void* cnt,
   return (int)cudaGetLastError();
 }
 
-// The dense-cell variants, by cell type: [cosine][exact]
+// Every instance's launcher has one signature. The dense-cell variants, by
+// cell type: [cosine][exact]
 using DenseLaunch = decltype(&launch<float, kPlain, kL2, false>);
 
 // K1c-f32 (exact) and K1d-f32 (fold): f32 cells, l2 or cos_plain
@@ -422,6 +471,18 @@ int launch_dense(const DenseLaunch (&variants)[2][2], const void* lists,
       R, maxq, seg, d, dp, kb, stream);
 }
 
+// K1b-cos: int8 residual cells, cos_renorm, fold: [two query terms]
+const DenseLaunch kResidualCos[2] = {
+    launch<int8_t, kScaledCent, kCosRenorm, false, false>,
+    launch<int8_t, kScaledCent, kCosRenorm, false, true>,
+};
+// K1d-i8dec: int8 decode cells, l2 or cos_renorm, fold: [cosine][two terms]
+const DenseLaunch kI8dec[2][2] = {
+    {launch<int8_t, kScaled, kL2, false, false>, launch<int8_t, kScaled, kL2, false, true>},
+    {launch<int8_t, kScaled, kCosRenorm, false, false>,
+     launch<int8_t, kScaled, kCosRenorm, false, true>},
+};
+
 }  // namespace
 
 // Launches on `stream`; each returns the launch's cudaError_t (0 on
@@ -435,6 +496,40 @@ extern "C" int annsearch_ivf_scan_k1a(
     int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
   return launch<int8_t, kResidual, kL2, false>(
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
+      R, maxq, seg, d, dp, kb, stream);
+}
+
+// K1b-l2: int8 residual cells, l2, fold, two bf16 query terms
+extern "C" int annsearch_ivf_scan_k1b_l2(
+    const void* lists, const void* task_seg, const void* cnt,
+    const void* queries, const void* cents, const void* scales,
+    const void* cells, const void* sn, void* out_d, void* out_i,
+    int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
+  return launch<int8_t, kResidual, kL2, false, true>(
+      lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
+      R, maxq, seg, d, dp, kb, stream);
+}
+
+// K1b-cos: int8 residual cells, cos_renorm, fold, one or two query terms
+extern "C" int annsearch_ivf_scan_k1b_cos(
+    const void* lists, const void* task_seg, const void* cnt,
+    const void* queries, const void* cents, const void* scales,
+    const void* cells, const void* sn, void* out_d, void* out_i,
+    int R, int maxq, int seg, int d, int dp, int kb, int split, void* stream) {
+  return kResidualCos[split != 0](
+      lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
+      R, maxq, seg, d, dp, kb, stream);
+}
+
+// K1d-i8dec: int8 decode cells (no centroids), l2 or cos_renorm, fold, one
+// or two query terms
+extern "C" int annsearch_ivf_scan_i8dec(
+    const void* lists, const void* task_seg, const void* cnt,
+    const void* queries, const void* scales, const void* cells,
+    const void* sn, void* out_d, void* out_i, int R, int maxq, int seg, int d,
+    int dp, int kb, int cosine, int split, void* stream) {
+  return kI8dec[cosine != 0][split != 0](
+      lists, task_seg, cnt, queries, nullptr, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }
 

@@ -1,12 +1,14 @@
 """Index state carried across from the JAX package.
 
 ``ivf_pq_from_jax_arrays`` builds the port's ``IvfPqIndex`` from the arrays
-and scalars of an ``annsearch_tpu`` ``IvfPqIndex`` (in ``i8dec_residual``
-mode), ``ivf_from_jax_arrays`` the port's ``IvfIndex`` from those of an
-f32 ``IvfIndex``, and ``ivf_bf16_from_jax_arrays`` /
-``ivf_sq8_from_jax_arrays`` the quantised ``IvfIndexBf16`` /
-``IvfSq8Index``, as their ``save`` writes them to npz; each class's
-``load`` reads such a file through them. Both packages then query the same
+and scalars of an ``annsearch_tpu`` ``IvfPqIndex`` (int8 storage and
+``dec_scales`` in mode ``i8dec_residual``, uint8 codes and no
+``dec_scales`` in mode ``pq_residual``), ``ivf_opq_from_jax_arrays`` the
+``IvfOpqIndex`` (the same plus ``rotation``), ``ivf_from_jax_arrays`` the
+port's ``IvfIndex`` from those of an f32 ``IvfIndex``, and
+``ivf_bf16_from_jax_arrays`` / ``ivf_sq8_from_jax_arrays`` the quantised
+``IvfIndexBf16`` / ``IvfSq8Index``, as their ``save`` writes them to npz;
+each class's ``load`` reads such a file through them. Both packages then query the same
 centroids and cells, so differences between their random streams drop out
 of a comparison.
 
@@ -20,6 +22,7 @@ import torch
 
 __all__ = [
     "ivf_pq_from_jax_arrays", "IVF_PQ_ARRAYS", "IVF_PQ_SCALARS",
+    "ivf_opq_from_jax_arrays", "IVF_OPQ_ARRAYS",
     "ivf_from_jax_arrays", "IVF_ARRAYS", "IVF_SCALARS",
     "ivf_bf16_from_jax_arrays", "ivf_sq8_from_jax_arrays", "IVF_SQ8_ARRAYS",
 ]
@@ -31,6 +34,7 @@ IVF_ARRAYS = (
 IVF_SCALARS = ("n", "dim", "nlist", "seg_size")
 IVF_PQ_ARRAYS = IVF_ARRAYS + ("codebooks", "dec_scales")
 IVF_PQ_SCALARS = IVF_SCALARS + ("m",)
+IVF_OPQ_ARRAYS = IVF_PQ_ARRAYS + ("rotation",)
 IVF_SQ8_ARRAYS = IVF_ARRAYS + ("scales",)
 
 #: device dtypes of the index arrays (``storage`` keeps its own: int8 or
@@ -83,22 +87,45 @@ def ivf_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"
     return _ivf_state(IvfIndex, arrays, meta, IVF_ARRAYS, IVF_SCALARS, np.float32, device)
 
 
+def _ivf_pq_state(cls, names, arrays, meta, device):
+    """``cls`` (``IvfPqIndex`` or ``IvfOpqIndex``) from its state: int8
+    storage needs ``dec_scales`` (mode ``i8dec_residual``); uint8 codes
+    carry none (mode ``pq_residual``)."""
+    dtype = np.asarray(arrays.get("storage", np.empty(0, np.int8))).dtype
+    if dtype not in (np.int8, np.uint8):
+        raise ValueError(
+            f"storage must be int8 (with dec_scales) or uint8 codes, got {dtype}"
+        )
+    if dtype == np.uint8:
+        names = tuple(a for a in names if a != "dec_scales")
+        arrays = {a: v for a, v in arrays.items() if a != "dec_scales"}
+    obj = _ivf_state(cls, arrays, meta, names, IVF_PQ_SCALARS, dtype, device)
+    if "dec_scales" not in names:
+        obj.dec_scales = None
+    obj._restore()
+    return obj
+
+
 def ivf_pq_from_jax_arrays(
     arrays: dict[str, np.ndarray], meta: dict, device="cuda"
 ):
     """``IvfPqIndex`` from a JAX index's state: ``arrays`` holds
-    :data:`IVF_PQ_ARRAYS` (``storage`` int8), ``meta`` the scalars
-    :data:`IVF_PQ_SCALARS` and optionally ``metric``."""
-    from .models.quantised.ivf import IvfPqIndex, _check_supported
-    from .models.quantised.quantisers import ProductQuantiser
+    :data:`IVF_PQ_ARRAYS` (``storage`` int8 with ``dec_scales``, or uint8
+    codes without), ``meta`` the scalars :data:`IVF_PQ_SCALARS` and
+    optionally ``metric``."""
+    from .models.quantised.ivf import IvfPqIndex
 
-    if "m" in meta and "dim" in meta:
-        _check_supported(meta.get("metric", "euclidean"), int(meta["m"]), int(meta["dim"]))
-    obj = _ivf_state(
-        IvfPqIndex, arrays, meta, IVF_PQ_ARRAYS, IVF_PQ_SCALARS, np.int8, device
-    )
-    obj.quantiser = ProductQuantiser(obj.codebooks, obj.m, obj.dim)
-    return obj
+    return _ivf_pq_state(IvfPqIndex, IVF_PQ_ARRAYS, arrays, meta, device)
+
+
+def ivf_opq_from_jax_arrays(
+    arrays: dict[str, np.ndarray], meta: dict, device="cuda"
+):
+    """``IvfOpqIndex`` from a JAX index's state: as
+    :func:`ivf_pq_from_jax_arrays`, with the ``[d, d]`` ``rotation``."""
+    from .models.quantised.ivf import IvfOpqIndex
+
+    return _ivf_pq_state(IvfOpqIndex, IVF_OPQ_ARRAYS, arrays, meta, device)
 
 
 def ivf_bf16_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):

@@ -1,5 +1,5 @@
 """Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, IVF,
-quantised IVF (bf16, SQ8) and IVF-PQ rows).
+quantised IVF (bf16, SQ8), IVF-PQ and IVF-OPQ rows).
 
 Queries return ``(ids [nq, k], dists [nq, k] | None)`` as tensors on the
 index's device: ids int64, distances float32 ascending (euclidean squared).
@@ -12,7 +12,7 @@ from typing import Any
 
 from .models.exhaustive import ExhaustiveIndex
 from .models.ivf import IvfIndex
-from .models.quantised.ivf import IvfIndexBf16, IvfPqIndex, IvfSq8Index
+from .models.quantised.ivf import IvfIndexBf16, IvfOpqIndex, IvfPqIndex, IvfSq8Index
 
 __all__ = [
     "build_exhaustive_index",
@@ -29,6 +29,10 @@ __all__ = [
     "query_ivf_sq8_self",
     "build_ivf_pq_index",
     "query_ivf_pq_index",
+    "query_ivf_pq_index_self",
+    "build_ivf_opq_index",
+    "query_ivf_opq_index",
+    "query_ivf_opq_index_self",
 ]
 
 
@@ -133,11 +137,41 @@ def build_ivf_pq_index(
 
 
 def query_ivf_pq_index(
-    query_mat, index, k, nprobe=None, return_dist=False, approx: bool = False
+    query_mat, index, k, nprobe=None, return_dist=False, approx: bool = False,
+    q_split: bool | None = None,
 ):
-    """``approx=True`` takes the fused tier, the only one ported for IVF-PQ;
-    the default, ``False``, raises ``NotImplementedError``: the exact tier
-    of the int8 modes needs the cluster scan ``ivf_cluster_scan``."""
+    """The exact tier (the cluster scan over the probed cells) by default,
+    as the JAX row; ``approx=True`` takes the fused tier where the index has
+    one (``m = dim``: kernels K1a / K1b), with ``q_split=True`` for two bf16
+    query terms."""
     return _maybe_dist(
-        *index.query(query_mat, k, nprobe=nprobe, approx=approx), return_dist
+        *index.query(query_mat, k, nprobe=nprobe, approx=approx, q_split=q_split),
+        return_dist,
     )
+
+
+def query_ivf_pq_index_self(index, k: int, nprobe=None, return_dist=False):
+    return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)
+
+
+def build_ivf_opq_index(
+    mat: Any, nlist=None, m: int = 16, max_iters=None,
+    dist_metric="euclidean", seed=42, verbose=False, device="cuda",
+) -> IvfOpqIndex:
+    return IvfOpqIndex(
+        mat, dist_metric, nlist=nlist, m=m,
+        max_iters=30 if max_iters is None else max_iters, seed=seed,
+        verbose=verbose, device=device,
+    )
+
+
+def query_ivf_opq_index(
+    query_mat, index, k, nprobe=None, return_dist=False, approx: bool = False,
+    q_split: bool | None = None,
+):
+    """As :func:`query_ivf_pq_index`, over an :class:`IvfOpqIndex`."""
+    return query_ivf_pq_index(query_mat, index, k, nprobe, return_dist, approx, q_split)
+
+
+def query_ivf_opq_index_self(index, k: int, nprobe=None, return_dist=False):
+    return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)

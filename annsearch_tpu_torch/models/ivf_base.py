@@ -1,12 +1,12 @@
 """Shared scaffolding of the IVF index family (port of
 ``annsearch_tpu.models.ivf_base``: the fused approximate tier, the fused
-exact tier and its certificate).
+exact tier and its certificate, and the cluster scan behind both).
 
 Build: k-means coarse quantiser → cluster-sorted storage → segment layout
 (cells larger than ``seg_size`` split into segments sharing the cell's
 centroid) → storage encoding (a subclass hook).
 
-Query, two tiers:
+Query, two tiers over three scans:
 
 * approximate (``approx=True``): route each query to its nearest
   segments → invert into per-segment task rows on the device → fused cell
@@ -18,7 +18,13 @@ Query, two tiers:
   rescore of a 2k pool; sq8 distances are exact in integer space, so its
   selection keeps k with no margin and no rescore. ``certify=True`` (f32
   cells) adds the triangle-inequality certificate, which re-probes every
-  query whose k-th distance an unprobed cell could still beat.
+  query whose k-th distance an unprobed cell could still beat;
+* the cluster scan (``ops/ivf_scan.py``, tensor operations, exact per-cell
+  selection) answers everything else, as in the JAX package: the PQ-coded
+  modes, the exact tier of the int8-decode modes, and any shape the fused
+  scan's gate refuses (k > 128, a ``seg_size`` that is no multiple of 128,
+  rows wider than the kernel takes). It routes to clusters and builds its
+  task lists on the device when no cell is split, else on the host.
 
 f64 queries to an index built from f64 data take a 2k pool from the f32
 scan and rescore it in f64 on the host.
@@ -33,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.ivf_scan import build_probe_lists_from_pairs, ivf_cluster_scan
 from ..ops.ivf_scan_fused import fused_eligible, fused_ivf_scan, repack_blocks
 from ..ops.probe_device import (
     build_probe_lists_compact,
@@ -44,7 +51,12 @@ from ..ops.probe_device import (
 )
 from ..utils.dist import Dist, matmul_t, normalise, sq_norms
 from .base import BaseIndex, host_f64
-from .kmeans import assign_clusters, segment_layout, train_centroids
+from .kmeans import (
+    assign_clusters,
+    expand_probes_to_segments,
+    segment_layout,
+    train_centroids,
+)
 
 __all__ = ["IvfBase", "route_to_cells"]
 
@@ -53,8 +65,6 @@ __all__ = ["IvfBase", "route_to_cells"]
 #: pool is rescored in f32 (sq8's integer-space distances are exact)
 _EXACT_MODES = ("f32", "bf16", "sq8")
 _RESCORED_MODES = ("f32", "bf16")
-#: modes where ``q_split`` chooses the query terms of the approximate tier
-_Q_SPLIT_MODES = ("i8dec", "i8dec_residual")
 
 
 def route_to_cells(
@@ -134,10 +144,11 @@ def _exact_rescore(q, storage, d, i, k: int, metric: Dist):
 
 
 class IvfBase(BaseIndex):
-    """k-means routing + segmented cells + fused cell scan. Subclasses set
+    """k-means routing + segmented cells + cell scan. Subclasses set
     ``mode`` and define ``_encode_storage`` and ``_decoded_sorted`` (and
-    ``_scan_scales`` for the int8 residual mode, ``_encode_queries`` where
-    the scan scores queries in another space than routing)."""
+    ``_codebooks`` for the PQ and int8-decode modes, ``_encode_queries``
+    and ``_scan_seg_centroids`` where the scan scores in another space than
+    routing)."""
 
     _state_arrays = (
         "storage", "store_sqnorms", "centroids", "seg_centroids",
@@ -211,13 +222,18 @@ class IvfBase(BaseIndex):
             self._fused_blocks_cache = cached
         return cached
 
-    def _scan_scales(self) -> torch.Tensor | None:
-        """Decode scales of the int8 residual mode (None elsewhere)."""
+    def _codebooks(self) -> torch.Tensor | None:
+        """What the scan decodes with: the PQ codebooks, or the ``[d]``
+        decode scales of the int8-decode modes (None elsewhere)."""
         return None
 
     def _encode_queries(self, q: torch.Tensor) -> torch.Tensor:
         """The queries as the scan scores them (routing takes ``q``)."""
         return q
+
+    def _scan_seg_centroids(self) -> torch.Tensor:
+        """The segment centroids in the scan's scoring space."""
+        return self.seg_centroids
 
     def _segment_rows(self) -> tuple[np.ndarray, np.ndarray]:
         """``(rows, seg)``: every stored row's sorted position and its
@@ -294,16 +310,22 @@ class IvfBase(BaseIndex):
         ``approx=True`` is the fused approximate tier: each (query,
         segment) keeps kb ≥ k candidates from a depth-2 stride-class fold,
         and the cross-segment top-k is exact. ``approx=False`` (the default)
-        is the exact tier, ported for f32, bf16 and sq8 cells: exact within
-        the probed cells at storage precision. ``certify=True`` (exact f32
-        tier only) makes it provably exact at f32-selection grain:
-        ``nprobe`` then sets the starting probe count. ``k_scan`` widens the
-        scanned pool (the result then has ``k_scan`` columns). f64 queries
-        to an index built from f64 data answer at f64 grade (dists
-        float64). ``q_split`` acts, as in the JAX package, only in the
-        approximate tier of the int8-decode modes, where ``None`` means one
-        bf16 query pass and ``True`` two (kernel K1b, not ported: it
-        raises); everywhere else it is ignored."""
+        is the exact tier: exact within the probed cells at storage
+        precision, by the fused exact selection for f32, bf16 and sq8 cells
+        and by the cluster scan for the int8-decode and PQ modes. Where the
+        fused scan does not take the index (PQ codes, k > 128, a
+        ``seg_size`` that is no multiple of 128), both values of ``approx``
+        take the cluster scan and its exact per-cell selection: the JAX
+        package's approximate selection there (``lax.approx_min_k``) has
+        no counterpart on the card. ``certify=True`` (exact f32 tier only)
+        makes the answer provably exact at f32-selection grain: ``nprobe``
+        then sets the starting probe count. ``k_scan`` widens the scanned
+        pool (the result then has ``k_scan`` columns). f64 queries to an
+        index built from f64 data answer at f64 grade (dists float64).
+        ``q_split`` acts, as in the JAX package, only in the fused
+        approximate tier of the int8-decode modes: ``None`` and ``False``
+        score one bf16 query term (kernels K1a, K1b-cos), ``True`` two
+        (K1b-l2, K1b-cos); everywhere else it is ignored."""
         if certify and (approx or self.mode != "f32"):
             raise ValueError(
                 "certify=True requires the exact f32 tier (approx=False and a "
@@ -374,34 +396,23 @@ class IvfBase(BaseIndex):
 
     def _scan(self, q: torch.Tensor, k: int, nprobe: int, approx: bool,
               q_split: bool | None = None):
-        """Route → task lists → fused scan. Returns (dists [nq, k],
+        """Route → task lists → scan. Returns (dists [nq, k],
         sorted-storage positions [nq, k])."""
-        if not approx and self.mode not in _EXACT_MODES:
-            raise NotImplementedError(
-                f"approx=False on mode {self.mode!r}: the exact tier of the "
-                "int8-decode modes needs the XLA-style cluster scan "
-                "ivf_cluster_scan (ROADMAP Queue 1 item 10)"
-            )
-        if not fused_eligible(self.mode, self.seg_size, self.dim, k):
-            raise NotImplementedError(
-                f"mode={self.mode!r} seg_size={self.seg_size} dim={self.dim} "
-                f"k={k} needs the XLA-style cluster scan ivf_cluster_scan "
-                "(ROADMAP Queue 1 item 10)"
-            )
-        if approx and q_split and self.mode in _Q_SPLIT_MODES:
-            raise NotImplementedError(
-                "q_split=True (two bf16 query terms) is kernel K1b, "
-                "ROADMAP Queue 2"
-            )
-        cells, sn = self._fused_blocks()
-        scan_args = (
-            cells, sn, self.seg_offsets, self.seg_counts, self.seg_centroids,
-        )
-        if approx:
-            return self._scan_approx(q, k, nprobe, scan_args)
-        return self._scan_exact(q, k, nprobe, scan_args)
+        fused = fused_eligible(self.mode, self.seg_size, int(self.storage.shape[1]), k)
+        if approx and fused:
+            # q_split None is one bf16 query pass: the int8 codes' own
+            # quantisation dominates the query's rounding there, and no
+            # other mode reads the knob
+            return self._scan_approx(q, k, nprobe, bool(q_split))
+        if not approx and fused and self.mode in _EXACT_MODES:
+            return self._scan_exact(q, k, nprobe)
+        return self._scan_cluster(q, k, nprobe)
 
-    def _scan_approx(self, q, k, nprobe, scan_args):
+    def _fused_args(self):
+        cells, sn = self._fused_blocks()
+        return cells, sn, self.seg_offsets, self.seg_counts, self._scan_seg_centroids()
+
+    def _scan_approx(self, q, k, nprobe, q_split):
         # route straight to segments: a split cell's segments are duplicate
         # routing rows, probed together; nprobe scales to segments so the
         # probed fraction of the database matches cell semantics
@@ -413,11 +424,38 @@ class IvfBase(BaseIndex):
         probes = route_to_cells(q, self.seg_centroids, nprobe_seg, self.metric)
         cluster_ids, lists, gmap = build_probe_lists_device(probes, nseg, maxq, R)
         return fused_ivf_scan(
-            self._encode_queries(q), cluster_ids, lists, gmap, *scan_args, k,
-            self.metric, self.mode, self._scan_scales(), kb,
+            self._encode_queries(q), cluster_ids, lists, gmap, *self._fused_args(), k,
+            self.metric, self.mode, self._codebooks(), kb, q_split=q_split,
         )
 
-    def _scan_exact(self, q, k, nprobe, scan_args):
+    def _scan_cluster(self, q, k, nprobe):
+        """Route to clusters, expand to (query, segment) tasks and run the
+        cluster scan. With no split cell the expansion is the identity and
+        the lists are built on the device; split cells would cost the dense
+        expansion its sentinel slots as real scan rows, so their lists are
+        built on the host from the real pairs."""
+        nq = q.shape[0]
+        nseg = int(self.seg_offsets.shape[0])
+        probes = route_to_cells(q, self.centroids, nprobe, self.metric)
+        if self._seg_s_max() == 1 and nq * nprobe < (1 << 26):
+            maxq, R = device_probe_shapes(nq, nprobe, nseg, 1)
+            seg_probes = expand_probes_device(probes, self._cluster_ptr_dev(), 1, nseg)
+            lists = build_probe_lists_device(seg_probes, nseg, maxq, R)
+        else:
+            qs, segs = expand_probes_to_segments(
+                probes.cpu().numpy(), np.asarray(self._cluster_ptr)
+            )
+            lists = tuple(
+                torch.as_tensor(a.astype(np.int64), device=self.device)
+                for a in build_probe_lists_from_pairs(qs, segs, nseg, nq)
+            )
+        return ivf_cluster_scan(
+            self._encode_queries(q), *lists, self.storage, self.store_sqnorms,
+            self.seg_offsets, self.seg_counts, self._scan_seg_centroids(), k,
+            self.metric, self.seg_size, self.mode, codebooks=self._codebooks(),
+        )
+
+    def _scan_exact(self, q, k, nprobe):
         """Recall-1.0 tier: route to clusters, expand to segments, exact
         per-segment selection. f32 and bf16 cells: kb ≥ k + 8 (a margin
         against rank flips of rounded distances), a 2k pool rescored
@@ -446,9 +484,9 @@ class IvfBase(BaseIndex):
                 probes, ptr, P, T_g, nseg, maxq, R
             )
         d, i = fused_ivf_scan(
-            self._encode_queries(q), cluster_ids, lists, gmap, *scan_args,
+            self._encode_queries(q), cluster_ids, lists, gmap, *self._fused_args(),
             min(2 * k, 128) if rescored else k, self.metric, self.mode,
-            self._scan_scales(), kb, selection="exact",
+            self._codebooks(), kb, selection="exact",
         )
         if not rescored:
             return d, i

@@ -21,10 +21,12 @@ __all__ = [
     "KMEANS_SEED_CAP",
     "train_sample_size",
     "train_centroids",
+    "train_centroids_minibatch",
     "assign_clusters",
     "cluster_sums",
     "SegmentLayout",
     "segment_layout",
+    "expand_probes_to_segments",
 ]
 
 #: above this k, D²-seeding is replaced by random row picks
@@ -162,6 +164,41 @@ def train_centroids(
     return _lloyd(x_train, init, k, max_iters, tol, spherical=metric == Dist.COSINE)
 
 
+def train_centroids_minibatch(
+    x: torch.Tensor,               # [m, n, ds]: m independent training sets
+    init_centroids: torch.Tensor,  # [m, k, ds]
+    k: int,
+    gen: torch.Generator,
+    iters: int = 20,
+    batch: int = 10_240,
+) -> torch.Tensor:
+    """Sculley mini-batch k-means (per-centroid learning rate 1/count), for
+    all ``m`` training sets in one batched program: the PQ sub-codebooks of
+    large training sets, where a full Lloyd pass per subspace is wasteful.
+    Each step draws ``batch`` rows per set from ``gen``. Returns ``[m, k,
+    ds]``."""
+    m, n, ds = x.shape
+    xs = sq_norms(x)
+    c = init_centroids
+    counts = torch.zeros((m, k), device=x.device)
+    base = torch.arange(m, device=x.device)[:, None] * k
+    for _ in range(iters):
+        idx = torch.randint(0, n, (m, batch), generator=gen, device=x.device)
+        xb = torch.gather(x, 1, idx[:, :, None].expand(-1, -1, ds))
+        d = (
+            torch.gather(xs, 1, idx)[:, :, None] + sq_norms(c)[:, None, :]
+            - 2.0 * matmul_t(xb, c, "highest")
+        )
+        a = torch.argmin(d, dim=2)
+        bsum, bcnt = cluster_sums(xb.reshape(-1, ds), (a + base).reshape(-1), m * k)
+        bsum, bcnt = bsum.reshape(m, k, ds), bcnt.reshape(m, k).to(x.dtype)
+        counts = counts + bcnt
+        lr = torch.where(counts > 0, 1.0 / torch.clamp(counts, min=1.0), 0.0)
+        mean_b = bsum / torch.clamp(bcnt, min=1.0)[:, :, None]
+        c = torch.where(bcnt[:, :, None] > 0, c + (mean_b - c) * (bcnt * lr)[:, :, None], c)
+    return c
+
+
 class SegmentLayout:
     """Cluster-sorted storage split into segments of at most ``seg_size``
     rows; a large cell becomes several segments that share its centroid.
@@ -219,3 +256,23 @@ def segment_layout(
         seg_size,
         counts.astype(np.int32),
     )
+
+
+def expand_probes_to_segments(
+    probes: np.ndarray, cluster_ptr: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Expand ``[nq, nprobe]`` cluster probes into flat (query, segment)
+    pairs on the host: each probed cluster contributes its segments
+    ``cluster_ptr[c] .. cluster_ptr[c + 1] − 1`` in order (the same pairs
+    as the JAX package's function of this name)."""
+    probes = np.asarray(probes, dtype=np.int64)
+    nq, nprobe = probes.shape
+    flat_c = probes.reshape(-1)
+    flat_q = np.repeat(np.arange(nq, dtype=np.int32), nprobe)
+    reps = (cluster_ptr[1:] - cluster_ptr[:-1])[flat_c]
+    starts = cluster_ptr[flat_c]
+    # ragged ranges: position within each pair's run of segments
+    idx = np.arange(int(reps.sum())) - np.repeat(
+        np.concatenate([[0], np.cumsum(reps)[:-1]]), reps
+    )
+    return np.repeat(flat_q, reps), (np.repeat(starts, reps) + idx).astype(np.int32)

@@ -1,12 +1,20 @@
 """Fused IVF cell scan (port of ``annsearch_tpu.ops.ivf_scan_pallas``).
 
-Seven variants of the Pallas ``_scan_kernel`` / ``_scan_body`` (launched
+Ten variants of the Pallas ``_scan_kernel`` / ``_scan_body`` (launched
 by ``_fused_cell_scan``) are ported, each a hand-written kernel in
 ``csrc/ivf_scan.cu`` with a wrapper and a plain PyTorch version here:
 
 * K1a, ``ivf_cell_scan``: int8 residual cells (``i8dec_residual``), ``l2``
   epilogue, depth-2 stride-class fold, one bf16 query term — the IVF-PQ
   main path;
+* K1b-l2, ``ivf_cell_scan_split``: the same with two bf16 query terms
+  (``q_split=True``: the hi/lo mantissa split of the scaled residual);
+* K1b-cos, ``ivf_cell_scan_cos``: int8 residual cells, ``cos_renorm``
+  (``qadd = q·c``, the reconstruction renormalised by ``rsqrt(sn)``), one
+  or two query terms — cosine IVF-PQ and IVF-OPQ;
+* K1d-i8dec, ``ivf_cell_scan_i8dec``: mode ``i8dec`` (int8 decode cells
+  with no centroids), ``l2`` or ``cos_renorm``, one or two query terms. No
+  index sets this mode; ``fused_ivf_scan(mode="i8dec")`` reaches it;
 * K1d-f32 / K1c-f32, ``ivf_cell_scan_f32_fold`` / ``_exact``: f32 cells,
   ``l2`` or ``cos_plain``, the fold or the exact per-segment selection —
   ``IvfIndex.query(approx=True)`` and its recall-1.0 default tier;
@@ -49,6 +57,9 @@ __all__ = [
     "fused_eligible",
     "repack_blocks",
     "ivf_cell_scan",
+    "ivf_cell_scan_split",
+    "ivf_cell_scan_cos",
+    "ivf_cell_scan_i8dec",
     "ivf_cell_scan_plain",
     "ivf_cell_scan_f32_exact",
     "ivf_cell_scan_f32_fold",
@@ -60,6 +71,7 @@ __all__ = [
     "ivf_cell_scan_sq8_fold",
     "ivf_cell_scan_sq8_plain",
     "fused_ivf_scan",
+    "regroup_topk",
 ]
 
 LANES = 128
@@ -75,15 +87,18 @@ _D_MAX = 4096
 #: tiles)
 _PLAIN_ROWS = 64
 #: storage modes with a ported fused kernel
-_FUSED_MODES = ("i8dec_residual", "f32", "bf16", "sq8")
+_FUSED_MODES = ("i8dec", "i8dec_residual", "f32", "bf16", "sq8")
+#: of them, the int8-decode modes: scaled query terms, ``q_split``
+_I8DEC_MODES = ("i8dec", "i8dec_residual")
 
 
 def fused_eligible(mode: str, seg_size: int, dim_w: int, k: int) -> bool:
-    """Whether the fused scan handles this index: int8 residual cells (K1a),
-    or f32, bf16 or sq8 cells (K1c / K1d). Mode i8dec waits for K1d-i8dec
-    (ROADMAP Queue 2). Unlike the JAX package's rule, rows wider than
-    ``_D_MAX`` are not eligible: the kernel's shared memory holds each
-    query slot's whole padded row."""
+    """Whether the fused scan handles this index: int8 decode cells (K1a,
+    K1b, K1d-i8dec), or f32, bf16 or sq8 cells (K1c / K1d); the PQ-coded
+    modes keep the cluster scan. Unlike the JAX package's rule, rows wider
+    than ``_D_MAX`` are not eligible: the kernel's shared memory holds each
+    query slot's whole padded row, so such an index takes the cluster scan
+    too."""
     return (
         mode in _FUSED_MODES
         and seg_size % LANES == 0
@@ -118,13 +133,31 @@ def repack_blocks(
 # -- plain PyTorch versions ---------------------------------------------------
 
 
-def _query_terms(lists, task_seg, queries_x, cent_x, scales, dp):
-    """Per-slot query residual norm ``qadd [R, maxq]`` and bf16 query term
-    ``qk [R, maxq, dp]`` (as f32) — K1a's prologue."""
-    qr = queries_x[lists.long()] - cent_x[task_seg.long()][:, None, :]
-    qadd = (qr * qr).sum(dim=-1)
-    qk = (qr * scales).to(torch.bfloat16).float()
-    return qadd, _pad_cols(qk, dp)
+def _bf16_terms(v: torch.Tensor, q_split: bool) -> torch.Tensor:
+    """The scaled query as the int8-decode kernels score it (f32): rounded
+    to bf16, or with ``q_split`` the sum of the two bf16 terms of the JAX
+    package's ``mantissa_split``: ``hi`` by integer add-then-mask (ties
+    away from zero), ``lo = bf16_rne(v − hi)``. ``hi + lo`` is exact in
+    f32, so one f32 value carries both terms (see ``csrc/ivf_scan.cu``)."""
+    if not q_split:
+        return v.to(torch.bfloat16).float()
+    hi = ((v.view(torch.int32) + 0x8000) & -65536).view(torch.float32)
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _query_terms(lists, task_seg, queries_x, cent_x, scales, dp, cosine, q_split):
+    """Per-slot ``qadd [R, maxq]`` and query term ``qk [R, maxq, dp]`` (as
+    f32): the prologue of the int8-decode kernels. ``cent_x`` None is mode
+    ``i8dec`` (no centroids)."""
+    qg = queries_x[lists.long()]
+    if cent_x is None:
+        qadd = torch.zeros(lists.shape, device=lists.device) if cosine else (qg * qg).sum(dim=-1)
+    elif cosine:
+        qadd = (qg * cent_x[task_seg.long()][:, None, :]).sum(dim=-1)
+    else:
+        qg = qg - cent_x[task_seg.long()][:, None, :]
+        qadd = (qg * qg).sum(dim=-1)
+    return qadd, _pad_cols(_bf16_terms((qg * scales).contiguous(), q_split), dp)
 
 
 def _pad_cols(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -179,9 +212,12 @@ def _exact_extract(
 
 def ivf_cell_scan_plain(
     lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+    cosine: bool = False, q_split: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the K1a kernel, chunked over task rows to
-    bound memory. Arguments and result as :func:`ivf_cell_scan`."""
+    """Plain PyTorch version of the int8-decode kernels, chunked over task
+    rows to bound memory: K1a as it stands, K1b-l2 with ``q_split``,
+    K1b-cos with ``cosine`` (``cos_renorm``), K1d-i8dec with ``cent_x``
+    None. Arguments and result as :func:`ivf_cell_scan`."""
     R, maxq = lists.shape
     seg, dp = cells.shape[1], cells.shape[2]
     out_d = torch.empty((R, maxq, kb), device=lists.device)
@@ -190,12 +226,17 @@ def ivf_cell_scan_plain(
     for r0 in range(0, R, _PLAIN_ROWS):
         rs = slice(r0, r0 + _PLAIN_ROWS)
         s = task_seg[rs].long()
-        qadd, qk = _query_terms(lists[rs], task_seg[rs], queries_x, cent_x, scales, dp)
+        qadd, qk = _query_terms(lists[rs], task_seg[rs], queries_x, cent_x, scales,
+                                dp, cosine, q_split)
         # bf16 query term × int8 cells: every product is exact in f32, and
         # the sums are f32 (fp32 batched matmul with TF32 off)
         with fp32_matmul():
             dots = torch.bmm(qk, cells[s].float().transpose(1, 2))
-        dist = torch.clamp(qadd[:, :, None] + sn[s][:, None, :] - 2.0 * dots, min=0.0)
+        if cosine:  # cos_renorm: IEEE square root and quotient, as the kernel
+            rsn = 1.0 / torch.sqrt(torch.clamp(sn[s][:, None, :], min=1e-12))
+            dist = 1.0 - (dots + qadd[:, :, None]) * rsn
+        else:
+            dist = torch.clamp(qadd[:, :, None] + sn[s][:, None, :] - 2.0 * dots, min=0.0)
         dist = torch.where(lane < cnt[rs].long()[:, None, None], dist, BIG)
         out_d[rs], out_i[rs] = _fold_extract(dist, kb)
     return out_d, out_i
@@ -313,6 +354,38 @@ def _outputs(lists, kb):
     )
 
 
+def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
+                  cells, sn, kb, flags=()):
+    """Validate and launch one int8-decode variant (``cent_x`` None: the
+    entry takes no centroids); ``flags`` are its trailing int arguments."""
+    from ._cuda import load_library
+
+    specs = [("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
+             ("cnt", cnt, torch.int32, 1), ("queries_x", queries_x, torch.float32, 2),
+             ("scales", scales, torch.float32, 1), ("cells", cells, torch.int8, 3),
+             ("sn", sn, torch.float32, 2)]
+    if cent_x is not None:
+        specs.append(("cent_x", cent_x, torch.float32, 2))
+    _check_inputs(specs, lists.device)
+    _check_shapes(name, lists, task_seg, cnt, queries_x, cells, sn, kb)
+    d = queries_x.shape[1]
+    if scales.shape[0] != d or (cent_x is not None and cent_x.shape[1] != d):
+        raise ValueError(f"{name}: cent_x / scales do not have d={d} columns")
+    R, maxq = lists.shape
+    _, seg, dp = cells.shape
+    out_d, out_i = _outputs(lists, kb)
+    tensors = [lists, task_seg, cnt, queries_x]
+    tensors += [scales] if cent_x is None else [cent_x, scales]
+    tensors += [cells, sn, out_d, out_i]
+    err = getattr(load_library(), entry)(
+        *(t.data_ptr() for t in tensors), R, maxq, seg, d, dp, kb, *flags,
+        torch.cuda.current_stream(lists.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out_d, out_i
+
+
 def ivf_cell_scan(
     lists: torch.Tensor,      # [R, maxq] int32 query ids (pad = nq, a zero row)
     task_seg: torch.Tensor,   # [R] int32 segment block of each task row
@@ -332,36 +405,79 @@ def ivf_cell_scan(
         return ivf_cell_scan_plain(
             lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb
         )
-    from ._cuda import load_library
-
-    _check_inputs(
-        (("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
-         ("cnt", cnt, torch.int32, 1), ("queries_x", queries_x, torch.float32, 2),
-         ("cent_x", cent_x, torch.float32, 2), ("scales", scales, torch.float32, 1),
-         ("cells", cells, torch.int8, 3), ("sn", sn, torch.float32, 2)),
-        lists.device,
-    )
-    _check_shapes("ivf_cell_scan", lists, task_seg, cnt, queries_x, cells, sn, kb)
-    d = queries_x.shape[1]
-    if cent_x.shape[1] != d or scales.shape[0] != d:
-        raise ValueError(f"ivf_cell_scan: cent_x / scales do not have d={d} columns")
-    R, maxq = lists.shape
-    _, seg, dp = cells.shape
-    out_d, out_i = _outputs(lists, kb)
-    err = load_library().annsearch_ivf_scan_k1a(
-        lists.data_ptr(), task_seg.data_ptr(), cnt.data_ptr(),
-        queries_x.data_ptr(), cent_x.data_ptr(), scales.data_ptr(),
-        cells.data_ptr(), sn.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        R, maxq, seg, d, dp, kb, torch.cuda.current_stream(lists.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"ivf_scan_k1a launch failed: cudaError {err}")
+    out = _launch_i8dec("ivf_cell_scan", "annsearch_ivf_scan_k1a", lists, task_seg,
+                        cnt, queries_x, cent_x, scales, cells, sn, kb)
     ivf_cell_scan.launches += 1
-    return out_d, out_i
+    return out
 
 
 #: kernel launches since the last reset (plain-version calls do not count)
 ivf_cell_scan.launches = 0
+
+
+def ivf_cell_scan_split(
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1b-l2: K1a with two bf16 query terms (``q_split=True``): the scaled
+    residual keeps about 16 mantissa bits where K1a keeps 8. Arguments and
+    result as :func:`ivf_cell_scan`."""
+    if not lists.is_cuda:
+        return ivf_cell_scan_plain(
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb, q_split=True
+        )
+    out = _launch_i8dec("ivf_cell_scan_split", "annsearch_ivf_scan_k1b_l2", lists,
+                        task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb)
+    ivf_cell_scan_split.launches += 1
+    return out
+
+
+ivf_cell_scan_split.launches = 0
+
+
+def ivf_cell_scan_cos(
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+    q_split: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1b-cos: int8 residual cells under cosine. ``qk = q·scales`` (one
+    bf16 term, or two with ``q_split``), ``qadd = q·c``, ``sn`` the squared
+    norm of the reconstruction ``c + dec``; distance ``1 − (dots + qadd) /
+    sqrt(max(sn, 1e-12))``. Arguments and result as :func:`ivf_cell_scan`."""
+    if not lists.is_cuda:
+        return ivf_cell_scan_plain(
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+            cosine=True, q_split=q_split,
+        )
+    out = _launch_i8dec("ivf_cell_scan_cos", "annsearch_ivf_scan_k1b_cos", lists,
+                        task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+                        (int(q_split),))
+    ivf_cell_scan_cos.launches += 1
+    return out
+
+
+ivf_cell_scan_cos.launches = 0
+
+
+def ivf_cell_scan_i8dec(
+    lists, task_seg, cnt, queries_x, scales, cells, sn, kb: int,
+    cosine: bool = False, q_split: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1d-i8dec: int8 decode cells with no centroids (mode ``i8dec``).
+    ``qk = q·scales`` (one bf16 term, or two with ``q_split``); ``l2`` with
+    ``qadd = ‖q‖²``, or ``cos_renorm`` with ``qadd = 0``. Arguments as
+    :func:`ivf_cell_scan` without ``cent_x``; the same result."""
+    if not lists.is_cuda:
+        return ivf_cell_scan_plain(
+            lists, task_seg, cnt, queries_x, None, scales, cells, sn, kb,
+            cosine=cosine, q_split=q_split,
+        )
+    out = _launch_i8dec("ivf_cell_scan_i8dec", "annsearch_ivf_scan_i8dec", lists,
+                        task_seg, cnt, queries_x, None, scales, cells, sn, kb,
+                        (int(cosine), int(q_split)))
+    ivf_cell_scan_i8dec.launches += 1
+    return out
+
+
+ivf_cell_scan_i8dec.launches = 0
 
 
 def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
@@ -477,14 +593,16 @@ def fused_ivf_scan(
     k: int,
     metric: Dist,
     mode: str,
-    scales: torch.Tensor | None, # [d] f32 decode scales (i8dec_residual)
+    scales: torch.Tensor | None, # [d] f32 decode scales (the i8dec modes)
     kb: int,
     selection: str = "fold",     # "fold" or "exact" (dense cells only)
+    q_split: bool = False,       # two bf16 query terms (the i8dec modes only)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused scan of the task lists; ``(best_d, best_i)`` of shape
     ``[nq, k]`` ascending, ``best_i`` positions in the sorted storage.
     ``queries`` are the scoring-space queries: for mode ``sq8`` the int8
-    query codes."""
+    query codes. ``q_split`` defaults to one bf16 query pass, what
+    ``IvfBase`` resolves its ``None`` to for the int8-decode modes."""
     nq, d = queries.shape
     nseg = seg_offsets.shape[0]
     dev = queries.device
@@ -506,24 +624,51 @@ def fused_ivf_scan(
     if mode in dense and selection in ("fold", "exact"):
         scan = dense[mode][selection == "fold"]
         cd, ci = scan(*task, cells, sn, kb, cosine=metric == Dist.COSINE)
-    elif mode == "i8dec_residual" and metric == Dist.EUCLIDEAN and selection == "fold":
-        cent_x = torch.cat([seg_centroids.float(), zero_row])
-        cd, ci = ivf_cell_scan(*task, cent_x, scales.float().contiguous(), cells, sn, kb)
+    elif mode in _I8DEC_MODES and selection == "fold":
+        sc = scales.float().contiguous()
+        cosine = metric == Dist.COSINE
+        if mode == "i8dec":
+            cd, ci = ivf_cell_scan_i8dec(*task, sc, cells, sn, kb, cosine=cosine,
+                                         q_split=q_split)
+        else:
+            cent_x = torch.cat([seg_centroids.float(), zero_row])
+            if cosine:
+                cd, ci = ivf_cell_scan_cos(*task, cent_x, sc, cells, sn, kb, q_split=q_split)
+            elif q_split:
+                cd, ci = ivf_cell_scan_split(*task, cent_x, sc, cells, sn, kb)
+            else:
+                cd, ci = ivf_cell_scan(*task, cent_x, sc, cells, sn, kb)
     else:
         raise NotImplementedError(
-            f"fused scan mode={mode!r} metric={metric.value!r} "
-            f"selection={selection!r}: the ported variants are K1a (euclidean "
-            "i8dec_residual, fold) and K1c / K1d for f32, bf16 and sq8 cells; "
-            "see ROADMAP Queue 2 (K1b, K1d-i8dec)"
+            f"fused scan mode={mode!r} selection={selection!r}: the fold is "
+            "ported for the int8-decode modes (K1a, K1b, K1d-i8dec), the fold "
+            "and the exact selection for f32, bf16 and sq8 cells (K1c / K1d). "
+            "No path of the JAX package selects exactly over int8-decode "
+            "cells (ROADMAP, still to port, beside groups and fold_depth=1)"
         )
     # lane → sorted-storage row; a sentinel lane of a short segment lands
     # in the padded trailing storage rows
     gi = offs_x[cid][:, None, None] + ci.long()
 
-    # regroup per query; pad lanes (-1) read an appended (+inf, 0) row
-    flat_d = torch.cat([cd.reshape(-1, kb), torch.full((1, kb), float("inf"), device=dev)])
-    flat_i = torch.cat([gi.reshape(-1, kb), torch.zeros((1, kb), dtype=torch.long, device=dev)])
-    gm = torch.where(gather_map < 0, flat_d.shape[0] - 1, gather_map)
+    return regroup_topk(cd.reshape(-1, kb), gi.reshape(-1, kb), gather_map, k)
+
+
+def regroup_topk(
+    flat_d: torch.Tensor,      # [lanes, kc] per (task row, slot) candidates
+    flat_i: torch.Tensor,      # [lanes, kc] their sorted-storage positions
+    gather_map: torch.Tensor,  # [nq, T] flat scan lanes (pad = -1)
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Regroup the scan lanes per query and take the final top-k: ``(best_d,
+    best_i) [nq, k]`` ascending, padded with (+inf, 0) where a query has
+    fewer than k candidates. Shared by the fused scan and the cluster
+    scan."""
+    dev = flat_d.device
+    nq, kb = gather_map.shape[0], flat_d.shape[1]
+    # pad lanes (-1) read an appended (+inf, 0) row
+    flat_d = torch.cat([flat_d, torch.full((1, kb), float("inf"), device=dev)])
+    flat_i = torch.cat([flat_i.long(), torch.zeros((1, kb), dtype=torch.long, device=dev)])
+    gm = torch.where(gather_map < 0, flat_d.shape[0] - 1, gather_map.long())
     gd = flat_d[gm].reshape(nq, -1)
     gi2 = flat_i[gm].reshape(nq, -1)
     kk = min(k, gd.shape[1])

@@ -7,7 +7,8 @@ Phase 2 holds K1a against its plain PyTorch version; phase 2b holds
 K1c-f32 and K1d-f32 against theirs at seg 1024, d 64 and 128, maxq 64 and
 256, both epilogues, with sentinel and short task rows; phase 2c holds
 K1c-bf16, K1d-bf16, K1c-sq8 and K1d-sq8 against theirs in the same way at
-d 128 and 256 (sq8 bit for bit).
+d 128 and 256 (sq8 bit for bit); phase 2d holds K1b-l2, K1b-cos and
+K1d-i8dec (one and two query terms) against theirs at K1a's shapes.
 Phase 3 drives the IVF-PQ main path through the port's facade: nlist 1024,
 m = 128 (int8 fast-scan mode) over 1M × 128d Gaussian-cluster data, 30k
 queries at nprobe 16, recall@10 against an exact scan of the first 2,000.
@@ -26,6 +27,15 @@ Phase 6 drives the quantised IVF workload of
 tier at nprobe 16, recall@10 on the first 2,000 queries against an exact
 scan and against the f32 index. Phase 6b builds the cosine bf16 and SQ8
 indexes on the same data and runs one batch of each tier at nprobe 16.
+Phase 7 completes IVF-PQ on phase 3's data and index: ``q_split=True``
+(K1b-l2), a cosine IVF-PQ index (K1b-cos, one and two query terms), the
+exact tier of both through the cluster scan (no fused launch),
+``IvfOpqIndex`` with m = 128, and mode ``i8dec`` through
+``fused_ivf_scan`` (K1d-i8dec) against the cluster scan of the same task
+lists. Phase 8 drives the workload of ``benchmarks/bench_ivfpq_1m.py``
+(1M × 128d, m = 64, nlist 1024, 10k queries, k 10, nprobe 8 / 16 / 32) and
+the facade's default m = 16 at nprobe 16: mode ``pq_residual`` through the
+cluster scan, with build seconds, ms per batch, recall@10 and index bytes.
 
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
@@ -48,12 +58,23 @@ import torch
 N, D, NCLUST, NQ, K, NQ_GT = 1_000_000, 128, 100, 30_000, 10, 2_000
 NLIST, M, NPROBE, SEED = 1024, 128, 16, 42
 RECALL_MIN = 0.90
+#: how far the IVF-PQ exact tier's recall@10 may lie under the approximate
+#: tier's: it routes to nprobe clusters where the approximate tier probes
+#: nprobe scaled to segments (16 against 23 here), so it reads fewer rows
+#: (the f32 tiers of phase 5 differ by 0.009 for the same reason); this
+#: script's first run on the card read 0.0052 and 0.0053
+EXACT_SLACK = 0.01
 # phase 4: benchmarks/bench_exact_tier.py
 EX_N, EX_D, EX_NQ, EX_K, EX_NLIST, EX_NPROBE = 500_000, 64, 15_000, 15, 500, 22
 # phase 5: benchmarks/bench_ivf_1m_cosine.py at nprobe 16
 COS_NQ_GT = 1_000
 # phase 6: benchmarks/bench_quantised_1m.py (BASELINE config 3)
 Q_N, Q_D, Q_NPROBES = 1_000_000, 256, (16, 32)
+# phase 8: benchmarks/bench_ivfpq_1m.py (m 64) and the facade default (m 16)
+PQ_NQ, PQ_NPROBES = 10_000, (8, 16, 32)
+#: recall@10 floors of phase 8 at nprobe 16, a little under this script's
+#: first run on the card: {m: floor}
+PQ_RECALL_FLOOR = {64: 0.80, 16: 0.24}
 #: recall@10 of IvfSq8Index at nprobe 16 that docs/benchmarks_tpu.md states
 #: for the JAX package (TPU, its own data generator): printed, not asserted
 JAX_SQ8_RECALL = 0.8437
@@ -191,29 +212,32 @@ def _bound(args, kb, cell_bytes, peak, seg_bytes=0) -> tuple[float, str, float]:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", macs
 
 
-def _l2_scale(a, kw):
+def _l2_scale(a, cosine):
     """Per (task row, slot), a bound on the terms of the l2 identity
     ``qadd + sn − 2·dots`` (2|dots| ≤ qadd + sn): f32 sums taken in two
     orders differ by a few ulps of it, however small the distance. None
     under the cosine epilogues, whose terms are ≤ 1."""
-    if kw.get("cosine"):
+    if cosine:
         return None
     lists, task_seg, _, queries_x = a[:4]
     sn = a[-2]
     qn = queries_x.norm(dim=1)[lists.long()]
-    if len(a) == 9:     # K1a: qadd = ‖q − c‖² ≤ (‖q‖ + ‖c‖)²
+    if len(a) == 9:     # K1a, K1b-l2: qadd = ‖q − c‖² ≤ (‖q‖ + ‖c‖)²
         qn = qn + a[4].norm(dim=1)[task_seg.long()][:, None]
     return qn * qn + sn.max(dim=1).values[task_seg.long()][:, None]
 
 
-def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exact=False):
+def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exact=False,
+                  cosine=None):
     """Check ``wrapper`` against ``plain`` on the captured call (``exact``:
     bit for bit), time both, and return the kernel's JSON entry (launches
-    filled in by the caller)."""
+    filled in by the caller). ``cosine``: the epilogue, where the call's
+    keywords do not say."""
     a, kw = call
     kb = next(v for v in a if isinstance(v, int))
     cells = next(t for t in a[4:] if torch.is_tensor(t) and t.ndim == 3)
-    err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, kw),
+    cosine = kw.get("cosine") if cosine is None else cosine
+    err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, cosine),
                  exact=exact)
     ms = _cuda_ms(lambda: wrapper(*a, **kw))
     plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=5)
@@ -323,6 +347,58 @@ def phase_dense_kernels(dev, modes, dims, seed) -> None:
                         print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
 
 
+def _plain_i8dec(q_split=None, cosine=None, cents=True):
+    """The plain version as a stand-in for one int8-decode wrapper: fixed
+    keywords, and a None in ``cent_x``'s place for mode i8dec."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    def plain(*a, **kw):
+        kw = dict(kw)
+        if q_split is not None:
+            kw["q_split"] = q_split
+        if cosine is not None:
+            kw["cosine"] = cosine
+        if not cents:
+            a = a[:4] + (None,) + a[4:]
+        return tsf.ivf_cell_scan_plain(*a, **kw)
+
+    return plain
+
+
+def phase_i8dec_kernels(dev) -> None:
+    """Phase 2d: K1b-l2, K1b-cos and K1d-i8dec against the plain version at
+    K1a's phase-2 shapes (R 384, maxq 256, seg 1024, d 128, kb 16). Under
+    cosine the queries are unit vectors and sn = ‖c + dec‖² (‖dec‖² for mode
+    i8dec), as a cosine index stores them."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    lists, task_seg, cnt, queries, cents, scales, cells, sn, kb = _k1a_inputs(gen, dev)
+    qn = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    dec = cells.float() * scales
+    sn_cos = ((dec + cents[:, None, :]) ** 2).sum(-1)
+    head = (lists, task_seg, cnt)
+    cases = [
+        ("K1b-l2", tsf.ivf_cell_scan_split, _plain_i8dec(q_split=True),
+         (*head, queries, cents, scales, cells, sn, kb), {}, BF16_FLOP_S / 2, D * 4),
+    ]
+    for split in (False, True):
+        cases.append((f"K1b-cos nq_t {1 + split}", tsf.ivf_cell_scan_cos,
+                      _plain_i8dec(cosine=True),
+                      (*head, qn, cents, scales, cells, sn_cos, kb), {"q_split": split},
+                      BF16_FLOP_S / (1 + split), D * 4))
+        for cosine in (False, True):
+            cases.append((f"K1d-i8dec {'cos_renorm' if cosine else 'l2'} nq_t {1 + split}",
+                          tsf.ivf_cell_scan_i8dec, _plain_i8dec(cents=False),
+                          (*head, qn if cosine else queries, scales, cells, sn, kb),
+                          {"cosine": cosine, "q_split": split},
+                          BF16_FLOP_S / (1 + split), 0))
+    for name, wrapper, plain, a, kw, peak, seg_bytes in cases:
+        cosine = kw.get("cosine", wrapper is tsf.ivf_cell_scan_cos)
+        _kernel_entry(f"{name} (R=384, maxq=256, seg=1024, d=128, kb=16)", wrapper, plain,
+                      (a, kw), 1, peak, seg_bytes, cosine=cosine)
+
+
 # -- phase 3: the IVF-PQ main path --------------------------------------------
 
 
@@ -387,7 +463,7 @@ def phase_ivf_pq(dev, x, q, ti):
     fp32_ms = _bound(cap.args["ivf_cell_scan"][0], 16, 1, FP32_FLOP_S, D * 4)[0]
     print(f"  K1a bound at the fp32 CUDA-core peak: {fp32_ms:.4f} ms", flush=True)
     entry["launches"] = launches
-    return entry, recall
+    return entry, recall, index
 
 
 # -- phase 4: the plain IVF exact tier ----------------------------------------
@@ -782,6 +858,249 @@ def phase_quantised_cosine(dev, x, q) -> None:
         del index, runs
 
 
+# -- phase 7: IVF-PQ completed (q_split, cosine, the exact tier, OPQ, i8dec) --
+
+
+FUSED_WRAPPERS = ("ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos",
+                  "ivf_cell_scan_i8dec") + tuple(
+    f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold"))
+
+
+def _counted(fn):
+    """``fn()`` timed by ``_wall_ms`` with every fused wrapper's launches
+    counted from 0. Returns (ms, result, {wrapper: launches, those > 0}).
+    """
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    for n in FUSED_WRAPPERS:
+        getattr(tsf, n).launches = 0
+    ms, out = _wall_ms(fn)
+    counts = {n: getattr(tsf, n).launches for n in FUSED_WRAPPERS}
+    return ms, out, {n: c for n, c in counts.items() if c}
+
+
+def _expect_launches(what, counts, only):
+    """Exactly the wrapper ``only`` launched (None: no fused launch)."""
+    if set(counts) != ({only} if only else set()):
+        raise AssertionError(f"{what}: fused launches {counts}, expected "
+                             f"{only or 'none'} only")
+
+
+def _cluster_scan_stages(index, q) -> None:
+    """Where one exact-tier batch of ``index`` spends its time: routing,
+    the host-built task lists (probes read back, numpy, upload) and the
+    scan, each ended by a synchronise; and the share of list slots that
+    hold a real (query, segment) pair."""
+    from annsearch_tpu_torch.models.ivf_base import route_to_cells
+    from annsearch_tpu_torch.models.kmeans import expand_probes_to_segments
+    from annsearch_tpu_torch.ops.ivf_scan import build_probe_lists_from_pairs, ivf_cluster_scan
+
+    nq, nseg = q.shape[0], int(index.seg_offsets.shape[0])
+    qp = index._prep_queries(q)
+
+    def lists_of(probes):
+        qs, segs = expand_probes_to_segments(probes.cpu().numpy(), np.asarray(index._cluster_ptr))
+        host = build_probe_lists_from_pairs(qs, segs, nseg, nq)
+        return len(qs), tuple(torch.as_tensor(a.astype(np.int64), device=q.device) for a in host)
+
+    ms_route, probes = _wall_ms(lambda: route_to_cells(qp, index.centroids, NPROBE, index.metric))
+    ms_lists, (pairs, lists) = _wall_ms(lambda: lists_of(probes))
+    ms_scan, _ = _wall_ms(lambda: ivf_cluster_scan(
+        index._encode_queries(qp), *lists, index.storage, index.store_sqnorms,
+        index.seg_offsets, index.seg_counts, index._scan_seg_centroids(), K, index.metric,
+        index.seg_size, index.mode, codebooks=index._codebooks()))
+    rows, maxq = lists[1].shape
+    print(f"  its stages: route {ms_route:.1f} ms, host lists {ms_lists:.1f} ms, scan "
+          f"{ms_scan:.1f} ms; {rows} task rows x maxq {maxq}, {pairs} real pairs = "
+          f"{pairs / (rows * maxq):.3f} of the slots", flush=True)
+
+
+def phase_ivf_pq_complete(dev, x, q, ti, index, pq_recall) -> list[dict]:
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.ivf_base import route_to_cells
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+    from annsearch_tpu_torch.ops.ivf_scan import ivf_cluster_scan
+    from annsearch_tpu_torch.ops.probe_device import build_probe_lists_device, device_probe_shapes
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    entries = []
+
+    # (a) two bf16 query terms on phase 3's index: K1b-l2 and no other
+    with _Capture("ivf_cell_scan_split") as cap:
+        ms, (ids, d), counts = _counted(
+            lambda: index.query(q, K, nprobe=NPROBE, approx=True, q_split=True))
+    _expect_launches("q_split=True", counts, "ivf_cell_scan_split")
+    _check_result("IVF-PQ q_split", ids, d, N)
+    r_split = at.calculate_recall(ti, ids[:NQ_GT], K)
+    print(f"  q_split=True: {ms:.1f} ms (median of 3) = {NQ / ms * 1e3:.0f} QPS, recall@10 "
+          f"{r_split:.4f} (one query term: {pq_recall:.4f}); K1b-l2 launches "
+          f"{counts['ivf_cell_scan_split']}", flush=True)
+    if r_split < pq_recall - 0.002:
+        raise AssertionError("q_split=True lost more than 0.002 recall@10")
+    entry = _kernel_entry("ivf_scan_k1b_l2", tsf.ivf_cell_scan_split,
+                          _plain_i8dec(q_split=True), cap.args["ivf_cell_scan_split"],
+                          1, BF16_FLOP_S / 2, D * 4)
+    entry["launches"] = counts["ivf_cell_scan_split"]
+    entries.append(entry)
+
+    # (b) the exact tier of phase 3's index: the cluster scan, no fused launch
+    ms, (ids, d), counts = _counted(lambda: index.query(q, K, nprobe=NPROBE))
+    _expect_launches("IVF-PQ exact tier", counts, None)
+    _check_result("IVF-PQ exact tier", ids, d, N)
+    r_exact = at.calculate_recall(ti, ids[:NQ_GT], K)
+    print(f"  exact tier (cluster scan, host lists, s_max {index._seg_s_max()}): {ms:.1f} ms "
+          f"(median of 3) = {NQ / ms * 1e3:.0f} QPS, recall@10 {r_exact:.4f}", flush=True)
+    if r_exact < pq_recall - EXACT_SLACK:
+        raise AssertionError(f"the exact tier's recall@10 {r_exact:.4f} is more than "
+                             f"{EXACT_SLACK} under the approximate tier's {pq_recall:.4f}")
+    _cluster_scan_stages(index, q)
+
+    # (c) mode i8dec: the same cells scanned without centroids through
+    # fused_ivf_scan, against the cluster scan of the same task lists
+    nseg = int(index.seg_offsets.shape[0])
+    nprobe_seg = min(nseg, max(NPROBE, -(-NPROBE * nseg) // NLIST))
+    maxq, R = device_probe_shapes(NQ, nprobe_seg, nseg, 1)
+    lists = build_probe_lists_device(
+        route_to_cells(q, index.seg_centroids, nprobe_seg, index.metric), nseg, maxq, R)
+    cells, sn = index._fused_blocks()
+    layout = (index.seg_offsets, index.seg_counts, index.seg_centroids)
+
+    def i8dec(split):
+        return tsf.fused_ivf_scan(q, *lists, cells, sn, *layout, K, Dist.EUCLIDEAN, "i8dec",
+                                  index.dec_scales, 16, q_split=split)
+
+    with _Capture("ivf_cell_scan_i8dec") as cap:
+        ms2, (d2, i2), counts2 = _counted(lambda: i8dec(True))
+        ms1, (d1, i1), counts = _counted(lambda: i8dec(False))
+    _expect_launches("mode i8dec", counts, "ivf_cell_scan_i8dec")
+    dc, ic = ivf_cluster_scan(q, *lists, index.storage, index.store_sqnorms, *layout, K,
+                              Dist.EUCLIDEAN, index.seg_size, "i8dec",
+                              codebooks=index.dec_scales)
+    r1, r2 = (at.calculate_recall(ic[:NQ_GT], i[:NQ_GT], K) for i in (i1, i2))
+    err2 = ((d2 - dc).abs() / (1.0 + dc.abs()))[i2 == ic].max().item()
+    print(f"  mode i8dec through fused_ivf_scan (K1d-i8dec): one term {ms1:.1f} ms, two "
+          f"{ms2:.1f} ms; recall@10 vs the cluster scan of the same lists {r1:.4f} / "
+          f"{r2:.4f}; two terms, shared ids: max |d| err / (1 + d) {err2:.2e}", flush=True)
+    if r2 < 0.98 or err2 > 1e-3 or not torch.isfinite(d1).all():
+        raise AssertionError("mode i8dec disagrees with the cluster scan")
+    entry = _kernel_entry("ivf_scan_i8dec", tsf.ivf_cell_scan_i8dec, _plain_i8dec(cents=False),
+                          cap.args["ivf_cell_scan_i8dec"], 1, BF16_FLOP_S)
+    entry["launches"] = counts["ivf_cell_scan_i8dec"]
+    entries.append(entry)
+    del cells, sn, lists, dc, ic
+
+    # (d) cosine IVF-PQ: K1b-cos with one and two query terms, the exact tier
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cos = at.build_ivf_pq_index(x, nlist=NLIST, m=M, dist_metric="cosine", seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    tic, _ = at.build_exhaustive_index(x, "cosine", device=dev).query(q[:NQ_GT], K)
+    with _Capture("ivf_cell_scan_cos") as cap:
+        ms2, (ids2, _), counts2 = _counted(
+            lambda: cos.query(q, K, nprobe=NPROBE, approx=True, q_split=True))
+        ms1, (ids1, d1), counts = _counted(lambda: cos.query(q, K, nprobe=NPROBE, approx=True))
+    _expect_launches("cosine IVF-PQ approx", counts, "ivf_cell_scan_cos")
+    _expect_launches("cosine IVF-PQ approx q_split", counts2, "ivf_cell_scan_cos")
+    _check_result("cosine IVF-PQ approx", ids1, d1, N)
+    rc1, rc2 = (at.calculate_recall(tic, i[:NQ_GT], K) for i in (ids1, ids2))
+    mse, (idse, de), counts_e = _counted(lambda: cos.query(q, K, nprobe=NPROBE))
+    _expect_launches("cosine IVF-PQ exact tier", counts_e, None)
+    _check_result("cosine IVF-PQ exact", idse, de, N)
+    rce = at.calculate_recall(tic, idse[:NQ_GT], K)
+    print(f"  cosine IVF-PQ: build {build_s:.2f} s, mode {cos.mode}; approx (K1b-cos) "
+          f"{ms1:.1f} ms, recall@10 {rc1:.4f}; q_split {ms2:.1f} ms, {rc2:.4f}; exact "
+          f"(cluster scan) {mse:.1f} ms, {rce:.4f}; K1b-cos launches "
+          f"{counts['ivf_cell_scan_cos']}", flush=True)
+    # the returned distances are 1 − cos to the decoded reconstructions
+    recon = cos.vectors_original_order()[idse[:256]]
+    qn = q[:256] / q[:256].norm(dim=1, keepdim=True)
+    ref = 1.0 - (qn[:, None, :] * recon).sum(-1) / recon.norm(dim=-1)
+    err = (de[:256] - ref).abs().max().item()
+    print(f"  cosine exact distances vs the decoded reconstructions: max |err| {err:.3e}",
+          flush=True)
+    if min(rc1, rc2) < RECALL_MIN or rce < rc1 - EXACT_SLACK or err > 1e-4:
+        raise AssertionError("cosine IVF-PQ: recall@10 below its floor, or distances "
+                             "that are not 1 − cos to the reconstructions")
+    entry = _kernel_entry("ivf_scan_k1b_cos", tsf.ivf_cell_scan_cos, _plain_i8dec(cosine=True),
+                          cap.args["ivf_cell_scan_cos"], 1, BF16_FLOP_S, D * 4, cosine=True)
+    entry["launches"] = counts["ivf_cell_scan_cos"]
+    entries.append(entry)
+    del cos, recon
+
+    # (e) IVF-OPQ, m = dim: a learned rotation before the int8 fast-scan
+    torch.cuda.synchronize()
+    t0 = time.time()
+    opq = at.build_ivf_opq_index(x, nlist=NLIST, m=M, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    ms, (ids, d), counts = _counted(
+        lambda: at.query_ivf_opq_index(q, opq, K, nprobe=NPROBE, return_dist=True, approx=True))
+    _expect_launches("IVF-OPQ approx", counts, "ivf_cell_scan")
+    _check_result("IVF-OPQ approx", ids, d, N)
+    r_opq = at.calculate_recall(ti, ids[:NQ_GT], K)
+    orth = (opq.rotation @ opq.rotation.T - torch.eye(D, device=dev)).abs().max().item()
+    print(f"  IVF-OPQ m {M}: build {build_s:.2f} s, |R·Rᵀ − I| {orth:.2e}; approx (K1a) "
+          f"{ms:.1f} ms, recall@10 {r_opq:.4f} (IVF-PQ {pq_recall:.4f})", flush=True)
+    if r_opq < RECALL_MIN or orth > 1e-4:
+        raise AssertionError("IVF-OPQ: recall@10 below its floor or a rotation that is "
+                             "not orthogonal")
+    return entries
+
+
+# -- phase 8: pq_residual (m != dim) through the cluster scan ------------------
+
+
+def phase_pq_residual(dev, x, q, ti, m128_recall) -> None:
+    import annsearch_tpu_torch as at
+
+    q = q[:PQ_NQ]
+    at16 = {}
+    for m, nprobes in ((64, PQ_NPROBES), (16, (NPROBE,))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        index = at.build_ivf_pq_index(x, nlist=NLIST, m=m, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        print(f"  m {m}: build {time.time() - t0:.2f} s, mode {index.mode}, index "
+              f"{index.memory_usage_bytes():,} bytes", flush=True)
+        recalls = []
+        for npb in nprobes:
+            ms, (ids, d), counts = _counted(lambda: at.query_ivf_pq_index(
+                q, index, K, nprobe=npb, return_dist=True))
+            _expect_launches(f"m {m} nprobe {npb}", counts, None)
+            if ids.shape != (PQ_NQ, K) or not torch.isfinite(d).all() or (d.diff(dim=1) < 0).any():
+                raise AssertionError(f"m {m} nprobe {npb}: bad shapes or distances")
+            recalls.append(at.calculate_recall(ti, ids[:NQ_GT], K))
+            print(f"  m {m} nprobe {npb}, exact tier: {ms:.1f} ms (median of 3) = "
+                  f"{PQ_NQ / ms * 1e3:.0f} QPS, recall@10 {recalls[-1]:.4f}", flush=True)
+            if npb == NPROBE:
+                at16[m] = (recalls[-1], ids)
+                _cluster_scan_stages(index, q)
+        # more probed cells also bring more quantised look-alikes: a step may
+        # lose up to 0.002, the sweep as a whole must gain
+        if any(b < a - 0.002 for a, b in zip(recalls, recalls[1:])) or (
+                len(recalls) > 1 and recalls[-1] <= recalls[0]):
+            raise AssertionError(f"m {m}: recall@10 does not rise with nprobe: {recalls}")
+        if m == 64:
+            # approx=True takes the same scan: the port has no approximate
+            # per-cell selection
+            ms, (ids, _), counts = _counted(
+                lambda: index.query(q, K, nprobe=NPROBE, approx=True))
+            _expect_launches("m 64 approx", counts, None)
+            print(f"  m 64 nprobe {NPROBE}, approx=True: {ms:.1f} ms, the exact tier's ids: "
+                  f"{torch.equal(ids, at16[64][1])}", flush=True)
+            if not torch.equal(ids, at16[64][1]):
+                raise AssertionError("approx=True and the exact tier differ on pq_residual")
+        del index
+    r16, r64 = at16[16][0], at16[64][0]
+    print(f"  recall@10 at nprobe {NPROBE} by m: 16 {r16:.4f}, 64 {r64:.4f}, 128 "
+          f"{m128_recall:.4f} (floors {PQ_RECALL_FLOOR})", flush=True)
+    if not r16 < r64 < m128_recall:
+        raise AssertionError("recall@10 does not rise with m")
+    if r16 < PQ_RECALL_FLOOR[16] or r64 < PQ_RECALL_FLOOR[64]:
+        raise AssertionError(f"recall@10 under its floor {PQ_RECALL_FLOOR}")
+
+
 def phase_kmeans_sums(dev) -> None:
     """One Lloyd iteration's cluster sums at 250k × 128 rows, k 1024: the
     fixed-order sum against ``index_add_`` (float atomics), beside the
@@ -841,6 +1160,8 @@ def main() -> int:
     phase_dense_kernels(dev, ("f32",), (64, 128), SEED)
     phase("2c: the bf16 and sq8 kernels against their plain versions")
     phase_dense_kernels(dev, ("bf16", "sq8"), (128, 256), SEED + 1)
+    phase("2d: K1b-l2, K1b-cos and K1d-i8dec against their plain version")
+    phase_i8dec_kernels(dev)
 
     phase("3: IVF-PQ 1M x 128d, nprobe 16")
     t0 = time.time()
@@ -852,13 +1173,20 @@ def main() -> int:
     ti, _ = at.build_exhaustive_index(x, device=dev).query(q[:NQ_GT], K)
     print(f"  data {N}x{D} + {NQ} queries and the exact scan in "
           f"{time.time() - t0:.1f} s", flush=True)
-    k1a, pq_recall = phase_ivf_pq(dev, x, q, ti)
+    k1a, pq_recall, pq_index = phase_ivf_pq(dev, x, q, ti)
 
     phase("4: IvfIndex exact tier, 500k x 64d lowrank, nprobe 22, k 15")
     exact = phase_exact_tier(dev)
 
     phase("5: IvfIndex 1M x 128d, cosine approx and exact, euclidean exact")
     fold = phase_ivf_1m(dev, x, q, ti, pq_recall)
+
+    phase("7: IVF-PQ q_split, exact tier, mode i8dec, cosine; IVF-OPQ; 1M x 128d")
+    i8dec = phase_ivf_pq_complete(dev, x, q, ti, pq_index, pq_recall)
+    del pq_index
+
+    phase("8: IVF-PQ m 64 and m 16 (pq_residual, cluster scan), 10k queries")
+    phase_pq_residual(dev, x, q, ti, pq_recall)
     del x, q
 
     phase("6: IvfIndex, IvfIndexBf16, IvfSq8Index 1M x 256d, nlist 1024")
@@ -881,7 +1209,7 @@ def main() -> int:
           f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1a, exact, fold, *quant]}), flush=True)
+    print(json.dumps({"kernels": [k1a, exact, fold, *quant, *i8dec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

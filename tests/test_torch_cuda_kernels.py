@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1a, K1c-f32, K1d-f32, K1c-bf16, K1d-bf16,
-K1c-sq8, K1d-sq8) against their plain PyTorch versions, on the card, and
-the IVF paths on the card against the CPU.
+"""The port's CUDA kernels (K1a, K1b-l2, K1b-cos, K1d-i8dec, K1c-f32,
+K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8) against their plain PyTorch
+versions, on the card, and the IVF paths on the card against the CPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present. On a
 machine with a card and without JAX, run them with
@@ -317,3 +317,156 @@ def test_quantised_tiers_launch_only_their_kernel(dev, tmp_path, kind, metric):
         else:
             tol = 1e-4 * (1.0 + cd.abs()) + scale
             assert torch.all((gd.cpu() - cd).abs()[same] <= tol[same])
+
+
+# -- K1b-l2, K1b-cos, K1d-i8dec and the IVF-PQ / IVF-OPQ tiers --------------------
+
+I8_VARIANTS = [
+    # (wrapper, its keywords, the plain version's keywords, takes cent_x)
+    ("ivf_cell_scan_split", {}, {"q_split": True}, True),
+    ("ivf_cell_scan_cos", {"q_split": False}, {"cosine": True, "q_split": False}, True),
+    ("ivf_cell_scan_cos", {"q_split": True}, {"cosine": True, "q_split": True}, True),
+    ("ivf_cell_scan_i8dec", {"cosine": False, "q_split": False},
+     {"cosine": False, "q_split": False}, False),
+    ("ivf_cell_scan_i8dec", {"cosine": False, "q_split": True},
+     {"cosine": False, "q_split": True}, False),
+    ("ivf_cell_scan_i8dec", {"cosine": True, "q_split": False},
+     {"cosine": True, "q_split": False}, False),
+    ("ivf_cell_scan_i8dec", {"cosine": True, "q_split": True},
+     {"cosine": True, "q_split": True}, False),
+]
+I8_IDS = ["K1b-l2", "K1b-cos-nq_t1", "K1b-cos-nq_t2", "K1d-i8dec-l2-nq_t1",
+          "K1d-i8dec-l2-nq_t2", "K1d-i8dec-cos-nq_t1", "K1d-i8dec-cos-nq_t2"]
+
+
+def _i8_args(gen, dev, cosine, cents, **shape):
+    """K1a's task inputs; under cosine unit queries and sn = ‖c + dec‖²."""
+    lists, task_seg, cnt, queries, cent_x, scales, cells, sn = _tasks(gen, dev, **shape)
+    if cosine:
+        queries = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        d = queries.shape[1]
+        dec = cells[:, :, :d].float() * scales
+        if cents:
+            dec = dec + cent_x[:, None, :]
+        sn = (dec * dec).sum(-1)
+    return [lists, task_seg, cnt, queries, cent_x, scales, cells, sn]
+
+
+@pytest.mark.parametrize("wrapper,kw,plain_kw,cents", I8_VARIANTS, ids=I8_IDS)
+@pytest.mark.parametrize(
+    "shape,kb",
+    [
+        (dict(), 16),
+        (dict(maxq=36, d=40), 8),           # slots past maxq; columns padded to 48
+        (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
+        (dict(R=384, maxq=256, seg=1024), 16),   # main-path shapes
+    ],
+)
+def test_i8dec_kernels_match_plain(dev, shape, kb, wrapper, kw, plain_kw, cents):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = _i8_args(gen, dev, plain_kw.get("cosine", False), cents, **shape)
+    plain_args = list(args)
+    if not cents:
+        plain_args[4] = None
+        del args[4]
+    fn = getattr(tsf, wrapper)
+    before = fn.launches
+    kd, ki = fn(*args, kb, **kw)
+    assert fn.launches == before + 1
+    pd, pi = tsf.ivf_cell_scan_plain(*plain_args, kb, **plain_kw)
+    _assert_close(kd, ki, pd, pi)
+    cnt = args[2]
+    assert (kd[cnt == 0] == np.float32(3e38)).all() and (ki[cnt == 0] == 0).all()
+    assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+def test_i8dec_kernels_reject_what_they_cannot_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    args = _i8_args(gen, dev, False, True, R=8)
+    bad = list(args)
+    bad[6] = args[6].float()
+    for fn in (tsf.ivf_cell_scan_split, tsf.ivf_cell_scan_cos):
+        with pytest.raises(ValueError, match="cells"):
+            fn(*bad, 16)
+        with pytest.raises(ValueError, match="kb"):
+            fn(*args, 129)
+    no_cent = args[:4] + args[5:]
+    with pytest.raises(ValueError, match="scales"):
+        tsf.ivf_cell_scan_i8dec(*no_cent[:4], no_cent[4][:-1].contiguous(), *no_cent[5:], 16)
+
+
+FUSED = ["ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos", "ivf_cell_scan_i8dec"] + [
+    f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold")]
+
+
+@pytest.mark.parametrize("kind", ["pq", "opq"])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_ivf_pq_tiers_launch_only_their_kernel(dev, tmp_path, kind, metric):
+    """m = dim: each approximate query launches its own kernel once (K1a,
+    K1b-l2 or K1b-cos) and no other; the exact tier launches none (the
+    cluster scan); all answer as the same index on the CPU."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.quantised import ivf as qivf
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 128, 20, seed=5)
+    q = subsample_with_noise(x, 500, seed=5) * np.float32(0.125)
+    x = x * np.float32(0.125)
+    cpu = getattr(at, f"build_ivf_{kind}_index")(x, nlist=32, m=128, dist_metric=metric,
+                                                 seed=1, device="cpu")
+    path = str(tmp_path / "index.npz")
+    cpu.save(path)
+    gpu = (qivf.IvfPqIndex if kind == "pq" else qivf.IvfOpqIndex).load(path, device=dev)
+    cos = metric == "cosine"
+    for kw, own in ((dict(approx=True), "ivf_cell_scan_cos" if cos else "ivf_cell_scan"),
+                    (dict(approx=True, q_split=True),
+                     "ivf_cell_scan_cos" if cos else "ivf_cell_scan_split"),
+                    (dict(), None)):
+        before = {n: getattr(tsf, n).launches for n in FUSED}
+        gi, gd = gpu.query(q, 10, nprobe=6, **kw)
+        after = {n: getattr(tsf, n).launches for n in FUSED}
+        assert {n for n in FUSED if after[n] != before[n]} == ({own} if own else set())
+        if own:
+            assert after[own] == before[own] + 1
+        ci, cd = cpu.query(q, 10, nprobe=6, **kw)
+        assert (gi.cpu() == ci).float().mean().item() >= 0.99
+        same = gi.cpu() == ci
+        # OPQ rotates the queries with a matmul, whose f32 sums differ by an
+        # ulp between the devices; where such a value sits on a bf16 rounding
+        # boundary the one-term query flips by a whole bf16 step (2⁻⁸
+        # relative), so that tier is held to 2⁻⁸·(1 + |d|)
+        rel = 2.0 ** -8 if kind == "opq" and kw == dict(approx=True) else 1e-4
+        assert torch.all((gd.cpu() - cd).abs()[same] <= rel * (1.0 + cd.abs()[same]))
+
+
+@pytest.mark.parametrize("kind,m", [("pq", 32), ("opq", 16)])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_pq_residual_on_the_card_matches_the_cpu(dev, tmp_path, kind, m, metric):
+    """m ≠ dim: the cluster scan on the card (no fused launch) against the
+    CPU, on one saved index."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.quantised import ivf as qivf
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 128, 20, seed=8)
+    q = subsample_with_noise(x, 500, seed=8) * np.float32(0.125)
+    x = x * np.float32(0.125)
+    cpu = getattr(at, f"build_ivf_{kind}_index")(x, nlist=32, m=m, dist_metric=metric,
+                                                 seed=1, device="cpu")
+    path = str(tmp_path / "index.npz")
+    cpu.save(path)
+    gpu = (qivf.IvfPqIndex if kind == "pq" else qivf.IvfOpqIndex).load(path, device=dev)
+    before = {n: getattr(tsf, n).launches for n in FUSED}
+    gi, gd = gpu.query(q, 10, nprobe=6)
+    assert {n: getattr(tsf, n).launches for n in FUSED} == before
+    ci, cd = cpu.query(q, 10, nprobe=6)
+    assert (gi.cpu() == ci).float().mean().item() >= 0.99
+    same = gi.cpu() == ci
+    assert torch.all((gd.cpu() - cd).abs()[same] <= 1e-4 * (1.0 + cd.abs()[same]))
+    # built on the card itself, the index answers with a like recall
+    own = getattr(at, f"build_ivf_{kind}_index")(x, nlist=32, m=m, dist_metric=metric,
+                                                 seed=1, device=dev)
+    ti, _ = at.build_exhaustive_index(x, metric, device=dev).query(q, 10)
+    r_own = at.calculate_recall(ti, own.query(q, 10, nprobe=6)[0], 10)
+    r_cpu = at.calculate_recall(ti, gi, 10)
+    assert abs(r_own - r_cpu) <= 0.05, (r_own, r_cpu)

@@ -291,5 +291,8 @@ def test_unported_options_raise(data48):
     idx = IvfIndex(x, nlist=6, device="cpu")
     with pytest.raises(ValueError, match="exact f32 tier"):
         idx.query(q, 5, approx=True, certify=True)
-    with pytest.raises(NotImplementedError, match="ivf_cluster_scan"):
-        idx.query(q, 129, nprobe=2)                   # k > 128: not fused
+    # k > 128 is not fused: it takes the cluster scan, as the JAX package
+    ids, d = idx.query(q, 129, nprobe=6)
+    ti, td = at.build_exhaustive_index(x, device="cpu").query(q, 129)
+    assert at.calculate_recall(ti, ids, 129) >= 0.999
+    np.testing.assert_allclose(d.numpy(), td.numpy(), rtol=1e-4, atol=1e-4)

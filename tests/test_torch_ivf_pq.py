@@ -159,25 +159,33 @@ def test_facade(data128):
     ei, ed = at.query_exhaustive_index(q, at.build_exhaustive_index(x, device="cpu"),
                                        5, return_dist=True)
     assert ei.shape == ed.shape == (len(q), 5)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        at.query_ivf_pq_index(q, idx, 5)                # exact tier: default approx
+    # the default is the exact tier (the cluster scan), as the JAX row
+    ids3, d3 = at.query_ivf_pq_index(q, idx, 5, nprobe=2, return_dist=True)
+    assert ids3.shape == (len(q), 5) and torch.all(d3[:, 1:] >= d3[:, :-1])
+    assert at.calculate_recall(ids3, ids, 5) >= 0.95
 
 
 def test_unported_options_raise(data128):
+    """What is still refused, and what answers since the cluster scan, the
+    K1b kernels and ``pq_residual`` were ported."""
     x, q = data128
     idx = at.build_ivf_pq_index(x, nlist=8, m=128, device="cpu")
     with pytest.raises(ValueError, match="exact f32 tier"):
         idx.query(q, 5, approx=True, certify=True)   # quantised cells
-    with pytest.raises(NotImplementedError, match="ivf_cluster_scan"):
-        idx.query(q, 5)                               # the exact tier
-    with pytest.raises(NotImplementedError, match="K1b"):
-        idx.query(q, 5, approx=True, q_split=True)
-    with pytest.raises(NotImplementedError, match="K1b"):
-        at.build_ivf_pq_index(x, nlist=8, m=128, dist_metric="cosine", device="cpu")
-    with pytest.raises(NotImplementedError, match="pq_residual"):
-        at.build_ivf_pq_index(x, nlist=8, m=16, device="cpu")
+    with pytest.raises(ValueError, match="exact f32 tier"):
+        idx.query(q, 5, certify=True)
     with pytest.raises(ValueError, match="dim"):
         idx.query(q[:, :64], 5, approx=True)
+    with pytest.raises(ValueError, match="divisible"):
+        at.build_ivf_pq_index(x, nlist=8, m=48, device="cpu")
+    exact, _ = idx.query(q, 5)                        # the exact tier
+    split, _ = idx.query(q, 5, approx=True, q_split=True)
+    assert at.calculate_recall(exact, split, 5) >= 0.95
+    cos = at.build_ivf_pq_index(x, nlist=8, m=128, dist_metric="cosine", device="cpu")
+    assert cos.mode == "i8dec_residual" and cos.query(q, 5, approx=True)[0].shape == (len(q), 5)
+    m16 = at.build_ivf_pq_index(x, nlist=8, m=16, device="cpu")
+    assert m16.mode == "pq_residual" and m16.storage.dtype == torch.uint8
+    assert m16.query(q, 5)[0].shape == (len(q), 5)
 
 
 def test_interop_rejects_incomplete_state(carried):

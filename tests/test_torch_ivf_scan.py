@@ -232,21 +232,28 @@ def test_fused_ivf_scan_pads_when_fewer_candidates_than_k():
 
 
 def test_fused_eligible():
-    for mode in ("i8dec_residual", "f32", "bf16", "sq8"):
+    for mode in ("i8dec", "i8dec_residual", "f32", "bf16", "sq8"):
         assert tsf.fused_eligible(mode, 1024, 128, 10)
         assert tsf.fused_eligible(mode, 128, 4096, 128)
         assert not tsf.fused_eligible(mode, 1000, 128, 10)   # seg % 128
         assert not tsf.fused_eligible(mode, 1024, 128, 129)  # k > 128
         assert not tsf.fused_eligible(mode, 1024, 4100, 10)  # wide rows
-    for mode in ("i8dec", "pq_residual"):
+        # the JAX package's rule, but for the width limit
+        assert jsp.fused_eligible(mode, 1024, 128, 10)
+        assert not jsp.fused_eligible(mode, 1000, 128, 10)
+    for mode in ("pq", "pq_residual", "hamming"):   # the cluster scan's
         assert not tsf.fused_eligible(mode, 1024, 128, 10)
+        assert not jsp.fused_eligible(mode, 1024, 128, 10)
 
 
 def test_fused_ivf_scan_unported_variants_raise():
+    """No path of the JAX package selects exactly over int8-decode cells,
+    and the PQ-coded modes belong to the cluster scan."""
     z = torch.zeros(1)
-    for mode, metric, sel in (("i8dec", Dist.EUCLIDEAN, "fold"),
-                              ("i8dec_residual", Dist.COSINE, "fold"),
-                              ("i8dec_residual", Dist.EUCLIDEAN, "exact")):
+    for mode, metric, sel in (("i8dec", Dist.EUCLIDEAN, "exact"),
+                              ("i8dec_residual", Dist.COSINE, "exact"),
+                              ("i8dec_residual", Dist.EUCLIDEAN, "exact"),
+                              ("pq_residual", Dist.EUCLIDEAN, "fold")):
         with pytest.raises(NotImplementedError, match="K1"):
             tsf.fused_ivf_scan(torch.zeros((1, 8)), z, z, z, z, z, z, z, z, 1,
                                metric, mode, z, 8, selection=sel)
@@ -539,3 +546,163 @@ def test_quantised_wrappers_on_cpu_are_the_plain_version(mode, exact):
     pd, pi = plain(*args, 16, True, exact=exact)
     assert torch.equal(gd, pd) and torch.equal(gi, pi)
     assert wrapper.launches == before    # no kernel launched
+
+
+# -- K1b-l2, K1b-cos and K1d-i8dec ------------------------------------------------
+#
+# The int8-decode variants with two bf16 query terms (q_split) and with the
+# cos_renorm epilogue. Both packages build the terms alike (hi by integer
+# add-then-mask, lo = bf16(v − hi)), so the query values agree bit for bit;
+# the JAX kernel sums two separately accumulated dots where the port
+# accumulates (hi + lo)·x in one pass, so the f32 sums differ in order and
+# rounding count. l2 distances agree within 1e-5·(1 + |d|). Under
+# cos_renorm the queries are unit vectors, so the terms are ≤ 1 and the
+# distances agree within 2e-6: the f32 sums of 128 products, and the JAX
+# CPU rsqrt, which is a few ulp off the IEEE 1/√x the port takes. Lanes
+# agree on ≥ 99.9% of (task, slot, rank): near-ties can swap. Sentinel
+# entries (3e38, and their lanes) agree exactly.
+
+I8_CASES = [
+    # (mode, cosine, q_split)
+    ("i8dec_residual", False, True),     # K1b-l2
+    ("i8dec_residual", True, False),     # K1b-cos, one term
+    ("i8dec_residual", True, True),      # K1b-cos, two terms
+    ("i8dec", False, False),             # K1d-i8dec l2
+    ("i8dec", False, True),
+    ("i8dec", True, False),              # K1d-i8dec cos_renorm
+    ("i8dec", True, True),
+]
+I8_IDS = [f"{m}-{'cos' if c else 'l2'}-nq_t{2 if s else 1}" for m, c, s in I8_CASES]
+
+
+def test_bf16_terms_match_jax_mantissa_split():
+    rng = np.random.default_rng(0)
+    v = (rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 6, 4096)).astype(np.float32)
+    v[:6] = [0.0, -0.0, 1.0, -1.0, 1.00390625, -3.0e-39]     # a tie, a denormal
+    hi, lo = mantissa_split(jnp.asarray(v), 2)
+    want = np.asarray(hi, np.float32) + np.asarray(lo, np.float32)
+    np.testing.assert_array_equal(tsf._bf16_terms(torch.as_tensor(v), True).numpy(), want)
+    one = np.asarray(jnp.asarray(v).astype(jnp.bfloat16), np.float32)
+    np.testing.assert_array_equal(tsf._bf16_terms(torch.as_tensor(v), False).numpy(), one)
+
+
+def _jax_i8_cell_scan(lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+                      mode, cosine, q_split):
+    """The JAX scan on port-style task inputs: the prologue as
+    ``fused_ivf_scan`` computes it for the int8-decode modes, then
+    ``_fused_cell_scan`` in interpret mode."""
+    qg = jnp.asarray(queries_x)[jnp.asarray(lists)]
+    cent = jnp.asarray(cent_x)[jnp.asarray(task_seg)]
+    sc = jnp.asarray(scales)[None, None, :]
+    R, maxq = lists.shape
+    if mode == "i8dec_residual" and cosine:
+        qadd, qk = jnp.einsum("rmd,rd->rm", qg, cent), qg * sc
+    elif mode == "i8dec_residual":
+        qr = qg - cent[:, None, :]
+        qadd, qk = jnp.sum(qr * qr, axis=-1), qr * sc
+    else:
+        qadd = jnp.zeros((R, maxq), jnp.float32) if cosine else jnp.sum(qg * qg, axis=-1)
+        qk = qg * sc
+    qk_t = mantissa_split(qk, 2) if q_split else (qk.astype(jnp.bfloat16),)
+    seg = cells.shape[1]
+    cd, ci = jsp._fused_cell_scan(
+        qk_t, jnp.broadcast_to(qadd[:, None, :], (R, 8, maxq)),
+        jnp.asarray(task_seg), jnp.asarray(cnt), (jnp.asarray(cells),),
+        jnp.broadcast_to(jnp.asarray(sn)[:, None, :], (sn.shape[0], 8, seg)),
+        kb, "cos_renorm" if cosine else "l2", True, fold_depth=2, selection="fold",
+    )
+    return np.asarray(cd), np.asarray(ci)
+
+
+def _assert_i8_parity(gd, gi, wd, wi, cosine):
+    big = np.float32(3e38)
+    np.testing.assert_array_equal(gd == big, wd == big)
+    np.testing.assert_array_equal(gi[wd == big], wi[wd == big])
+    real = wd != big
+    tol = 2e-6 if cosine else 1e-5 * (1.0 + np.abs(wd[real]))
+    assert np.all(np.abs(gd[real] - wd[real]) <= tol)
+    assert (gi == wi).mean() >= 0.999
+
+
+@pytest.mark.parametrize("mode,cosine,q_split", I8_CASES, ids=I8_IDS)
+def test_i8dec_cell_scans_match_jax(mode, cosine, q_split):
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn = _random_tasks(11)
+    if cosine:   # the cosine index scores unit queries against sn = ‖c + dec‖²
+        queries_x = queries_x / np.maximum(np.linalg.norm(queries_x, axis=1, keepdims=True), 1e-30)
+        dec = cells.astype(np.float32) * scales
+        if mode == "i8dec_residual":
+            dec = dec + cent_x[:, None, :]
+        sn = (dec * dec).sum(-1).astype(np.float32)
+    args = (lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn)
+    t = [torch.as_tensor(a) for a in args]
+    if mode == "i8dec":
+        t[4] = None
+    gd, gi = tsf.ivf_cell_scan_plain(*t, KB, cosine=cosine, q_split=q_split)
+    wd, wi = _jax_i8_cell_scan(*args, KB, mode, cosine, q_split)
+    assert gd.shape == (24, 32, KB) and gi.dtype == torch.int32
+    _assert_i8_parity(gd.numpy(), gi.numpy(), wd, wi, cosine)
+    assert (gd.numpy()[cnt == 0] == np.float32(3e38)).all() and (gi.numpy()[cnt == 0] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def jindex_cos():
+    """JAX cosine IVF-PQ (m = d) with split and partial segments."""
+    x, _ = generate_clustered_data(1200, 128, 6, seed=3)
+    q = subsample_with_noise(x, 25, seed=4)
+    j = JIvfPq(x, "cosine", nlist=4, m=128, seg_size=128)
+    assert j.mode == "i8dec_residual" and (np.asarray(j.seg_counts) < 128).any()
+    return j, q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("mode,cosine,q_split", I8_CASES, ids=I8_IDS)
+def test_fused_ivf_scan_i8dec_variants_match_jax(jindex, jindex_cos, tasks, mode, cosine, q_split):
+    """The host side end to end on carried state: ``fused_ivf_scan`` of both
+    packages on one index's cells, task lists and gather map. Mode i8dec
+    scans the same cells without the centroids."""
+    j, q = jindex_cos if cosine else jindex
+    cids, lists, gmap = tasks
+    jcells, jsn = jsp.repack_blocks(j.storage, j.store_sqnorms, j.seg_offsets, j.seg_size)
+    wd, wi = jsp.fused_ivf_scan(
+        jnp.asarray(q), cids, lists, gmap, jcells, jsn, j.seg_offsets, j.seg_counts,
+        j.seg_centroids, K, JDist.COSINE if cosine else JDist.EUCLIDEAN, mode,
+        j.dec_scales, KB, interpret=True, q_split=q_split,
+    )
+    cells, sn = tsf.repack_blocks(
+        _t(j.storage), _t(j.store_sqnorms), _t(j.seg_offsets), j.seg_size
+    )
+    gd, gi = tsf.fused_ivf_scan(
+        torch.as_tensor(q), _t(cids), _t(lists), _t(gmap), cells, sn,
+        _t(j.seg_offsets), _t(j.seg_counts), _t(j.seg_centroids), K,
+        Dist.COSINE if cosine else Dist.EUCLIDEAN, mode, _t(j.dec_scales), KB,
+        q_split=q_split,
+    )
+    assert gd.shape == (len(q), K) and torch.all(gd[:, 1:] >= gd[:, :-1])
+    if cosine:
+        np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=0, atol=2e-6)
+        assert (gi.numpy() == np.asarray(wi)).mean() >= 0.99
+    else:
+        _assert_scan_parity(gd.numpy(), gi.numpy(), np.asarray(wd), np.asarray(wi))
+
+
+@pytest.mark.parametrize(
+    "wrapper,kw",
+    [("ivf_cell_scan_split", {}), ("ivf_cell_scan_cos", {"q_split": False}),
+     ("ivf_cell_scan_cos", {"q_split": True}),
+     ("ivf_cell_scan_i8dec", {"cosine": False, "q_split": True}),
+     ("ivf_cell_scan_i8dec", {"cosine": True, "q_split": False})],
+)
+def test_i8dec_wrappers_on_cpu_are_the_plain_version(wrapper, kw):
+    args = [torch.as_tensor(a) for a in _random_tasks(3, R=6)]
+    fn = getattr(tsf, wrapper)
+    plain_kw = {"q_split": True} if wrapper == "ivf_cell_scan_split" else dict(kw)
+    if wrapper == "ivf_cell_scan_cos":
+        plain_kw["cosine"] = True
+    plain_args = list(args)
+    if wrapper == "ivf_cell_scan_i8dec":
+        plain_args[4] = None
+        del args[4]
+    before = fn.launches
+    gd, gi = fn(*args, 16, **kw)
+    pd, pi = tsf.ivf_cell_scan_plain(*plain_args, 16, **plain_kw)
+    assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    assert fn.launches == before    # no kernel launched

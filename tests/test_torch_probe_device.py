@@ -83,3 +83,69 @@ def test_inversion_at_main_path_scale():
         [rng.choice(nseg, T, replace=False, p=w / w.sum()) for _ in range(200)]
     )[rng.integers(0, 200, nq)]
     _compare(probes, nseg)
+
+
+# -- the host builders of the cluster scan's task lists --------------------------
+
+
+def _split_layout(seed=2):
+    """A layout with split cells (up to 4 segments) and an empty cell."""
+    rng = np.random.default_rng(seed)
+    nlist = 7
+    a = rng.choice(nlist, 1500, p=np.array([6, 1, 0, 3, 1, 1, 1]) / 13)
+    layout = segment_layout(a, nlist, 128)
+    spc = np.diff(layout.cluster_ptr)
+    assert spc.max() >= 3 and spc.min() == 0
+    return layout, nlist
+
+
+@pytest.mark.parametrize("nq,nprobe", [(1, 1), (40, 3), (300, 7)])
+def test_expand_probes_to_segments_identical(nq, nprobe):
+    from annsearch_tpu.models.kmeans import expand_probes_to_segments as j_expand
+    from annsearch_tpu_torch.models.kmeans import expand_probes_to_segments as t_expand
+
+    layout, nlist = _split_layout()
+    rng = np.random.default_rng(nq)
+    probes = np.stack([rng.choice(nlist, nprobe, replace=False) for _ in range(nq)])
+    want = j_expand(probes, layout)
+    got = t_expand(probes, layout.cluster_ptr)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "nq,nprobe,maxq_cap",
+    [(1, 1, None), (40, 3, None), (300, 7, None), (300, 7, 16), (2000, 4, 64),
+     (70000, 1, None)],       # more than 2¹⁶ queries: int32 lists
+)
+def test_host_probe_lists_identical(nq, nprobe, maxq_cap):
+    """Integer for integer, dtypes included: split and empty cells, skewed
+    probes, ``maxq_cap`` chunking of popular segments."""
+    from annsearch_tpu.models.kmeans import expand_probes_to_segments as j_expand
+    from annsearch_tpu.ops.ivf_scan import build_probe_lists_from_pairs as j_lists
+    from annsearch_tpu_torch.ops.ivf_scan import build_probe_lists_from_pairs as t_lists
+
+    layout, nlist = _split_layout()
+    rng = np.random.default_rng(nq + nprobe)
+    w = np.array([8, 1, 1, 4, 1, 1, 1], float)
+    probes = np.stack([rng.choice(nlist, nprobe, replace=False, p=w / w.sum())
+                       for _ in range(min(nq, 500))])[rng.integers(0, min(nq, 500), nq)]
+    qs, segs = j_expand(probes, layout)
+    want = j_lists(qs, segs, layout.nseg, nq, maxq_cap)
+    got = t_lists(qs, segs, layout.nseg, nq, maxq_cap)
+    for name, g, w_ in zip(("cluster_ids", "lists", "gather_map"), got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape, name
+        np.testing.assert_array_equal(g, w_, err_msg=name)
+    if maxq_cap is not None:
+        assert got[1].shape[1] <= maxq_cap      # popular segments are chunked
+        assert len(set(got[0][got[0] < layout.nseg].tolist())) < (got[0] < layout.nseg).sum()
+
+
+def test_host_probe_lists_without_tasks():
+    from annsearch_tpu.ops.ivf_scan import build_probe_lists_from_pairs as j_lists
+    from annsearch_tpu_torch.ops.ivf_scan import build_probe_lists_from_pairs as t_lists
+
+    empty = np.zeros(0, np.int32)
+    for g, w in zip(t_lists(empty, empty, 5, 3), j_lists(empty, empty, 5, 3)):
+        np.testing.assert_array_equal(g, w)

@@ -112,8 +112,8 @@ def test_round_half_to_even():
 
 def test_unported_and_invalid_configurations_raise():
     x = torch.zeros((300, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.ProductQuantiser.train(x, 16)
+    # ds = 4 trains since the batched subspace k-means was ported
+    assert tq.ProductQuantiser.train(x, 16).codebooks.shape == (16, 256, 4)
     with pytest.raises(ValueError, match="divisible"):
         tq.ProductQuantiser.train(x, 48)
     with pytest.raises(ValueError, match="dim >= 32"):
@@ -162,3 +162,124 @@ def test_bf16_codec_matches_jax_bit_for_bit():
     j = jq.bf16_encode(jnp.asarray(x))
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(tq.bf16_decode(t).numpy(), np.asarray(jq.bf16_decode(j)))
+
+
+# -- PQ with ds > 1, the code tile decode and OPQ ---------------------------------
+#
+# Codebooks of ds > 1 are seeded from random draws, so the two packages'
+# differ in value: encode, decode and the code norms are compared on the
+# JAX codebooks carried over, training by its quantisation error.
+
+
+@pytest.fixture(scope="module")
+def jax_pq16(residuals):
+    return jq.ProductQuantiser.train(jnp.asarray(residuals), 16, seed=42)
+
+
+def test_encode_pq_matches_jax_on_carried_codebooks(residuals, jax_pq16):
+    books = torch.tensor(np.asarray(jax_pq16.codebooks))
+    assert books.shape == (16, 256, 8)
+    ct = tq._encode_pq(torch.as_tensor(residuals), books, chunk=700)   # a ragged last chunk
+    cj = np.asarray(jax_pq16.encode(jnp.asarray(residuals)))
+    assert ct.dtype == torch.uint8 and ct.shape == (1800, 16)
+    # codes equal, near-ties of the f32 argmin aside
+    assert (ct.numpy() == cj).mean() >= 0.999
+
+
+def test_pq_decode_tile_and_decode_match_jax_bit_for_bit(residuals, jax_pq16):
+    from annsearch_tpu.ops.quantised import pq_decode_tile as j_tile
+    from annsearch_tpu_torch.ops.quantised import pq_decode_tile as t_tile
+
+    cj = jax_pq16.encode(jnp.asarray(residuals))
+    books = torch.tensor(np.asarray(jax_pq16.codebooks))
+    codes = torch.tensor(np.asarray(cj))
+    got = t_tile(codes, books)
+    assert got.shape == (1800, 128) and got.dtype == torch.float32
+    # the JAX tile decode is a one-hot matmul in f32 on the CPU: exact
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_tile(cj, jax_pq16.codebooks)))
+    pt = tq.ProductQuantiser(books, 16, 128)
+    np.testing.assert_array_equal(pt.decode(codes).numpy(), np.asarray(jax_pq16.decode(cj)))
+
+
+def test_code_sqnorms_match_jax_bit_for_bit(residuals, jax_pq16):
+    cj = jax_pq16.encode(jnp.asarray(residuals))
+    pt = tq.ProductQuantiser(torch.tensor(np.asarray(jax_pq16.codebooks)), 16, 128)
+    got = pt.code_sqnorms(torch.tensor(np.asarray(cj)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_pq16.code_sqnorms(cj)))
+    # and they are the squared norms of the decoded rows
+    np.testing.assert_allclose(got.numpy(), (np.asarray(jax_pq16.decode(cj)) ** 2).sum(1),
+                               rtol=1e-5)
+
+
+def _quantisation_error(pq, x):
+    return float(((pq.decode(pq.encode(x)) - x) ** 2).sum(-1).mean())
+
+
+@pytest.mark.parametrize("n,m", [(1800, 16), (1800, 32), (12000, 16)],
+                         ids=["lloyd-m16", "lloyd-m32", "minibatch-m16"])
+def test_subspace_training_quality_matches_jax(n, m):
+    """Full Lloyd (n ≤ 10,000) and mini-batch (above): the port's mean
+    squared quantisation error is within 10% of the JAX package's on the
+    same rows (random streams differ)."""
+    rng = np.random.default_rng(m)
+    mix = rng.standard_normal((128, 128)).astype(np.float32) / np.sqrt(128)
+    x = (rng.standard_normal((n, 128)).astype(np.float32) @ mix).astype(np.float32)
+    pt = tq.ProductQuantiser.train(torch.as_tensor(x), m, seed=1)
+    pj = jq.ProductQuantiser.train(jnp.asarray(x), m, seed=1)
+    assert pt.codebooks.shape == (m, 256, 128 // m)
+    et = _quantisation_error(pt, torch.as_tensor(x))
+    ej = float(((np.asarray(pj.decode(pj.encode(jnp.asarray(x)))) - x) ** 2).sum(-1).mean())
+    assert et <= 1.1 * ej, (et, ej)
+    # the same seed gives the same codebooks
+    again = tq.ProductQuantiser.train(torch.as_tensor(x), m, seed=1)
+    assert torch.equal(again.codebooks, pt.codebooks)
+
+
+def test_subspace_training_pads_small_training_sets():
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((100, 64)).astype(np.float32))
+    pt = tq.ProductQuantiser.train(x, 16)
+    assert pt.codebooks.shape == (16, 256, 4) and (pt.codebooks[:, 100:] == 1e30).all()
+    assert pt.encode(x).max() < 100
+
+
+def _correlated(n, d, seed):
+    """Rows with strongly correlated dimensions (a random rotation of axes
+    with decaying variances), where a learned rotation helps PQ."""
+    rng = np.random.default_rng(seed)
+    basis, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    var = np.exp(-np.arange(d) / 6.0)
+    return ((rng.standard_normal((n, d)) * np.sqrt(var)) @ basis.T).astype(np.float32)
+
+
+def test_opq_rotation_is_orthogonal_and_beats_pq():
+    x = _correlated(3000, 64, 5)
+    xt = torch.as_tensor(x)
+    opq = tq.OptimisedProductQuantiser.train(xt, 8, seed=3)
+    r = opq.rotation
+    assert r.shape == (64, 64)
+    assert (r @ r.T - torch.eye(64)).abs().max() <= 1e-4
+    pq = tq.ProductQuantiser.train(xt, 8, seed=3)
+    e_opq = float(((opq.decode(opq.encode(xt)) - xt) ** 2).sum(-1).mean())
+    e_pq = _quantisation_error(pq, xt)
+    assert e_opq <= e_pq, (e_opq, e_pq)
+    # and about as good as the JAX package's OPQ on the same rows
+    oj = jq.OptimisedProductQuantiser.train(jnp.asarray(x), 8, seed=3)
+    e_j = float(((np.asarray(oj.decode(oj.encode(jnp.asarray(x)))) - x) ** 2).sum(-1).mean())
+    assert e_opq <= 1.15 * e_j, (e_opq, e_j)
+    assert opq.memory_usage_bytes() == oj.memory_usage_bytes()
+
+
+def test_opq_on_carried_state_matches_jax():
+    """The JAX rotation and codebooks carried over: rotate, encode and
+    decode agree (codes up to f32 near-ties)."""
+    x = _correlated(1500, 64, 6)
+    oj = jq.OptimisedProductQuantiser.train(jnp.asarray(x), 16, seed=0)
+    pt = tq.ProductQuantiser(torch.tensor(np.asarray(oj.pq.codebooks)), 16, 64)
+    ot = tq.OptimisedProductQuantiser(pt, torch.tensor(np.asarray(oj.rotation)))
+    xt = torch.as_tensor(x)
+    np.testing.assert_allclose(ot.rotate(xt).numpy(), np.asarray(oj.rotate(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+    cj = np.asarray(oj.encode(jnp.asarray(x)))
+    assert (ot.encode(xt).numpy() == cj).mean() >= 0.999
+    np.testing.assert_allclose(ot.decode(torch.tensor(cj)).numpy(),
+                               np.asarray(oj.decode(jnp.asarray(cj))), rtol=1e-5, atol=1e-5)
