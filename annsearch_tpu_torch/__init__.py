@@ -6,10 +6,11 @@ CUDA kernel written for Hopper (``csrc/``), built at first use into
 ``_build/``.
 
 Layout:
-  * ``ops``     — running top-k, task-list inversion, the fused IVF scan,
-    the cluster scan, PQ decode
+  * ``ops``     — running top-k (exact, bins and fused selectors), the
+    fused flat scan, task-list inversion, the fused IVF scan, the cluster
+    scan, PQ decode, graph pruning and beam search
   * ``models``  — indexes (exhaustive, IVF, bf16 / SQ8 IVF, IVF-PQ,
-    IVF-OPQ), quantisers and k-means
+    IVF-OPQ, NNDescent), quantisers and k-means
   * ``utils``   — distances, synthetic data, metrics
   * ``interop`` — index state carried over from the JAX package
 """

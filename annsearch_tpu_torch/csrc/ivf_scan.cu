@@ -96,6 +96,8 @@
 
 #include <climits>
 
+#include "lex_min.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;   // chunk width: stride classes per query
@@ -111,10 +113,6 @@ enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2, kCosRenorm = 3 };
 // qadd = q . centroid (K1b-cos)
 enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2, kScaled = 3, kScaledCent = 4 };
 
-__device__ __forceinline__ bool lex_less(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
-}
-
 // the scaled query value as the scan scores it: one bf16 term, or the exact
 // f32 sum of the two bf16 terms of the mantissa split (see the file header)
 template <bool kSplit>
@@ -125,16 +123,6 @@ __device__ __forceinline__ float query_term(float v) {
     const float hi = __uint_as_float((__float_as_uint(v) + 0x8000u) & 0xFFFF0000u);
     const float lo = __bfloat162float(__float2bfloat16_rn(__fsub_rn(v, hi)));
     return __fadd_rn(hi, lo);
-  }
-}
-
-// warp-wide lexicographic arg-min of (bv, bi); every lane gets the winner
-__device__ __forceinline__ void warp_lex_min(float& bv, int& bi) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (lex_less(ov, oi, bv, bi)) { bv = ov; bi = oi; }
   }
 }
 

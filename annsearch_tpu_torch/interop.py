@@ -8,9 +8,13 @@ and scalars of an ``annsearch_tpu`` ``IvfPqIndex`` (int8 storage and
 port's ``IvfIndex`` from those of an f32 ``IvfIndex``, and
 ``ivf_bf16_from_jax_arrays`` / ``ivf_sq8_from_jax_arrays`` the quantised
 ``IvfIndexBf16`` / ``IvfSq8Index``, as their ``save`` writes them to npz;
-each class's ``load`` reads such a file through them. Both packages then query the same
-centroids and cells, so differences between their random streams drop out
-of a comparison.
+each class's ``load`` reads such a file through them.
+``nndescent_from_jax_arrays`` builds the port's ``NNDescentIndex`` from the
+state of a JAX ``NNDescentIndex`` (the sentinel-padded table, the kNN graph
+and, once the JAX index has answered a query, its navigable graph and
+routers). Both packages then query the same centroids and cells, or walk
+the same graph from the same routers, so differences between their random
+streams drop out of a comparison.
 
 Nothing here imports the JAX package: the state arrives as numpy arrays.
 """
@@ -25,6 +29,7 @@ __all__ = [
     "ivf_opq_from_jax_arrays", "IVF_OPQ_ARRAYS",
     "ivf_from_jax_arrays", "IVF_ARRAYS", "IVF_SCALARS",
     "ivf_bf16_from_jax_arrays", "ivf_sq8_from_jax_arrays", "IVF_SQ8_ARRAYS",
+    "nndescent_from_jax_arrays", "NNDESCENT_ARRAYS", "NNDESCENT_SCALARS",
 ]
 
 IVF_ARRAYS = (
@@ -36,6 +41,10 @@ IVF_PQ_ARRAYS = IVF_ARRAYS + ("codebooks", "dec_scales")
 IVF_PQ_SCALARS = IVF_SCALARS + ("m",)
 IVF_OPQ_ARRAYS = IVF_PQ_ARRAYS + ("rotation",)
 IVF_SQ8_ARRAYS = IVF_ARRAYS + ("scales",)
+
+#: state of an NNDescentIndex; ``nav_graph`` and ``router_ids`` may be absent
+NNDESCENT_ARRAYS = ("vectors", "sqnorms", "knn_ids", "knn_dists", "nav_graph", "router_ids")
+NNDESCENT_SCALARS = ("n", "dim", "k_build", "out_deg")
 
 #: device dtypes of the index arrays (``storage`` keeps its own: int8 or
 #: float32, unless the caller casts it); the rest are float32
@@ -149,4 +158,43 @@ def ivf_sq8_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="c
     obj = _ivf_state(IvfSq8Index, arrays, meta, IVF_SQ8_ARRAYS, IVF_SCALARS,
                      np.int8, device, {"store_sqnorms": torch.int32})
     obj.quantiser = ScalarQuantiser(obj.scales)
+    return obj
+
+
+def nndescent_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``NNDescentIndex`` from a JAX index's state: ``arrays`` holds
+    ``vectors [n+1, dim]`` (sentinel row last), ``sqnorms [n+1]``,
+    ``knn_ids`` / ``knn_dists [n, k_build]`` and optionally ``nav_graph
+    [n+1, deg]`` and ``router_ids`` (both or neither: without them the
+    navigable graph is built on the first query, from seed 42 as a loaded
+    JAX index does); ``meta`` the scalars :data:`NNDESCENT_SCALARS` and
+    optionally ``metric``."""
+    from .models.graph import NNDescentIndex
+    from .utils.dist import parse_ann_dist
+
+    need = ("vectors", "sqnorms", "knn_ids", "knn_dists")
+    missing = [a for a in need if arrays.get(a) is None]
+    missing += [s for s in NNDESCENT_SCALARS if s not in meta]
+    if (arrays.get("nav_graph") is None) != (arrays.get("router_ids") is None):
+        missing.append("nav_graph and router_ids together")
+    if missing:
+        raise ValueError(f"NNDescentIndex state lacks {missing}")
+    dev = torch.device(device)
+    obj = NNDescentIndex.__new__(NNDescentIndex)
+    obj.device = dev
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    for name in NNDESCENT_SCALARS:
+        setattr(obj, name, int(meta[name]))
+    for name in NNDESCENT_ARRAYS:
+        a = arrays.get(name)
+        dtype = torch.float32 if name in ("vectors", "sqnorms", "knn_dists") else torch.int32
+        setattr(obj, name, None if a is None
+                else torch.tensor(np.asarray(a)).to(device=dev, dtype=dtype))
+    if obj.vectors.shape != (obj.n + 1, obj.dim):
+        raise ValueError(
+            f"vectors must be [n+1, dim] = {(obj.n + 1, obj.dim)}, got "
+            f"{tuple(obj.vectors.shape)}"
+        )
+    obj._seed = 42
+    obj._reverse_extra = obj.out_deg // 2
     return obj

@@ -1,5 +1,7 @@
 """Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, IVF,
-quantised IVF (bf16, SQ8), IVF-PQ and IVF-OPQ rows).
+quantised IVF (bf16, SQ8), IVF-PQ, IVF-OPQ and NNDescent rows, and the
+``*_gpu`` names, which the JAX package keeps as aliases of its one
+accelerated engine).
 
 Queries return ``(ids [nq, k], dists [nq, k] | None)`` as tensors on the
 index's device: ids int64, distances float32 ascending (euclidean squared).
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Any
 
 from .models.exhaustive import ExhaustiveIndex
+from .models.graph import NNDescentIndex
 from .models.ivf import IvfIndex
 from .models.quantised.ivf import IvfIndexBf16, IvfOpqIndex, IvfPqIndex, IvfSq8Index
 
@@ -33,6 +36,19 @@ __all__ = [
     "build_ivf_opq_index",
     "query_ivf_opq_index",
     "query_ivf_opq_index_self",
+    "build_nndescent_index",
+    "query_nndescent_index",
+    "query_nndescent_self",
+    "build_nndescent_index_gpu",
+    "query_nndescent_index_gpu",
+    "query_nndescent_index_gpu_self",
+    "extract_nndescent_knn_gpu",
+    "build_exhaustive_index_gpu",
+    "query_exhaustive_index_gpu",
+    "query_exhaustive_index_gpu_self",
+    "build_ivf_index_gpu",
+    "query_ivf_index_gpu",
+    "query_ivf_index_gpu_self",
 ]
 
 
@@ -175,3 +191,61 @@ def query_ivf_opq_index(
 
 def query_ivf_opq_index_self(index, k: int, nprobe=None, return_dist=False):
     return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)
+
+
+def build_nndescent_index(
+    mat: Any, dist_metric: str = "euclidean", k: int = 30, n_trees=None,
+    max_iters=None, delta: float = 0.001, seed: int = 42, verbose: bool = False,
+    device="cuda", **kw,
+) -> NNDescentIndex:
+    return NNDescentIndex(
+        mat, dist_metric, k=k,
+        n_trees=4 if n_trees is None else n_trees,
+        max_rounds=10 if max_iters is None else max_iters,
+        delta=delta, seed=seed, verbose=verbose, device=device, **kw,
+    )
+
+
+def query_nndescent_index(query_mat, index, k, beam=None, iters=None, return_dist=False):
+    """Small batches take the exact fallback, the rest the beam search
+    (:meth:`NNDescentIndex.query`)."""
+    return _maybe_dist(*index.query(query_mat, k, beam=beam, iters=iters), return_dist)
+
+
+def query_nndescent_self(index, k, return_dist=False, mode="graph"):
+    return _maybe_dist(*index.generate_knn(k, mode=mode), return_dist)
+
+
+build_nndescent_index_gpu = build_nndescent_index
+query_nndescent_index_gpu = query_nndescent_index
+query_nndescent_index_gpu_self = query_nndescent_self
+
+
+def extract_nndescent_knn_gpu(index, k, return_dist=False):
+    """The built kNN graph (self excluded)."""
+    return _maybe_dist(*index.generate_knn(k, mode="graph"), return_dist)
+
+
+build_exhaustive_index_gpu = build_exhaustive_index
+
+
+def query_exhaustive_index_gpu(query_mat, index, k, return_dist=False):
+    """The flat scan through the running-bins selector (``selector="bins"``)."""
+    return _maybe_dist(*index.query(query_mat, k, selector="bins"), return_dist)
+
+
+def query_exhaustive_index_gpu_self(index, k, return_dist=False):
+    return _maybe_dist(*index.generate_knn(k, selector="bins"), return_dist)
+
+
+build_ivf_index_gpu = build_ivf_index
+
+
+def query_ivf_index_gpu(query_mat, index, k, nprobe=None, return_dist=False):
+    """The fused approximate tier (``approx=True``: kernel K1d-f32)."""
+    return _maybe_dist(*index.query(query_mat, k, nprobe=nprobe, approx=True), return_dist)
+
+
+def query_ivf_index_gpu_self(index, k, nprobe=None, return_dist=False):
+    q = index.vectors_original_order()
+    return _maybe_dist(*index.query(q, k, nprobe=nprobe, approx=True), return_dist)

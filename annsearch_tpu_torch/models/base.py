@@ -20,7 +20,18 @@ import torch
 
 from ..utils.dist import Dist, normalise, parse_ann_dist, sq_norms
 
-__all__ = ["BaseIndex", "as_f32_matrix", "host_f64", "rescore_f64_pool"]
+__all__ = [
+    "BaseIndex", "as_f32_matrix", "host_f64", "rescore_f64_pool",
+    "BRUTE_QUERY_FLOP_BUDGET",
+]
+
+#: Below this nq·n·d multiply-add count one exact scan answers the batch
+#: faster than a sublinear structure walks it (the JAX package's value; on
+#: the H100 see PERF.md for the exact scan beside the beam search). Indexes
+#: that keep full-precision rows send such batches through it; pass
+#: ``exact_fallback=False`` (or set ANNSEARCH_NO_EXACT_FALLBACK=1) to force
+#: the index's own algorithm.
+BRUTE_QUERY_FLOP_BUDGET = 250_000 * 250_000 * 64
 
 
 def host_f64(mat: Any) -> np.ndarray | None:
@@ -114,6 +125,53 @@ class BaseIndex:
     def _f64_queries(self, query_mat: Any) -> np.ndarray | None:
         """The f64 query batch when this index keeps f64 data, else None."""
         return host_f64(query_mat) if self._x64 is not None else None
+
+    def _capture_f64(self, mat: Any) -> None:
+        """Keep a host f64 copy when the build input is f64 numpy data."""
+        self._x64 = host_f64(mat)
+
+    def _f64_roundtrip(self, query_mat: Any, k: int, **query_kw):
+        """The f64-grade answer by recursion: ``query`` again with the f32
+        cast of the batch and a 2k pool, then the pool rescored in f64 on
+        the host. None when the batch takes the normal path."""
+        q64 = self._f64_queries(query_mat)
+        if q64 is None:
+            return None
+        pool_k = min(2 * self._clamp_k(k), self.n)
+        pool, _ = self.query(q64.astype(np.float32), pool_k, **query_kw)
+        return self._rescore_f64(q64, pool, k)
+
+    # -- small-regime exact fallback --------------------------------------
+
+    def _fallback_vectors(self):
+        """``(vecs [n, d] f32, sqnorms or None, ids [n] or None)`` for the
+        exact small-regime query path, or None where the index keeps no
+        full-precision rows."""
+        return None
+
+    def _exact_fallback_ok(self, nq: int) -> bool:
+        if os.environ.get("ANNSEARCH_NO_EXACT_FALLBACK"):
+            return False
+        if nq * self.n * self.dim > BRUTE_QUERY_FLOP_BUDGET:
+            return False
+        return self._fallback_vectors() is not None
+
+    def _fallback_from_vectors(self):
+        """``_fallback_vectors`` of an index whose raw f32 rows are
+        ``self.vectors`` (with sentinel or pad rows past ``self.n``)."""
+        sq = None
+        if self.metric == Dist.EUCLIDEAN and getattr(self, "sqnorms", None) is not None:
+            sq = self.sqnorms[: self.n]
+        return self.vectors[: self.n], sq, None
+
+    def _exact_query_small(self, q: torch.Tensor, k: int):
+        """Exact top-k ``(ids, dists)`` over the full-precision rows."""
+        from ..ops.topk import blocked_query_topk
+
+        vecs, sq, ids = self._fallback_vectors()
+        k = max(1, min(int(k), vecs.shape[0]))
+        d, i = blocked_query_topk(q, vecs, k, self.metric, x_sqnorm=sq, precision="highest")
+        return (i if ids is None else ids[i]), d
 
     def _rescore_f64(self, q64: np.ndarray, ids: torch.Tensor, k: int):
         """``(ids, dists)`` of a pool of original ids rescored in f64 on the

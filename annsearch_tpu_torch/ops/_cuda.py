@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-``csrc/*.cu`` is compiled at first use with ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), cached under ``annsearch_tpu_torch/_build/<hash of sources and
+``csrc/*.cu`` is compiled at first use with ``nvcc`` (one process per
+source, all started together, then one link) into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds),
+cached under ``annsearch_tpu_torch/_build/<hash of sources and
 flags>/`` and loaded with ``ctypes``. Without ``nvcc`` the build raises:
 a CUDA tensor never falls back to a kernel's plain version.
 """
@@ -13,11 +14,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "SOURCE_DIR", "BUILD_DIR"]
+__all__ = ["load_library", "build_log", "kernel_resources", "SOURCE_DIR", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
@@ -25,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 _LIB_NAME = "libannsearch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +43,7 @@ _SIGNATURES = {
     "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + [_P],
+    "annsearch_flat_scan": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 
@@ -60,7 +63,7 @@ def _sources() -> list[Path]:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in _sources() + sorted(SOURCE_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16]
@@ -73,6 +76,28 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def kernel_resources() -> list[tuple[str, str]]:
+    """``(kernel, resources)`` per compiled kernel instance of the current
+    build, from ``ptxas -v``: the kernel's name with its template arguments
+    as the compiler mangles them (``flat_scan_kernelILi2ELb0ELb1EE`` is
+    ``<2, false, true>``), and ptxas's registers, static shared memory,
+    barriers and spills. Dynamic shared memory is set at launch and is not
+    in the compiler's output."""
+    out, name, spills = [], None, ""
+    for line in build_log().splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"((?:ivf|flat)_[a-z_]+kernel)(?:(I\w+?E)Ev)?", mangled)
+            name = m.group(1) + (m.group(2) or "") if m else mangled
+        elif "spill" in line:
+            spills = line
+        elif line.startswith("ptxas info") and "Used" in line and name:
+            out.append((name, line.split(":", 1)[1].strip() + "; " + spills))
+            name = None
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
@@ -80,14 +105,33 @@ def load_library() -> ctypes.CDLL:
     lib_path = out_dir / _LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())],
-            capture_output=True, text=True,
-        )
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+        nvcc, tag = _nvcc(), os.getpid()
+        objs = [out_dir / f"{p.stem}.{tag}.o" for p in _sources()]
+        # each compiler writes to its own file: no pipe to fill while the
+        # others are waited for
+        logs = [o.with_suffix(".log") for o in objs]
+        procs = []
+        for p, o, lg in zip(_sources(), objs, logs):
+            with open(lg, "w") as out:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                    stdout=out, stderr=subprocess.STDOUT,
+                ))
+        failed = any([proc.wait() for proc in procs])
+        log = "".join(lg.read_text() for lg in logs)
+        tmp = out_dir / f"{_LIB_NAME}.{tag}.tmp"
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            log += link.stdout + link.stderr
+            failed = link.returncode != 0
+        (out_dir / "build.log").write_text(log)
+        for f in objs + logs:
+            f.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():

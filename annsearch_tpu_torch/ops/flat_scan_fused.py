@@ -1,0 +1,250 @@
+"""Fused flat top-k, kernel K2 (port of ``annsearch_tpu.ops.flat_scan_pallas``).
+
+``flat_topk_fused`` scans the whole database for every query and keeps,
+per query and per column class ``col mod B``, the best (``depth=1``) or the
+best two (``depth=2``) ``(score, col)`` pairs with ``score = ‖x‖² − 2·q·x``
+(``−2·q·x`` under cosine); after the last database tile it extracts ``kb``
+minima in turn, ties to the lowest column. A true neighbour is lost only
+when more than ``depth`` of the top-k share a class, so ``B`` (from
+``block_db`` and ``n``) is part of the result, not a tuning knob.
+
+A CUDA tensor goes to the hand-written kernel in ``csrc/flat_scan.cu`` (or
+raises); a CPU tensor goes to ``flat_topk_fused_plain``, the same function
+in tensor operations, which is also what the kernel is held against.
+
+Grade of the dots. The Pallas kernel sums bf16 cross terms of a mantissa
+split on the MXU and packs them into the lane dimension at d ≤ 64. The
+port keeps the grade each ``passes`` promises, not the trick: ``passes=6``
+and ``passes=3`` are FP32 products with f32 sums (FFMA on the card, an
+fp32 ``matmul`` with TF32 off in the plain version), which carries all 24
+mantissa bits; ``passes=1`` rounds both operands to bf16
+(round-to-nearest-even) and sums in f32. The kernel's FFMA loop and the
+plain version's ``matmul`` sum in different orders, so they agree bit for
+bit only where every product and partial sum is exact (inputs on a coarse
+grid); elsewhere distances agree within rounding and near-ties may swap.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.dist import Dist, fp32_matmul, sq_norms
+
+__all__ = [
+    "flat_topk_fused", "flat_topk_fused_plain", "fused_shapes", "slab_rows",
+    "scan_smem_bytes",
+]
+
+#: finite "masked" value of the scan (ranks after every real score)
+BIG = 3.0e38
+_DEF_B = 2048
+#: query rows per step of the plain version (bounds its [rows, depth·B] bins)
+_PLAIN_ROWS = 512
+#: bytes of bins scratch per kernel launch: queries go through in slabs
+_SCRATCH_BYTES = 512 * 1024 * 1024
+#: the extraction kernel holds depth·B bins in 256 threads × 16 registers
+_MAX_BINS = 4096
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def fused_shapes(n: int, k: int, block_db: int = _DEF_B) -> tuple[int, int]:
+    """``(kb, B)`` of a scan: the extracted width ``min(pow2ceil(max(k, 8)),
+    128)`` and the class count ``min(block_db, max(128, pow2ceil(n)))``."""
+    return min(_pow2ceil(max(k, 8)), 128), min(block_db, max(128, _pow2ceil(n)))
+
+
+def slab_rows(B: int, depth: int = 2) -> int:
+    """Queries per kernel launch: as many as keep the bins (8 bytes each,
+    ``depth·B`` a query) within the scratch budget, a multiple of 128
+    (16,384 at ``B`` 2,048, depth 2)."""
+    return max(128, _SCRATCH_BYTES // (depth * B * 8) // 128 * 128)
+
+
+def scan_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one scan block at row width ``d``, as
+    ``csrc/flat_scan.cu`` sizes it: two 32 × 36 x chunks and the 128-query
+    tile, whole (row stride ``dp + 4``) where that fits 208 KiB, else two
+    128 × 36 chunks of it."""
+    dp = -(-d // 4) * 4
+    whole = (2 * 32 * 36 + 128 * (dp + 4)) * 4
+    return whole if whole <= 208 * 1024 else (2 * 32 * 36 + 2 * 128 * 36) * 4
+
+
+def _prepare(q, x, metric, x_sqnorm, n_valid):
+    """``(sn [n] or None, qadd [nq], n_valid)``: the row term of the score
+    (None under cosine: zero) and the per-query term added at extraction."""
+    n = x.shape[0]
+    n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
+    if metric == Dist.EUCLIDEAN:
+        sn = sq_norms(x) if x_sqnorm is None else x_sqnorm.float()
+        return sn.contiguous(), sq_norms(q), n_valid
+    return None, torch.zeros(q.shape[0], device=q.device), n_valid
+
+
+def _finish(cd, ci, k: int, kb: int, metric, n_valid: int):
+    """The clamps after the extraction: ``max(·, 0)`` (euclidean) or
+    ``·0.5 + 1`` (cosine), ids clamped to ``n_valid − 1``, and columns of
+    (inf, 0) past ``kb``."""
+    nq = cd.shape[0]
+    cd = torch.clamp(cd, min=0.0) if metric == Dist.EUCLIDEAN else cd * 0.5 + 1.0
+    kk = min(k, kb)
+    best_d = cd[:, :kk]
+    best_i = torch.clamp(ci[:, :kk].long(), max=max(n_valid - 1, 0))
+    if kk < k:
+        best_d = torch.cat(
+            [best_d, torch.full((nq, k - kk), float("inf"), device=cd.device)], dim=1)
+        best_i = torch.cat(
+            [best_i, torch.zeros((nq, k - kk), dtype=torch.long, device=cd.device)], dim=1)
+    return best_d, best_i
+
+
+def _scan_plain(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16: bool):
+    """The scan and the extraction in tensor operations:
+    ``(cd [nq, kb] f32, ci [nq, kb] int32)`` before the clamps."""
+    nq, n = q.shape[0], x.shape[0]
+    dev = q.device
+    if bf16:
+        q, x = q.to(torch.bfloat16).float(), x.to(torch.bfloat16).float()
+    rows = torch.arange(n, device=dev)
+    sn = torch.zeros(n, device=dev) if sn is None else sn
+    sn = torch.where(rows < n_valid, sn, BIG)
+    out_d = torch.empty((nq, kb), device=dev)
+    out_i = torch.empty((nq, kb), dtype=torch.int32, device=dev)
+    lane = torch.arange(B, device=dev, dtype=torch.int32)
+    for r0 in range(0, nq, _PLAIN_ROWS):
+        qb = q[r0 : r0 + _PLAIN_ROWS]
+        m1 = torch.full((qb.shape[0], B), BIG, device=dev)
+        m2 = m1.clone()
+        i1 = torch.zeros((qb.shape[0], B), dtype=torch.int32, device=dev)
+        i2 = i1.clone()
+        for base in range(0, n, B):
+            w = min(B, n - base)
+            with fp32_matmul():
+                dots = qb @ x[base : base + w].T
+            score = sn[base : base + w] - 2.0 * dots
+            col = (base + lane[:w]).expand_as(score)
+            a1, j1 = m1[:, :w], i1[:, :w]
+            b1 = score < a1
+            spill = torch.where(b1, a1, score)
+            spi = torch.where(b1, j1, col)
+            m1[:, :w] = torch.where(b1, score, a1)
+            i1[:, :w] = torch.where(b1, col, j1)
+            if depth == 2:
+                a2 = m2[:, :w]
+                b2 = spill < a2
+                i2[:, :w] = torch.where(b2, spi, i2[:, :w])
+                m2[:, :w] = torch.where(b2, spill, a2)
+        vals = torch.cat([m1, m2], dim=1) if depth == 2 else m1
+        idx = torch.cat([i1, i2], dim=1) if depth == 2 else i1
+        for t in range(kb):
+            v = vals.min(dim=1, keepdim=True).values
+            hit = vals == v
+            low = torch.where(hit, idx, 2**30).min(dim=1, keepdim=True).values
+            out_d[r0 : r0 + _PLAIN_ROWS, t] = (v + qadd[r0 : r0 + _PLAIN_ROWS, None])[:, 0]
+            out_i[r0 : r0 + _PLAIN_ROWS, t] = low[:, 0]
+            vals = torch.where(hit & (idx == low), BIG, vals)
+    return out_d, out_i
+
+
+def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16: bool):
+    """Launch K2 over slabs of queries; result as :func:`_scan_plain`."""
+    from ._cuda import load_library
+
+    nq, d = q.shape
+    n = x.shape[0]
+    if depth not in (1, 2) or B % 32 or depth * B > _MAX_BINS or not 1 <= kb <= depth * B:
+        raise ValueError(
+            f"flat_topk_fused: unsupported depth={depth}, B={B}, kb={kb} (the "
+            f"kernel takes depth 1 or 2, B a multiple of 32, depth·B ≤ {_MAX_BINS})"
+        )
+    if n >= 2**31 - B:
+        raise ValueError(f"flat_topk_fused: n={n} does not fit int32 columns")
+    dp = -(-d // 4) * 4
+    if dp != d:      # the kernel reads rows in 16-byte vectors
+        q = torch.nn.functional.pad(q, (0, dp - d))
+        x = torch.nn.functional.pad(x, (0, dp - d))
+    q, x = q.contiguous(), x.contiguous()
+    for name, t in (("q", q), ("x", x), ("x_sqnorm", sn), ("qadd", qadd)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"flat_topk_fused: {name} must be 16-byte aligned "
+                             f"float32 on {q.device}")
+    if sn is not None and sn.shape != (n,):
+        raise ValueError(f"flat_topk_fused: x_sqnorm must have shape ({n},)")
+    out_d = torch.empty((nq, kb), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((nq, kb), dtype=torch.int32, device=q.device)
+    width = depth * B
+    slab = slab_rows(B, depth)
+    rows = min(slab, nq)
+    bins_v = torch.empty((rows, width), dtype=torch.float32, device=q.device)
+    bins_i = torch.empty((rows, width), dtype=torch.int32, device=q.device)
+    fn = load_library().annsearch_flat_scan
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for s in range(0, nq, slab):
+        m = min(slab, nq - s)
+        err = fn(
+            q[s : s + m].data_ptr(), x.data_ptr(), 0 if sn is None else sn.data_ptr(),
+            qadd[s : s + m].data_ptr(), bins_v.data_ptr(), bins_i.data_ptr(),
+            out_d[s : s + m].data_ptr(), out_i[s : s + m].data_ptr(),
+            m, n, n_valid, dp, B, depth, kb, int(bf16), stream,
+        )
+        if err:
+            raise RuntimeError(f"flat_topk_fused launch failed: cudaError {err}")
+        flat_topk_fused.launches += 1
+    return out_d, out_i
+
+
+def _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db):
+    q, x = q.float(), x.float()
+    kb, B = fused_shapes(x.shape[0], k, block_db)
+    sn, qadd, n_valid = _prepare(q, x, metric, x_sqnorm, n_valid)
+    cd, ci = scan(q, x, sn, qadd, n_valid, B, depth, kb, passes < 3)
+    return _finish(cd, ci, k, kb, metric, n_valid)
+
+
+def flat_topk_fused_plain(
+    q: torch.Tensor, x: torch.Tensor, k: int, metric: Dist,
+    x_sqnorm: torch.Tensor | None = None, n_valid: int | None = None,
+    passes: int = 1, depth: int = 2, block_db: int = _DEF_B,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, on whatever device the inputs lie.
+    Arguments and result as :func:`flat_topk_fused`."""
+    return _run(_scan_plain, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db)
+
+
+def flat_topk_fused(
+    q: torch.Tensor,                  # [nq, d] f32 (pre-normalised if cosine)
+    x: torch.Tensor,                  # [n, d] f32
+    k: int,
+    metric: Dist,
+    x_sqnorm: torch.Tensor | None = None,
+    n_valid: int | None = None,
+    passes: int = 1,
+    depth: int = 2,
+    block_db: int = _DEF_B,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused flat top-k: ``(dists [nq, k] f32, indices [nq, k] int64)``
+    ascending. Euclidean distances are squared, cosine is ``1 − sim``; rows
+    at or past ``n_valid`` never win. The JAX function's arguments less
+    ``block_q`` (it changes no result) and ``interpret``.
+
+    ``passes`` is the grade of the dots: 3 and 6 are FP32 products with f32
+    sums, 1 rounds both operands to bf16 and sums in f32 (see the module
+    docstring). ``depth`` bins per class, ``block_db`` the most classes.
+    At most ``kb = min(pow2ceil(max(k, 8)), 128)`` ranks are extracted;
+    columns past ``kb`` are (inf, 0), and with fewer than ``kb`` rows the
+    tail is the unfilled bins' (about 3e38, clamped id).
+
+    CUDA tensors launch the kernel (or raise), in slabs of queries whose
+    bins fit 512 MiB of scratch, one count in ``flat_topk_fused.launches``
+    per slab; CPU tensors run the plain version."""
+    scan = _scan_cuda if q.is_cuda else _scan_plain
+    return _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db)
+
+
+#: kernel launches (slabs) since the last reset; plain calls do not count
+flat_topk_fused.launches = 0

@@ -1,10 +1,20 @@
-"""Running top-k over database tiles (port of ``annsearch_tpu.ops.topk``,
-``"exact"`` selector only).
+"""Running top-k over database tiles (port of ``annsearch_tpu.ops.topk``).
 
-Queries stream through in blocks, the database in chunks; each chunk's
-local top-k merges into a running ``[bq, k]`` (distance, index) state, so
-``[nq, n]`` is never materialised. All results are ascending; ties go to
-the lower index, as ``lax.top_k`` breaks them.
+Queries stream through in blocks, the database in chunks, so ``[nq, n]``
+is never materialised. ``blocked_query_topk`` selects by one of
+
+* ``"exact"``: each chunk's local top-k merges into a running ``[bq, k]``
+  (distance, index) state;
+* ``"approx"``: the same scan. The JAX package takes ``lax.approx_min_k``
+  for the per-tile selection there; the port has no approximate per-tile
+  selection and keeps the exact one, as its cluster scan does;
+* ``"bins"``: :func:`chunked_topk_bins`, the running-bins scan in tensor
+  operations (the JAX function reaches no kernel either);
+* ``"fused"``: kernel K2, ``ops.flat_scan_fused.flat_topk_fused`` (the
+  kernel on a CUDA tensor, its plain version on a CPU tensor).
+
+All results are ascending; ties go to the lower index, as ``lax.top_k``
+breaks them. Rows at or past ``n_valid`` never win.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ __all__ = [
     "topk_smallest",
     "merge_topk",
     "chunked_topk",
+    "chunked_topk_bins",
     "blocked_query_topk",
     "DEFAULT_DB_CHUNK",
     "DEFAULT_QUERY_BLOCK",
@@ -46,12 +57,15 @@ def chunked_topk(
     k: int,
     metric: Dist,
     x_sqnorm: torch.Tensor | None = None,
+    n_valid: int | None = None,
     db_chunk: int = DEFAULT_DB_CHUNK,
     precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k nearest rows of ``x`` for one query block; ``(dists [bq, k],
-    indices [bq, k])`` ascending."""
+    indices [bq, k])`` ascending. Rows at or past ``n_valid`` are padding:
+    their distance is +inf."""
     n = x.shape[0]
+    n_valid = n if n_valid is None else n_valid
     if metric == Dist.EUCLIDEAN and x_sqnorm is None:
         x_sqnorm = sq_norms(x)
     bq = q.shape[0]
@@ -61,6 +75,9 @@ def chunked_topk(
         xc = x[base : base + db_chunk]
         xs = None if x_sqnorm is None else x_sqnorm[base : base + db_chunk]
         d = pairwise_dist(q, xc, metric, x_sqnorm=xs, precision=precision)
+        if base + xc.shape[0] > n_valid:
+            col = base + torch.arange(xc.shape[0], device=q.device)
+            d = torch.where(col < n_valid, d, float("inf"))
         # per-chunk selection: torch.topk is far cheaper than a full sort of
         # the chunk; the tie order it leaves matters only for exact ties
         # at the chunk's k-th rank
@@ -70,28 +87,102 @@ def chunked_topk(
     return best_d, best_i
 
 
+def chunked_topk_bins(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    k: int,
+    metric: Dist,
+    x_sqnorm: torch.Tensor | None = None,
+    n_valid: int | None = None,
+    bins: int = 4096,
+    precision: str = "highest",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selection-free running top-k for one query block: the database is
+    scanned in tiles of width ``bins``; column class ``col mod bins`` keeps
+    its best two distances by an elementwise min-update (strict ``<``, so
+    of equal distances the earlier column stays), and one final exact
+    top-k over the ``[bq, 2·bins]`` survivors gives the answer. A true
+    top-k entry is lost only when three or more of the top-k share a
+    class."""
+    n = x.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    if metric == Dist.EUCLIDEAN and x_sqnorm is None:
+        x_sqnorm = sq_norms(x)
+    bins = min(bins, max(128, n))
+    bq, dev, inf = q.shape[0], q.device, float("inf")
+    m1 = torch.full((bq, bins), inf, device=dev)
+    m2 = m1.clone()
+    i1 = torch.zeros((bq, bins), dtype=torch.int64, device=dev)
+    i2 = i1.clone()
+    lane = torch.arange(bins, device=dev)
+    for base in range(0, n, bins):
+        xc = x[base : base + bins]
+        w = xc.shape[0]      # a short last tile: its missing columns never win
+        xs = None if x_sqnorm is None else x_sqnorm[base : base + w]
+        d = pairwise_dist(q, xc, metric, x_sqnorm=xs, precision=precision)
+        col = (base + lane[:w]).expand_as(d)
+        d = torch.where(col < n_valid, d, inf)
+        a1, j1, a2 = m1[:, :w], i1[:, :w], m2[:, :w]
+        b1 = d < a1
+        spill = torch.where(b1, a1, d)          # displaced or non-best value
+        spi = torch.where(b1, j1, col)
+        b2 = spill < a2
+        i2[:, :w] = torch.where(b2, spi, i2[:, :w])
+        m2[:, :w] = torch.where(b2, spill, a2)
+        i1[:, :w] = torch.where(b1, col, j1)
+        m1[:, :w] = torch.where(b1, d, a1)
+    all_d = torch.cat([m1, m2], dim=1)
+    vals, pos = topk_smallest(all_d, min(k, all_d.shape[1]))
+    return vals, torch.gather(torch.cat([i1, i2], dim=1), 1, pos)
+
+
+#: ``selector="fused"`` passes (the grade of K2's dots) by precision
+_FUSED_PASSES = {"highest": 6, "high": 3}
+
+
 def blocked_query_topk(
     q: torch.Tensor,
     x: torch.Tensor,
     k: int,
     metric: Dist,
     x_sqnorm: torch.Tensor | None = None,
+    n_valid: int | None = None,
     query_block: int = DEFAULT_QUERY_BLOCK,
     db_chunk: int = DEFAULT_DB_CHUNK,
     precision: str = "highest",
-    selector: str = "exact",
+    selector: str = "exact",   # "exact" | "approx" | "bins" | "fused"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k for any number of queries, streamed in query blocks."""
-    if selector != "exact":
-        raise NotImplementedError(
-            f"selector={selector!r} is not ported yet: 'fused' needs kernel "
-            "K2 (ROADMAP Queue 2), 'bins' and 'approx' come with it"
+    """Top-k for any number of queries, streamed in query blocks; see the
+    module docstring for the selectors.
+
+    ``selector="fused"`` with ``k > 64`` takes ``"bins"``: the JAX package
+    made that rule because the TPU compiler could not build the kernel's
+    unrolled extraction at ``kb = 128``; the port keeps it, since it fixes
+    which selection a caller gets. Under ``"fused"``, ``precision`` sets
+    the grade of the dots: ``"highest"`` → ``passes=6``, ``"high"`` → 3,
+    anything else → 1 (bf16 operands)."""
+    if selector not in ("exact", "approx", "bins", "fused"):
+        raise ValueError(f"unknown selector {selector!r}")
+    if selector == "fused" and k > 64:
+        selector = "bins"
+    if selector == "fused":
+        from .flat_scan_fused import flat_topk_fused
+
+        return flat_topk_fused(
+            q, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
+            passes=_FUSED_PASSES.get(precision, 1),
         )
-    parts = [
-        chunked_topk(
-            q[s : s + query_block], x, k, metric, x_sqnorm=x_sqnorm,
-            db_chunk=db_chunk, precision=precision,
-        )
-        for s in range(0, q.shape[0], query_block)
-    ]
+    parts = []
+    for s in range(0, q.shape[0], query_block):
+        block = q[s : s + query_block]
+        if selector == "bins":
+            parts.append(chunked_topk_bins(
+                block, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
+                bins=min(db_chunk, 2048), precision=precision,
+            ))
+        else:
+            parts.append(chunked_topk(
+                block, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
+                db_chunk=db_chunk, precision=precision,
+            ))
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

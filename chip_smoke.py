@@ -36,6 +36,17 @@ lists. Phase 8 drives the workload of ``benchmarks/bench_ivfpq_1m.py``
 (1M × 128d, m = 64, nlist 1024, 10k queries, k 10, nprobe 8 / 16 / 32) and
 the facade's default m = 16 at nprobe 16: mode ``pq_residual`` through the
 cluster scan, with build seconds, ms per batch, recall@10 and index bytes.
+Phase 2e holds K2 (the fused flat top-k) against its plain version at nq
+4,096 / 4,097, n 200,000 / 200,001, d 32, 100 and 128, kb 8, 16 and 64,
+both metrics, ``passes`` 1 and 6, depth 1 and 2: bit for bit on grid inputs,
+by tolerance on Gaussian inputs. Phase 9 builds the kNN graph of
+``benchmarks/bench_knn_graph.py`` (1M × 32d lowrank, k 15) through
+``NNDescentIndex`` (K2), twice more to compare, with recall@15 on 8,192
+sampled rows against the exact selector, and reads the same scan through
+``"exact"`` and ``"bins"`` on a slice of rows. Phase 9b runs the flat index
+of ``benchmarks/bench_config1_exhaustive.py`` (100k × 128d, k 10 self-query)
+through the three selectors. Phase 10 queries phase 9's index with 10,000
+queries: the exact fallback, then the beam search at beam 32 and 64.
 
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
@@ -48,6 +59,7 @@ refuses to run without one.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,6 +90,15 @@ PQ_RECALL_FLOOR = {64: 0.80, 16: 0.24}
 #: recall@10 of IvfSq8Index at nprobe 16 that docs/benchmarks_tpu.md states
 #: for the JAX package (TPU, its own data generator): printed, not asserted
 JAX_SQ8_RECALL = 0.8437
+
+# phase 9 / 10: benchmarks/bench_knn_graph.py; phase 9b: bench_config1_exhaustive.py
+G_N, G_D, G_K, G_SAMPLE, G_NQ = 1_000_000, 32, 15, 8_192, 10_000
+G_EXACT_ROWS, G_BINS_ROWS = 65_536, 16_384
+F_N, F_D, F_K = 100_000, 128, 10
+#: phase 9: depth 2 at B 2,048 loses about C(16, 3) / 2048² of the queries
+GRAPH_RECALL_MIN = 0.998
+#: phase 10: bring-up floor of the beam search's recall@15 at the default beam
+BEAM_RECALL_MIN = 0.90
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory, fp32 on the
 #: CUDA cores, bf16 on the tensor cores
@@ -1101,6 +1122,267 @@ def phase_pq_residual(dev, x, q, ti, m128_recall) -> None:
         raise AssertionError(f"recall@10 under its floor {PQ_RECALL_FLOOR}")
 
 
+# -- phases 2e, 9, 9b, 10: K2, the kNN graph, the flat index, graph queries ----
+
+
+def _k2_agree(name, k_out, p_out, grid) -> float:
+    """K2 vs plain: bit for bit on grid inputs; else distances within
+    1e-4·(1 + |d|) where finite (the FFMA loop and the matmul sum in
+    different orders), the same slots finite, ≥ 99.9% of ids. Returns the
+    largest distance error."""
+    torch.cuda.synchronize()
+    (kd, ki), (pd, pi) = k_out, p_out
+    finite = torch.isfinite(pd)
+    same_finite = bool(torch.equal(torch.isfinite(kd), finite))
+    err = (kd - pd)[finite].abs().max().item() if finite.any() else 0.0
+    id_agree = (ki == pi).float().mean().item()
+    if grid:
+        ok = bool(torch.equal(kd, pd) and torch.equal(ki, pi))
+    else:
+        ok = (same_finite and id_agree >= 0.999 and bool(
+            ((kd - pd).abs()[finite] <= 1e-4 * (1.0 + pd.abs()[finite])).all()))
+    print(f"  {name}: max |d| err {err:.3e}, ids agree {id_agree:.6f}"
+          f"{', bit for bit' if grid and ok else ''}", flush=True)
+    if not ok:
+        raise AssertionError(
+            f"{name} disagrees with its plain version ("
+            + ("bit for bit on grid inputs" if grid
+               else "1e-4·(1+|d|) on distances, ≥ 99.9% of ids") + ")")
+    return err
+
+
+def _k2_bound(nq, n, d, kb, bf16=False) -> tuple[float, str]:
+    """Least time of one flat scan: nq·n·d multiply-adds at the fp32 peak
+    of the CUDA cores (``passes=1`` rounds to bf16: the bf16 tensor-core
+    peak), and q, x, the row norms read once and the [nq, kb] outputs
+    written once at the memory rate."""
+    peak = BF16_FLOP_S if bf16 else FP32_FLOP_S
+    t_ops = 2.0 * nq * n * d / peak * 1e3
+    nbytes = (nq * d + n * d + n + nq) * 4 + nq * kb * 8
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_flat_kernel(dev) -> None:
+    """Phase 2e: K2 against its plain version, with times and bounds."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    # (nq, n, n_valid, d, k, cosine, passes, depth)
+    cases = [
+        (4096, 200_000, None, 32, 15, False, 6, 2),
+        (4097, 200_001, 199_990, 32, 15, False, 6, 2),
+        (4096, 200_000, None, 32, 15, True, 6, 2),
+        (4096, 200_000, None, 32, 15, False, 1, 2),
+        (4096, 200_000, None, 32, 15, False, 6, 1),
+        (4097, 200_001, 199_990, 100, 8, True, 1, 1),
+        (4096, 200_000, None, 100, 15, False, 6, 2),
+        (4096, 200_000, None, 128, 60, False, 6, 2),
+        (4097, 200_000, 150_000, 128, 8, True, 6, 2),
+    ]
+    for d in (32, 100, 128):
+        print(f"  scan block at d {d}: {ff.scan_smem_bytes(d):,} bytes of dynamic shared "
+              "memory", flush=True)
+    for nq, n, n_valid, d, k, cosine, passes, depth in cases:
+        metric = Dist.COSINE if cosine else Dist.EUCLIDEAN
+        kw = dict(n_valid=n_valid, passes=passes, depth=depth)
+        kb, B = ff.fused_shapes(n, k)
+        name = (f"K2 {metric.value} nq {nq} n {n} n_valid {n_valid} d {d} kb {kb} "
+                f"passes {passes} depth {depth}")
+        for grid in (True, False):
+            if grid:    # multiples of 1/8: exact in f32, and in bf16
+                q = torch.randint(-16, 17, (nq, d), generator=gen, device=dev).float() / 8
+                x = torch.randint(-16, 17, (n, d), generator=gen, device=dev).float() / 8
+            else:
+                q = torch.randn(nq, d, generator=gen, device=dev)
+                x = torch.randn(n, d, generator=gen, device=dev)
+                if cosine:
+                    q, x = q / q.norm(dim=1, keepdim=True), x / x.norm(dim=1, keepdim=True)
+            _k2_agree(name + (" grid" if grid else " Gaussian"),
+                      ff.flat_topk_fused(q, x, k, metric, **kw),
+                      ff.flat_topk_fused_plain(q, x, k, metric, **kw), grid)
+        ms = _cuda_ms(lambda: ff.flat_topk_fused(q, x, k, metric, **kw), reps=5)
+        pms = _cuda_ms(lambda: ff.flat_topk_fused_plain(q, x, k, metric, **kw), reps=3)
+        bound, by = _k2_bound(nq, n if n_valid is None else n_valid, d, kb, passes < 3)
+        print(f"    kernel {ms:.3f} ms ({2.0 * nq * n * d / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{pms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+
+
+def _k2_entry(name, q, x, sn, k, metric, launches) -> dict:
+    """K2's JSON entry on one launch of its path: the path's database ``x``
+    and ``q``, the first slab of its queries, against the plain version."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+
+    kw = dict(x_sqnorm=sn, passes=6)
+    kb, _ = ff.fused_shapes(x.shape[0], k)
+    err = _k2_agree(f"{name} on its path's x and {q.shape[0]} of its queries",
+                    ff.flat_topk_fused(q, x, k, metric, **kw),
+                    ff.flat_topk_fused_plain(q, x, k, metric, **kw), False)
+    ms = _cuda_ms(lambda: ff.flat_topk_fused(q, x, k, metric, **kw), reps=5)
+    plain_ms = _cuda_ms(lambda: ff.flat_topk_fused_plain(q, x, k, metric, **kw), reps=1)
+    bound_ms, bound_by = _k2_bound(q.shape[0], x.shape[0], x.shape[1], kb)
+    print(f"  {name} (nq {q.shape[0]}, n {x.shape[0]}, d {x.shape[1]}, kb {kb}): kernel "
+          f"{ms:.3f} ms = {2.0 * q.shape[0] * x.shape[0] * x.shape[1] / ms / 1e9:.2f} "
+          f"TFLOP/s, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "annsearch_tpu_torch/csrc/flat_scan.cu",
+            "replaces": "annsearch_tpu/ops/flat_scan_pallas.py:66",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_knn_graph(dev):
+    """Phase 9: the exact kNN graph of 1M × 32d lowrank rows, k 15."""
+    from annsearch_tpu_torch.models.graph import NNDescentIndex
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.utils.data import generate_data
+    from annsearch_tpu_torch.utils.dist import Dist
+    from annsearch_tpu_torch.utils.metrics import calculate_recall
+
+    t0 = time.time()
+    x_np, _ = generate_data("lowrank", G_N, G_D, 12, seed=42, intrinsic_dim=16)
+    x = torch.as_tensor(x_np, device=dev)
+    print(f"  data {G_N}x{G_D} lowrank in {time.time() - t0:.1f} s", flush=True)
+
+    def build():
+        return NNDescentIndex(x, k=G_K, build_k=G_K, seed=SEED, device=dev)
+
+    ff.flat_topk_fused.launches = 0
+    first = build()
+    torch.cuda.synchronize()
+    launches = ff.flat_topk_fused.launches
+    times = []
+    for _ in range(3):
+        index = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = build()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    same = (torch.equal(first.knn_ids, index.knn_ids)
+            and torch.equal(first.knn_dists, index.knn_dists))
+    del first
+    sn = index.sqnorms[:G_N]
+    xs = index.vectors[:G_N]
+    kk = G_K + 1
+    k2_ms = _cuda_ms(lambda: blocked_query_topk(
+        xs, xs, kk, Dist.EUCLIDEAN, x_sqnorm=sn, selector="fused"), reps=1)
+    print(f"  build {np.median(times):.3f} s warm (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in times)}), K2 inside it {k2_ms:.1f} ms in "
+          f"{launches} launches = {2.0 * G_N * G_N * G_D / k2_ms / 1e9:.2f} TFLOP/s; two "
+          f"builds agree: {same}", flush=True)
+    if not same:
+        raise AssertionError("two NNDescentIndex builds differ")
+    if launches == 0:
+        raise AssertionError("the graph build never launched K2")
+
+    ids, d = index.knn_ids.long(), index.knn_dists
+    if ids.shape != (G_N, G_K) or not torch.isfinite(d).all() or (d.diff(dim=1) < 0).any():
+        raise AssertionError("graph rows not finite and ascending")
+    if ids.min() < 0 or ids.max() >= G_N or (ids == torch.arange(G_N, device=dev)[:, None]).any():
+        raise AssertionError("graph ids out of range, or a self id")
+    rows = torch.as_tensor(np.random.default_rng(0).choice(G_N, G_SAMPLE, replace=False),
+                           device=dev)
+    te, ie = blocked_query_topk(xs[rows], xs, kk, Dist.EUCLIDEAN, x_sqnorm=sn)
+    te = torch.where(ie == rows[:, None], float("inf"), te)      # self excluded
+    truth = torch.gather(ie, 1, torch.sort(te, dim=1, stable=True).indices[:, :G_K])
+    recall = calculate_recall(truth, ids[rows], G_K)
+    print(f"  recall@{G_K} on {G_SAMPLE} sampled rows against the exact selector: "
+          f"{recall:.6f} (floor {GRAPH_RECALL_MIN})", flush=True)
+    if recall < GRAPH_RECALL_MIN:
+        raise AssertionError(f"graph recall@{G_K} {recall:.6f} < {GRAPH_RECALL_MIN}")
+
+    # the same scan through the other selectors, on a slice of the rows
+    for sel, nrows in (("exact", G_EXACT_ROWS), ("bins", G_BINS_ROWS)):
+        ms, _ = _wall_ms(lambda: blocked_query_topk(
+            xs[:nrows], xs, kk, Dist.EUCLIDEAN, x_sqnorm=sn, selector=sel), reps=1)
+        print(f"  selector {sel!r} on the first {nrows} rows: {ms:.1f} ms, that is "
+              f"{ms * G_N / nrows / 1e3:.1f} s per 1M rows (K2: {k2_ms / 1e3:.2f} s)",
+              flush=True)
+    slab = ff.slab_rows(ff.fused_shapes(G_N, kk)[1])
+    entry = _k2_entry("flat_topk_fused", xs[:slab], xs, sn, kk, Dist.EUCLIDEAN, launches)
+    return entry, index, x_np
+
+
+def phase_flat_index(dev) -> dict:
+    """Phase 9b: the flat index's self-query, 100k × 128d, k 10."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.data import generate_clustered_data
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    x_np, _ = generate_clustered_data(F_N, F_D, 25, seed=42)
+    index = at.build_exhaustive_index(torch.as_tensor(x_np, device=dev), device=dev)
+    out, launches = {}, 0
+    for sel in ("exact", "bins", "fused"):
+        ff.flat_topk_fused.launches = 0
+        ms, (ids, d) = _wall_ms(lambda: index.generate_knn(F_K, selector=sel), reps=3)
+        if sel == "fused":
+            launches = ff.flat_topk_fused.launches // 4     # a warm-up and 3 timed
+        out[sel] = ids
+        self_first = (ids[:, 0] == torch.arange(F_N, device=dev)).float().mean().item()
+        print(f"  selector {sel!r}: {ms:.1f} ms (median of 3) = {F_N / ms * 1e3:.0f} rows/s; "
+              f"row i finds i first on {self_first:.6f}, its distance ≤ {d[:, 0].max():.3e}; "
+              f"recall@{F_K} vs 'exact' {at.calculate_recall(out['exact'], ids, F_K):.6f}",
+              flush=True)
+        # ‖x‖² is about 8,000 here: the identity leaves a few ulps of it at 0
+        if self_first < 0.999 or d[:, 0].max() > 0.05 or not torch.isfinite(d).all():
+            raise AssertionError(f"selector {sel!r}: rows do not find themselves at about 0")
+        if at.calculate_recall(out["exact"], ids, F_K) < 0.999:
+            raise AssertionError(f"selector {sel!r}: recall@{F_K} vs 'exact' < 0.999")
+    if launches == 0:
+        raise AssertionError("selector 'fused' never launched K2")
+    slab = ff.slab_rows(ff.fused_shapes(F_N, F_K)[1])
+    return _k2_entry("flat_topk_fused (100k x 128d)", index.vectors[:slab], index.vectors,
+                     index.sqnorms, F_K, Dist.EUCLIDEAN, launches)
+
+
+def phase_graph_queries(dev, index, x_np) -> None:
+    """Phase 10: 10,000 queries on phase 9's index, k 15."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.utils.data import subsample_with_noise
+
+    os.environ.pop("ANNSEARCH_NO_EXACT_FALLBACK", None)
+    q = torch.as_tensor(subsample_with_noise(x_np, G_NQ, seed=SEED), device=dev)
+    truth, _ = at.build_exhaustive_index(index.vectors[:G_N], device=dev).query(q, G_K)
+
+    def check(name, ids, d):
+        if ids.shape != (G_NQ, G_K) or ids.min() < 0 or ids.max() >= G_N:
+            raise AssertionError(f"{name}: bad ids")
+        if not torch.isfinite(d).all() or (d.diff(dim=1) < 0).any():
+            raise AssertionError(f"{name}: distances not finite and ascending")
+        return at.calculate_recall(truth, ids, G_K)
+
+    ms, (ids, d) = _wall_ms(lambda: index.query(q, G_K))
+    r_fb = check("exact fallback", ids, d)
+    print(f"  default call (the exact fallback): {ms:.1f} ms (median of 3) = "
+          f"{G_NQ / ms * 1e3:.0f} QPS, recall@{G_K} {r_fb:.6f}; nav graph built: "
+          f"{index.nav_graph is not None}", flush=True)
+    if r_fb < 0.9999 or index.nav_graph is not None:
+        raise AssertionError("the default call did not take the exact fallback")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index._ensure_nav()
+    torch.cuda.synchronize()
+    print(f"  nav graph (prune to {index.out_deg}, reverse edges, routers) in "
+          f"{time.perf_counter() - t0:.2f} s: degree {index.nav_graph.shape[1]}, "
+          f"{index.router_ids.shape[0]} routers", flush=True)
+    recalls = {}
+    for beam in (None, 64):
+        ms, (ids, d) = _wall_ms(lambda: index.query(q, G_K, beam=beam, exact_fallback=False))
+        recalls[beam] = check(f"beam {beam}", ids, d)
+        print(f"  beam search, beam {beam or max(32, 2 * G_K)}: {ms:.1f} ms (median of 3) = "
+              f"{G_NQ / ms * 1e3:.0f} QPS, recall@{G_K} {recalls[beam]:.6f}", flush=True)
+    if recalls[None] < BEAM_RECALL_MIN:
+        raise AssertionError(f"beam search recall@{G_K} {recalls[None]:.4f} < {BEAM_RECALL_MIN}")
+    if recalls[64] <= recalls[None]:
+        raise AssertionError("beam 64 does not beat the default beam")
+
+
 def phase_kmeans_sums(dev) -> None:
     """One Lloyd iteration's cluster sums at 250k × 128 rows, k 1024: the
     fixed-order sum against ``index_add_`` (float atomics), beside the
@@ -1150,9 +1432,8 @@ def main() -> int:
     t0 = time.time()
     _cuda.load_library()
     print(f"  kernels built/loaded in {time.time() - t0:.1f} s", flush=True)
-    for line in _cuda.build_log().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for kernel, used in _cuda.kernel_resources():
+        print(f"  ptxas: {kernel}: {used}", flush=True)
 
     phase("2: K1a against its plain version")
     phase_kernels(dev)
@@ -1162,6 +1443,17 @@ def main() -> int:
     phase_dense_kernels(dev, ("bf16", "sq8"), (128, 256), SEED + 1)
     phase("2d: K1b-l2, K1b-cos and K1d-i8dec against their plain version")
     phase_i8dec_kernels(dev)
+
+    phase("2e: K2 against its plain version")
+    phase_flat_kernel(dev)
+
+    phase("9: the kNN graph, 1M x 32d lowrank, k 15 (NNDescentIndex, K2)")
+    k2, graph_index, graph_x = phase_knn_graph(dev)
+    phase("10: 10,000 queries on the graph index: exact fallback and beam search")
+    phase_graph_queries(dev, graph_index, graph_x)
+    del graph_index, graph_x
+    phase("9b: the flat index, 100k x 128d self-query, k 10, three selectors")
+    k2_flat = phase_flat_index(dev)
 
     phase("3: IVF-PQ 1M x 128d, nprobe 16")
     t0 = time.time()
@@ -1209,7 +1501,7 @@ def main() -> int:
           f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1a, exact, fold, *quant, *i8dec]}), flush=True)
+    print(json.dumps({"kernels": [k1a, exact, fold, *quant, *i8dec, k2, k2_flat]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1a, K1b-l2, K1b-cos, K1d-i8dec, K1c-f32,
-K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8) against their plain PyTorch
-versions, on the card, and the IVF paths on the card against the CPU.
+K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8 and K2) against their plain
+PyTorch versions, on the card, and the IVF and graph paths on the card
+against the CPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present. On a
 machine with a card and without JAX, run them with
@@ -470,3 +471,107 @@ def test_pq_residual_on_the_card_matches_the_cpu(dev, tmp_path, kind, m, metric)
     r_own = at.calculate_recall(ti, own.query(q, 10, nprobe=6)[0], 10)
     r_cpu = at.calculate_recall(ti, gi, 10)
     assert abs(r_own - r_cpu) <= 0.05, (r_own, r_cpu)
+
+
+# -- K2, the fused flat top-k ---------------------------------------------------
+
+
+def _flat_inputs(gen, dev, nq, n, d, grid, cosine):
+    if grid:     # multiples of 1/8: every product and sum exact in f32 and bf16
+        q = torch.randint(-16, 17, (nq, d), generator=gen, device=dev).float() / 8
+        x = torch.randint(-16, 17, (n, d), generator=gen, device=dev).float() / 8
+        return q, x
+    q = torch.randn(nq, d, generator=gen, device=dev)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    if cosine:
+        q, x = q / q.norm(dim=1, keepdim=True), x / x.norm(dim=1, keepdim=True)
+    return q, x
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("nq,n,d,k,cosine,passes,depth,n_valid,block_db", [
+    (50, 700, 32, 10, False, 6, 2, None, 128),      # the JAX test's shapes
+    (50, 700, 32, 10, True, 3, 2, None, 128),
+    (50, 700, 32, 10, False, 1, 1, None, 128),
+    (10, 150, 32, 5, False, 3, 2, 100, 128),        # n_valid short of n
+    (4, 40, 32, 20, False, 3, 2, None, 128),        # k past the rows, n < 128
+    (300, 5000, 100, 10, True, 1, 1, 4500, 2048),   # d no multiple of 32
+    (129, 3001, 30, 8, False, 6, 2, None, 2048),    # d no multiple of 4: padded
+    (1000, 50000, 128, 60, True, 6, 2, None, 2048), # kb 64
+    (200, 20000, 512, 8, False, 6, 2, None, 2048),  # the query tile streamed
+    (4097, 200001, 32, 15, False, 6, 2, 199990, 2048),
+])
+def test_k2_matches_plain(dev, grid, nq, n, d, k, cosine, passes, depth, n_valid, block_db):
+    """K2 against its plain version: bit for bit on grid inputs; on Gaussian
+    inputs distances within 1e-4·(1 + |d|) (the FFMA loop and the matmul sum
+    in different orders) and ≥ 99.9% of ids (near-ties may swap)."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(n + d)
+    q, x = _flat_inputs(gen, dev, nq, n, d, grid, cosine)
+    metric = Dist.COSINE if cosine else Dist.EUCLIDEAN
+    kw = dict(n_valid=n_valid, passes=passes, depth=depth, block_db=block_db)
+    before = ff.flat_topk_fused.launches
+    kd, ki = ff.flat_topk_fused(q, x, k, metric, **kw)
+    assert ff.flat_topk_fused.launches == before + 1
+    pd, pi = ff.flat_topk_fused_plain(q, x, k, metric, **kw)
+    torch.cuda.synchronize()
+    if grid:
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    else:
+        finite = torch.isfinite(pd)
+        assert torch.equal(torch.isfinite(kd), finite)
+        assert torch.all((kd - pd).abs()[finite] <= 1e-4 * (1.0 + pd.abs()[finite]))
+        assert (ki == pi).float().mean().item() >= 0.999
+    if n_valid is not None:
+        assert ki.max() < n_valid
+
+
+def test_k2_slabs_and_refusals(dev):
+    """More queries than one slab of bins scratch: one launch per slab, the
+    same result as query by query; shapes the kernel does not take raise."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, x = _flat_inputs(gen, dev, 20000, 3000, 16, True, False)
+    slab = ff.slab_rows(2048)
+    before = ff.flat_topk_fused.launches
+    kd, ki = ff.flat_topk_fused(q, x, 8, Dist.EUCLIDEAN, passes=6)
+    assert ff.flat_topk_fused.launches == before + -(-20000 // slab)
+    pd, pi = ff.flat_topk_fused(q[slab - 3 : slab + 5], x, 8, Dist.EUCLIDEAN, passes=6)
+    assert torch.equal(kd[slab - 3 : slab + 5], pd) and torch.equal(ki[slab - 3 : slab + 5], pi)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ff.flat_topk_fused(q[:4], x, 8, Dist.EUCLIDEAN, block_db=1000)
+    with pytest.raises(ValueError, match="4096"):
+        ff.flat_topk_fused(q[:4], torch.zeros((9000, 16), device=dev), 8, Dist.EUCLIDEAN,
+                           block_db=4096)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_nndescent_on_the_card_matches_the_cpu(dev, metric):
+    """The exact graph build (K2) and both query paths on the card against
+    the CPU's (K2's plain version) on one data set."""
+    from annsearch_tpu_torch.models.graph import NNDescentIndex
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 32, 12, seed=6)
+    q = subsample_with_noise(x, 400, seed=6) * np.float32(0.125)
+    x = x * np.float32(0.125)
+    before = ff.flat_topk_fused.launches
+    gpu = NNDescentIndex(x, metric, k=10, seed=2, device=dev)
+    assert ff.flat_topk_fused.launches > before
+    cpu = NNDescentIndex(x, metric, k=10, seed=2, device="cpu")
+    assert (gpu.knn_ids.cpu() == cpu.knn_ids).float().mean().item() >= 0.999
+    same = gpu.knn_ids.cpu() == cpu.knn_ids
+    assert torch.all((gpu.knn_dists.cpu() - cpu.knn_dists).abs()[same] <= 1e-4)
+    gi, gd = gpu.query(q, 10, exact_fallback=False)
+    ci, cd = cpu.query(q, 10, exact_fallback=False)
+    assert torch.equal(gpu.router_ids.cpu(), cpu.router_ids)
+    assert (gpu.nav_graph.cpu() == cpu.nav_graph).float().mean().item() >= 0.99
+    assert (gi.cpu() == ci).float().mean().item() >= 0.98
+    fi, _ = gpu.query(q, 10, exact_fallback=True)
+    ei, _ = cpu.query(q, 10, exact_fallback=True)
+    assert (fi.cpu() == ei).float().mean().item() >= 0.999

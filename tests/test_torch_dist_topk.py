@@ -141,11 +141,16 @@ def test_blocked_query_topk_matches_jax(xq, metric, db_chunk, query_block):
 
 
 def test_blocked_query_topk_other_selectors_raise(xq):
+    """The selectors that raised before kernel K2 was ported answer now,
+    with the exact selector's neighbours; only an unknown name raises."""
     x, q = xq
+    tq, tx = torch.as_tensor(q), torch.as_tensor(x)
+    ref = blocked_query_topk(tq, tx, 5, tdist.Dist.EUCLIDEAN)[1]
     for sel in ("fused", "bins", "approx"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocked_query_topk(torch.as_tensor(q), torch.as_tensor(x), 5,
-                               tdist.Dist.EUCLIDEAN, selector=sel)
+        ids = blocked_query_topk(tq, tx, 5, tdist.Dist.EUCLIDEAN, selector=sel)[1]
+        assert calculate_recall(ref, ids, 5) >= 0.99
+    with pytest.raises(ValueError, match="selector"):
+        blocked_query_topk(tq, tx, 5, tdist.Dist.EUCLIDEAN, selector="heap")
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])

@@ -35,7 +35,25 @@ def _imported_roots(tree: ast.AST) -> set[str]:
 def test_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
     assert {"__init__.py", "lib.py", "interop.py",
-            "ops/ivf_scan_fused.py", "models/ivf_base.py"} <= names
+            "ops/ivf_scan_fused.py", "models/ivf_base.py",
+            "ops/flat_scan_fused.py", "ops/graph.py", "models/graph.py"} <= names
+
+
+def test_every_kernel_source_has_a_loader_entry():
+    """Each ``csrc/*.cu`` exports the C entry points that ``ops/_cuda.py``
+    binds, and no more: a kernel cannot be added without its signature."""
+    import re
+
+    from annsearch_tpu_torch.ops import _cuda
+
+    sources = {p.name for p in _cuda.SOURCE_DIR.glob("*.cu")}
+    assert sources == {"ivf_scan.cu", "flat_scan.cu"}
+    exported = set()
+    for p in _cuda.SOURCE_DIR.glob("*.cu"):
+        exported |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
+    assert exported == set(_cuda._SIGNATURES)
+    assert "annsearch_flat_scan" in exported
+    assert (_cuda.SOURCE_DIR / "lex_min.cuh").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(PKG).as_posix())
