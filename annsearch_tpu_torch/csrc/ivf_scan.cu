@@ -1,4 +1,4 @@
-// IVF cell scan: one kernel template, ten variants of the Pallas kernel
+// IVF cell scan: one kernel template, every variant of the Pallas kernel
 // annsearch_tpu/ops/ivf_scan_pallas.py (_scan_kernel / _scan_body, launched
 // by _fused_cell_scan):
 //
@@ -19,7 +19,14 @@
 //             (IvfIndexBf16, the default tier);
 //   K1d-sq8   int8 cells and int8 query codes (carried as integer-valued
 //             f32), l2 or cos_qnorm, fold (IvfSq8Index, approx);
-//   K1c-sq8   the same, exact selection (IvfSq8Index, the default tier).
+//   K1c-sq8   the same, exact selection (IvfSq8Index, the default tier);
+//   K1-fold1  any fold variant above with fold depth 1 (one survivor per
+//             stride class: 128, not 256), _scan_body's fold_depth=1;
+//   K1-exact-i8  the int8-decode prologues (K1a, K1b, K1d-i8dec) with the
+//             exact selection, _scan_body's selection="exact" over int8
+//             decode cells;
+//   wide rows every variant at a padded d above kDMax (4,096): the query
+//             term is staged in column blocks beside the cells' (below).
 //
 // What it computes, for task row r (segment s = task_seg[r], n = cnt[r]
 // valid rows) and each query slot j < maxq (query id qid = lists[r, j]):
@@ -50,11 +57,12 @@
 //           quotients are IEEE-rounded (__fsqrt_rn, __fdiv_rn), not the
 //           approximate rsqrtf, so the plain PyTorch version gives the
 //           same bits.
-//   fold:  stride class t = l mod 128 keeps its best and runner-up over the
-//          chunks c = 0 .. seg/128-1 in order, updated with a strict <; then
-//          kb rounds of the lexicographic minimum (value, lane) over the 256
-//          survivors, each round setting the entries equal to the winner to
-//          3e38 (so short rows surface their 3e38 lanes in a fixed order)
+//   fold:  stride class t = l mod 128 keeps its best and runner-up (depth
+//          2) or its best alone (depth 1) over the chunks c = 0 .. seg/128-1
+//          in order, updated with a strict <; then kb rounds of the
+//          lexicographic minimum (value, lane) over the 256 (128) survivors,
+//          each round setting the entries equal to the winner to 3e38 (so
+//          short rows surface their 3e38 lanes in a fixed order)
 //   exact: the kb lexicographically smallest (value, lane) pairs over the
 //          valid lanes, then (3e38, 0) in every slot past n: the Pallas
 //          extraction sets each emitted lane to 3e38 and so finds lane 0 in
@@ -80,8 +88,15 @@
 // distance tile never leaves the SM. Chunks wholly past the row's valid
 // rows are skipped (their lanes are 3e38 and change no selection state).
 // The row stride in shared memory is padded by 4 floats, so the 128-bit
-// loads of a quarter-warp fall in distinct banks.
-//   fold:  each thread holds the (best, runner-up) of its 4 stride classes.
+// loads of a quarter-warp fall in distinct banks. Each warp's query term
+// sits in shared memory whole up to a padded d of kDMax (8 x 4,096 floats
+// beside the staged cells); above it (kWide) the warp writes its query
+// term's current 128 columns anew beside each staged column block, from
+// the same per-element prologue, and qadd is summed once over all
+// columns, so a wide row's partial dots add up over the blocks in column
+// order before the epilogue, as a narrow row's do.
+//   fold:  each thread holds the (best, runner-up) of its 4 stride classes
+//          (the best alone at depth 1).
 //   exact: the warp holds a sorted top-kb list (slot t in thread t mod 32,
 //          register t / 32). A chunk whose lanes all rank after the list's
 //          kb-th entry (a warp ballot) costs nothing more; otherwise the
@@ -103,6 +118,7 @@ namespace {
 constexpr int kLanes = 128;   // chunk width: stride classes per query
 constexpr int kCols = 128;    // columns staged at a time
 constexpr int kWarps = 8;     // query slots per block
+constexpr int kDMax = 4096;   // widest padded row whose query term is held whole
 constexpr int kThreads = kWarps * 32;
 constexpr float kBig = 3.0e38f;
 constexpr float kEmpty = 3.4028234663852886e38f;  // FLT_MAX: an empty exact slot
@@ -112,6 +128,8 @@ enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2, kCosRenorm = 3 };
 // rounded to bf16, the scaled query (K1d-i8dec), or the scaled query with
 // qadd = q . centroid (K1b-cos)
 enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2, kScaled = 3, kScaledCent = 4 };
+// the selection: exact, or the fold at depth 1 or 2 (the C entries' `sel`)
+enum Selection { kExactSel = 0, kFold1 = 1, kFold2 = 2 };
 
 // the scaled query value as the scan scores it: one bf16 term, or the exact
 // f32 sum of the two bf16 terms of the mantissa split (see the file header)
@@ -123,6 +141,33 @@ __device__ __forceinline__ float query_term(float v) {
     const float hi = __uint_as_float((__float_as_uint(v) + 0x8000u) & 0xFFFF0000u);
     const float lo = __bfloat162float(__float2bfloat16_rn(__fsub_rn(v, hi)));
     return __fadd_rn(hi, lo);
+  }
+}
+
+// column c of a query slot's term as the scan scores it (0 past d), and its
+// share of qadd added to `qadd`; `cent` is the segment's centroid row
+template <int kPro, int kEpi, bool kSplit>
+__device__ __forceinline__ float query_value(const float* qrow, const float* cent,
+                                             const float* scales, int c, int d,
+                                             float& qadd) {
+  if (c >= d) return 0.f;
+  if constexpr (kPro == kResidual) {
+    const float qr = __fsub_rn(qrow[c], cent[c]);
+    qadd = __fadd_rn(qadd, __fmul_rn(qr, qr));
+    return query_term<kSplit>(__fmul_rn(qr, scales[c]));
+  } else if constexpr (kPro == kScaled || kPro == kScaledCent) {
+    const float qv = qrow[c];
+    if constexpr (kPro == kScaledCent) {
+      qadd = __fadd_rn(qadd, __fmul_rn(qv, cent[c]));
+    } else if constexpr (kEpi == kL2) {
+      qadd = __fadd_rn(qadd, __fmul_rn(qv, qv));
+    }
+    return query_term<kSplit>(__fmul_rn(qv, scales[c]));
+  } else {
+    const float v = qrow[c];
+    if constexpr (kEpi != kCosPlain) qadd = __fadd_rn(qadd, __fmul_rn(v, v));
+    if constexpr (kPro == kBf16Query) return __bfloat162float(__float2bfloat16_rn(v));
+    return v;
   }
 }
 
@@ -173,7 +218,7 @@ __device__ __forceinline__ void stage_chunk(const float* src, float* cell_s,
   }
 }
 
-template <typename CellT, int kPro, int kEpi, bool kExact, bool kSplit>
+template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 ivf_scan_kernel(const int* __restrict__ lists,
                 const int* __restrict__ task_seg,
@@ -185,13 +230,15 @@ ivf_scan_kernel(const int* __restrict__ lists,
                 const float* __restrict__ sn,
                 float* __restrict__ out_d, int* __restrict__ out_i,
                 int maxq, int seg, int d, int dp, int kb) {
+  constexpr bool kExact = kSel == kExactSel;
   extern __shared__ __align__(16) float smem[];
   const int cols = min(dp, kCols);
   const int stride = cols + 4;
   float* cell_s = smem;                            // [kLanes][cols + 4]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* qk = smem + kLanes * stride + warp * dp;  // this warp's [dp]
+  // this warp's query term: [dp], or its current column block [kCols]
+  float* qk = smem + kLanes * stride + warp * (kWide ? kCols : dp);
 
   const int r = blockIdx.x;
   const int j = blockIdx.y * kWarps + warp;
@@ -212,31 +259,14 @@ ivf_scan_kernel(const int* __restrict__ lists,
 
   // prologue: this warp's query term and qadd
   float qadd = 0.f;
+  const float* qrow = nullptr;
+  const float* cent = nullptr;
+  if constexpr (kPro == kResidual || kPro == kScaledCent) cent = cents + (size_t)s * d;
   if (active) {
-    const int qid = lists[(size_t)r * maxq + j];
-    const float* qrow = queries + (size_t)qid * d;
+    qrow = queries + (size_t)lists[(size_t)r * maxq + j] * d;
     for (int c = lane; c < dp; c += 32) {
-      float v = 0.f;
-      if (c < d) {
-        if constexpr (kPro == kResidual) {
-          const float qr = __fsub_rn(qrow[c], cents[(size_t)s * d + c]);
-          qadd = __fadd_rn(qadd, __fmul_rn(qr, qr));
-          v = query_term<kSplit>(__fmul_rn(qr, scales[c]));
-        } else if constexpr (kPro == kScaled || kPro == kScaledCent) {
-          const float qv = qrow[c];
-          if constexpr (kPro == kScaledCent) {
-            qadd = __fadd_rn(qadd, __fmul_rn(qv, cents[(size_t)s * d + c]));
-          } else if constexpr (kEpi == kL2) {
-            qadd = __fadd_rn(qadd, __fmul_rn(qv, qv));
-          }
-          v = query_term<kSplit>(__fmul_rn(qv, scales[c]));
-        } else {
-          v = qrow[c];
-          if constexpr (kEpi != kCosPlain) qadd = __fadd_rn(qadd, __fmul_rn(v, v));
-          if constexpr (kPro == kBf16Query) v = __bfloat162float(__float2bfloat16_rn(v));
-        }
-      }
-      qk[c] = v;
+      const float v = query_value<kPro, kEpi, kSplit>(qrow, cent, scales, c, d, qadd);
+      if constexpr (!kWide) qk[c] = v;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -269,11 +299,20 @@ ivf_scan_kernel(const int* __restrict__ lists,
       const int w = min(cols, dp - c0);
       __syncthreads();  // the previous block's reads are done (and qk written)
       stage_chunk(blk + (size_t)ch * kLanes * dp, cell_s, dp, c0, w, stride);
+      if constexpr (kWide) {  // this block's query columns, beside the cells'
+        if (active) {
+          float unused = 0.f;
+          for (int c = lane; c < w; c += 32) {
+            qk[c] = query_value<kPro, kEpi, kSplit>(qrow, cent, scales, c0 + c, d, unused);
+          }
+        }
+      }
       __syncthreads();
       if (!active) continue;
+      const float* qb = kWide ? qk : qk + c0;
       // columns in order, as without the column blocks
       for (int c = 0; c < w; c += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qk + c0 + c);
+        const float4 q4 = *reinterpret_cast<const float4*>(qb + c);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float4 x4 =
@@ -316,7 +355,9 @@ ivf_scan_kernel(const int* __restrict__ lists,
           const float lose_v = upd ? v1[i] : dist[i];
           const int lose_i = upd ? i1[i] : l;
           if (upd) { v1[i] = dist[i]; i1[i] = l; }
-          if (lose_v < v2[i]) { v2[i] = lose_v; i2[i] = lose_i; }
+          if constexpr (kSel == kFold2) {
+            if (lose_v < v2[i]) { v2[i] = lose_v; i2[i] = lose_i; }
+          }
         }
       }
     } else {
@@ -386,7 +427,9 @@ ivf_scan_kernel(const int* __restrict__ lists,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (lex_less(v1[i], i1[i], bv, bi)) { bv = v1[i]; bi = i1[i]; }
-        if (lex_less(v2[i], i2[i], bv, bi)) { bv = v2[i]; bi = i2[i]; }
+        if constexpr (kSel == kFold2) {
+          if (lex_less(v2[i], i2[i], bv, bi)) { bv = v2[i]; bi = i2[i]; }
+        }
       }
       warp_lex_min(bv, bi);
       if (lane == 0) {
@@ -396,7 +439,9 @@ ivf_scan_kernel(const int* __restrict__ lists,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (v1[i] == bv && i1[i] == bi) v1[i] = kBig;
-        if (v2[i] == bv && i2[i] == bi) v2[i] = kBig;
+        if constexpr (kSel == kFold2) {
+          if (v2[i] == bv && i2[i] == bi) v2[i] = kBig;
+        }
       }
     }
   }
@@ -404,15 +449,16 @@ ivf_scan_kernel(const int* __restrict__ lists,
 
 size_t smem_bytes(int dp) {
   const int cols = dp < kCols ? dp : kCols;
-  return ((size_t)kLanes * (cols + 4) + (size_t)kWarps * dp) * sizeof(float);
+  const int q_cols = dp > kDMax ? kCols : dp;
+  return ((size_t)kLanes * (cols + 4) + (size_t)kWarps * q_cols) * sizeof(float);
 }
 
-template <typename CellT, int kPro, int kEpi, bool kExact, bool kSplit = false>
-int launch(const void* lists, const void* task_seg, const void* cnt,
-           const void* queries, const void* cents, const void* scales,
-           const void* cells, const void* sn, void* out_d, void* out_i,
-           int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kExact, kSplit>;
+template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
+int launch_impl(const void* lists, const void* task_seg, const void* cnt,
+                const void* queries, const void* cents, const void* scales,
+                const void* cells, const void* sn, void* out_d, void* out_i,
+                int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
+  auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kSel, kSplit, kWide>;
   const size_t smem = smem_bytes(dp);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -426,97 +472,110 @@ int launch(const void* lists, const void* task_seg, const void* cnt,
   return (int)cudaGetLastError();
 }
 
-// Every instance's launcher has one signature. The dense-cell variants, by
-// cell type: [cosine][exact]
-using DenseLaunch = decltype(&launch<float, kPlain, kL2, false>);
-
-// K1c-f32 (exact) and K1d-f32 (fold): f32 cells, l2 or cos_plain
-const DenseLaunch kF32[2][2] = {
-    {launch<float, kPlain, kL2, false>, launch<float, kPlain, kL2, true>},
-    {launch<float, kPlain, kCosPlain, false>, launch<float, kPlain, kCosPlain, true>},
-};
-// K1c-bf16 (exact: the f32 query) and K1d-bf16 (fold: the query rounded to
-// bf16): bf16 cells, l2 or cos_plain
-const DenseLaunch kBf16[2][2] = {
-    {launch<__nv_bfloat16, kBf16Query, kL2, false>,
-     launch<__nv_bfloat16, kPlain, kL2, true>},
-    {launch<__nv_bfloat16, kBf16Query, kCosPlain, false>,
-     launch<__nv_bfloat16, kPlain, kCosPlain, true>},
-};
-// K1c-sq8 and K1d-sq8: int8 cells, integer-valued query codes, l2 or cos_qnorm
-const DenseLaunch kSq8[2][2] = {
-    {launch<int8_t, kPlain, kL2, false>, launch<int8_t, kPlain, kL2, true>},
-    {launch<int8_t, kPlain, kCosQnorm, false>, launch<int8_t, kPlain, kCosQnorm, true>},
-};
-
-int launch_dense(const DenseLaunch (&variants)[2][2], const void* lists,
-                 const void* task_seg, const void* cnt, const void* queries,
-                 const void* cells, const void* sn, void* out_d, void* out_i,
-                 int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-                 int exact, void* stream) {
-  return variants[cosine != 0][exact != 0](
-      lists, task_seg, cnt, queries, nullptr, nullptr, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+// one variant at any width: the query term held whole up to kDMax, in
+// column blocks above
+template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit = false>
+int launch(const void* lists, const void* task_seg, const void* cnt,
+           const void* queries, const void* cents, const void* scales,
+           const void* cells, const void* sn, void* out_d, void* out_i,
+           int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
+  auto run = dp > kDMax ? &launch_impl<CellT, kPro, kEpi, kSel, kSplit, true>
+                        : &launch_impl<CellT, kPro, kEpi, kSel, kSplit, false>;
+  return run(lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
+             R, maxq, seg, d, dp, kb, stream);
 }
 
-// K1b-cos: int8 residual cells, cos_renorm, fold: [two query terms]
-const DenseLaunch kResidualCos[2] = {
-    launch<int8_t, kScaledCent, kCosRenorm, false, false>,
-    launch<int8_t, kScaledCent, kCosRenorm, false, true>,
+// Every instance's launcher has one signature
+using Launch = decltype(&launch<float, kPlain, kL2, kExactSel>);
+
+// one prologue and epilogue under each selection: [sel] (exact, fold 1, fold 2)
+template <typename CellT, int kPro, int kEpi, bool kSplit = false>
+constexpr Launch kBySel[3] = {
+    launch<CellT, kPro, kEpi, kExactSel, kSplit>,
+    launch<CellT, kPro, kEpi, kFold1, kSplit>,
+    launch<CellT, kPro, kEpi, kFold2, kSplit>,
 };
-// K1d-i8dec: int8 decode cells, l2 or cos_renorm, fold: [cosine][two terms]
-const DenseLaunch kI8dec[2][2] = {
-    {launch<int8_t, kScaled, kL2, false, false>, launch<int8_t, kScaled, kL2, false, true>},
-    {launch<int8_t, kScaled, kCosRenorm, false, false>,
-     launch<int8_t, kScaled, kCosRenorm, false, true>},
+
+// K1c-f32 (exact) and K1d-f32 (fold): f32 cells, l2 or cos_plain: [cosine][sel]
+const Launch* const kF32[2] = {kBySel<float, kPlain, kL2>, kBySel<float, kPlain, kCosPlain>};
+// K1c-bf16 (exact: the f32 query) and K1d-bf16 (fold: the query rounded to
+// bf16): bf16 cells, l2 or cos_plain: [cosine][sel]
+const Launch kBf16[2][3] = {
+    {launch<__nv_bfloat16, kPlain, kL2, kExactSel>,
+     launch<__nv_bfloat16, kBf16Query, kL2, kFold1>,
+     launch<__nv_bfloat16, kBf16Query, kL2, kFold2>},
+    {launch<__nv_bfloat16, kPlain, kCosPlain, kExactSel>,
+     launch<__nv_bfloat16, kBf16Query, kCosPlain, kFold1>,
+     launch<__nv_bfloat16, kBf16Query, kCosPlain, kFold2>},
 };
+// K1c-sq8 and K1d-sq8: int8 cells, integer-valued query codes, l2 or
+// cos_qnorm: [cosine][sel]
+const Launch* const kSq8[2] = {kBySel<int8_t, kPlain, kL2>, kBySel<int8_t, kPlain, kCosQnorm>};
+// K1a (one query term) and K1b-l2 (two): int8 residual cells, l2: [split][sel]
+const Launch* const kResidualL2[2] = {kBySel<int8_t, kResidual, kL2, false>,
+                                      kBySel<int8_t, kResidual, kL2, true>};
+// K1b-cos: int8 residual cells, cos_renorm: [split][sel]
+const Launch* const kResidualCos[2] = {kBySel<int8_t, kScaledCent, kCosRenorm, false>,
+                                       kBySel<int8_t, kScaledCent, kCosRenorm, true>};
+// K1d-i8dec: int8 decode cells, l2 or cos_renorm: [cosine][split][sel]
+const Launch* const kI8dec[2][2] = {
+    {kBySel<int8_t, kScaled, kL2, false>, kBySel<int8_t, kScaled, kL2, true>},
+    {kBySel<int8_t, kScaled, kCosRenorm, false>, kBySel<int8_t, kScaled, kCosRenorm, true>},
+};
+
+int bad_sel(int sel) { return sel < 0 || sel > 2 ? (int)cudaErrorInvalidValue : 0; }
 
 }  // namespace
 
 // Launches on `stream`; each returns the launch's cudaError_t (0 on
 // success). The caller validates shapes, types, contiguity and alignment.
+// `sel` is the selection: 0 exact, 1 or 2 the fold at that depth.
 
-// K1a: int8 residual cells, l2, fold
+// K1a: int8 residual cells, l2, one bf16 query term (sel 0: K1-exact-i8)
 extern "C" int annsearch_ivf_scan_k1a(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  return launch<int8_t, kResidual, kL2, false>(
+    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kResidualL2[0][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }
 
-// K1b-l2: int8 residual cells, l2, fold, two bf16 query terms
+// K1b-l2: int8 residual cells, l2, two bf16 query terms
 extern "C" int annsearch_ivf_scan_k1b_l2(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  return launch<int8_t, kResidual, kL2, false, true>(
+    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kResidualL2[1][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }
 
-// K1b-cos: int8 residual cells, cos_renorm, fold, one or two query terms
+// K1b-cos: int8 residual cells, cos_renorm, one or two query terms
 extern "C" int annsearch_ivf_scan_k1b_cos(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, int split, void* stream) {
-  return kResidualCos[split != 0](
+    int R, int maxq, int seg, int d, int dp, int kb, int split, int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kResidualCos[split != 0][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }
 
-// K1d-i8dec: int8 decode cells (no centroids), l2 or cos_renorm, fold, one
-// or two query terms
+// K1d-i8dec: int8 decode cells (no centroids), l2 or cos_renorm, one or two
+// query terms
 extern "C" int annsearch_ivf_scan_i8dec(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* scales, const void* cells,
     const void* sn, void* out_d, void* out_i, int R, int maxq, int seg, int d,
-    int dp, int kb, int cosine, int split, void* stream) {
-  return kI8dec[cosine != 0][split != 0](
+    int dp, int kb, int cosine, int split, int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kI8dec[cosine != 0][split != 0][sel](
       lists, task_seg, cnt, queries, nullptr, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }
@@ -526,9 +585,10 @@ extern "C" int annsearch_ivf_scan_f32(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-    int exact, void* stream) {
-  return launch_dense(kF32, lists, task_seg, cnt, queries, cells, sn, out_d,
-                      out_i, R, maxq, seg, d, dp, kb, cosine, exact, stream);
+    int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kF32[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
+                                sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
 }
 
 // K1c-bf16 / K1d-bf16: bf16 cells (f32 queries)
@@ -536,9 +596,10 @@ extern "C" int annsearch_ivf_scan_bf16(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-    int exact, void* stream) {
-  return launch_dense(kBf16, lists, task_seg, cnt, queries, cells, sn, out_d,
-                      out_i, R, maxq, seg, d, dp, kb, cosine, exact, stream);
+    int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kBf16[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
+                                 sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
 }
 
 // K1c-sq8 / K1d-sq8: int8 cells (f32 queries holding int8 codes)
@@ -546,7 +607,8 @@ extern "C" int annsearch_ivf_scan_sq8(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-    int exact, void* stream) {
-  return launch_dense(kSq8, lists, task_seg, cnt, queries, cells, sn, out_d,
-                      out_i, R, maxq, seg, d, dp, kb, cosine, exact, stream);
+    int sel, void* stream) {
+  if (bad_sel(sel)) return bad_sel(sel);
+  return kSq8[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
+                                sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
 }

@@ -12,9 +12,15 @@ each class's ``load`` reads such a file through them.
 ``nndescent_from_jax_arrays`` builds the port's ``NNDescentIndex`` from the
 state of a JAX ``NNDescentIndex`` (the sentinel-padded table, the kNN graph
 and, once the JAX index has answered a query, its navigable graph and
-routers). Both packages then query the same centroids and cells, or walk
-the same graph from the same routers, so differences between their random
-streams drop out of a comparison.
+routers). ``annoy_from_jax_arrays``, ``kd_tree_from_jax_arrays`` and
+``balltree_from_jax_arrays`` build the tree indexes from a JAX index's
+rows and trees (sorted order, splitters, and for the ball tree the centres
+and radii), ``lsh_from_jax_arrays`` the LSH index from its projections and
+hash-sorted storage, ``kmknn_from_jax_arrays`` the kMkNN index from its
+centroids, sorted storage and radii. Both packages then query the same
+centroids and cells, trees or tables, or walk the same graph from the same
+routers, so differences between their random streams drop out of a
+comparison.
 
 Nothing here imports the JAX package: the state arrives as numpy arrays.
 """
@@ -30,6 +36,9 @@ __all__ = [
     "ivf_from_jax_arrays", "IVF_ARRAYS", "IVF_SCALARS",
     "ivf_bf16_from_jax_arrays", "ivf_sq8_from_jax_arrays", "IVF_SQ8_ARRAYS",
     "nndescent_from_jax_arrays", "NNDESCENT_ARRAYS", "NNDESCENT_SCALARS",
+    "annoy_from_jax_arrays", "kd_tree_from_jax_arrays", "balltree_from_jax_arrays",
+    "lsh_from_jax_arrays", "LSH_ARRAYS", "LSH_SCALARS",
+    "kmknn_from_jax_arrays", "KMKNN_ARRAYS", "KMKNN_SCALARS",
 ]
 
 IVF_ARRAYS = (
@@ -45,6 +54,16 @@ IVF_SQ8_ARRAYS = IVF_ARRAYS + ("scales",)
 #: state of an NNDescentIndex; ``nav_graph`` and ``router_ids`` may be absent
 NNDESCENT_ARRAYS = ("vectors", "sqnorms", "knn_ids", "knn_dists", "nav_graph", "router_ids")
 NNDESCENT_SCALARS = ("n", "dim", "k_build", "out_deg")
+
+#: state of an LSHIndex (its npz arrays) and its scalars
+LSH_ARRAYS = ("vectors", "projections", "storage", "original_ids", "seg_offsets",
+              "seg_counts", "cluster_ptr", "seg_cluster")
+LSH_SCALARS = ("n", "dim", "num_tables", "bits", "seed", "seg_size")
+#: state of a KmknnIndex (its npz arrays; ``vectors`` is the sorted storage
+#: with its pad rows) and its scalars
+KMKNN_ARRAYS = ("vectors", "centroids", "seg_offsets", "seg_counts", "original_ids",
+                "radii", "cell_counts", "cluster_ptr", "seg_cluster")
+KMKNN_SCALARS = ("n", "dim", "nlist", "seg_size")
 
 #: device dtypes of the index arrays (``storage`` keeps its own: int8 or
 #: float32, unless the caller casts it); the rest are float32
@@ -197,4 +216,107 @@ def nndescent_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device=
         )
     obj._seed = 42
     obj._reverse_extra = obj.out_deg // 2
+    return obj
+
+
+def _require(what, arrays, meta, names, scalars):
+    missing = [a for a in names if arrays.get(a) is None]
+    missing += [s for s in scalars if s not in meta]
+    if missing:
+        raise ValueError(f"{what} state lacks {missing}")
+
+
+def _forest_state(cls, vectors, trees, leaf, metric, device):
+    from .models.trees import _index_shell, _tree_from_arrays
+
+    obj = _index_shell(cls, vectors, metric, device)
+    obj.leaf = int(leaf)
+    obj.trees = [_tree_from_arrays(t, obj.leaf, obj.device) for t in trees]
+    return obj
+
+
+def annoy_from_jax_arrays(vectors: np.ndarray, trees: list[dict], leaf: int,
+                          metric="euclidean", device="cuda"):
+    """``AnnoyIndex`` from a JAX forest: ``vectors [n, dim]`` as the JAX
+    index stores them (normalised under cosine, no sentinel row), and per
+    tree a dict of ``order [n_pad]``, ``normals`` and ``thresholds`` (lists
+    over levels)."""
+    from .models.trees import AnnoyIndex
+
+    return _forest_state(AnnoyIndex, vectors, trees, leaf, metric, device)
+
+
+def kd_tree_from_jax_arrays(vectors: np.ndarray, trees: list[dict], leaf: int,
+                            metric="euclidean", device="cuda"):
+    """``KdTreeIndex`` from a JAX kd-forest: as :func:`annoy_from_jax_arrays`."""
+    from .models.trees import KdTreeIndex
+
+    return _forest_state(KdTreeIndex, vectors, trees, leaf, metric, device)
+
+
+def balltree_from_jax_arrays(vectors: np.ndarray, tree: dict, leaf: int,
+                             metric="euclidean", device="cuda"):
+    """``BallTreeIndex`` from a JAX ball tree: ``vectors`` as for
+    :func:`annoy_from_jax_arrays`; ``tree`` holds ``order``, ``normals``,
+    ``thresholds``, ``centers`` and ``radii`` (lists over levels, the leaves'
+    last)."""
+    from .models.trees import BallTreeIndex, _index_shell, _tree_from_arrays
+
+    obj = _index_shell(BallTreeIndex, vectors, metric, device)
+    obj.leaf = int(leaf)
+    obj.tree = _tree_from_arrays(tree, obj.leaf, obj.device)
+    return obj
+
+
+def lsh_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``LSHIndex`` from a JAX index's state: ``arrays`` holds
+    :data:`LSH_ARRAYS` (``storage`` the hash-sorted rows with their pad),
+    ``meta`` the scalars :data:`LSH_SCALARS` and optionally ``metric``."""
+    from .models.lsh import LSHIndex
+    from .utils.dist import parse_ann_dist, sq_norms
+
+    _require("LSHIndex", arrays, meta, LSH_ARRAYS, LSH_SCALARS)
+    dev = torch.device(device)
+    obj = LSHIndex.__new__(LSHIndex)
+    obj.device = dev
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    obj.n, obj.dim, obj.num_tables = int(meta["n"]), int(meta["dim"]), int(meta["num_tables"])
+    obj.bits, obj._seed, obj.seg_size = int(meta["bits"]), int(meta["seed"]), int(meta["seg_size"])
+
+    def f32(name):
+        return torch.as_tensor(np.array(arrays[name], np.float32), device=dev)
+
+    obj.vectors, obj.projections, obj.storage = f32("vectors"), f32("projections"), f32("storage")
+    obj.sqnorms = sq_norms(obj.vectors)
+    obj.store_sqnorms = sq_norms(obj.storage)
+    obj.original_ids = torch.as_tensor(np.array(arrays["original_ids"], np.int64), device=dev)
+    obj.seg_offsets = torch.as_tensor(np.array(arrays["seg_offsets"], np.int32), device=dev)
+    obj.seg_counts = torch.as_tensor(np.array(arrays["seg_counts"], np.int32), device=dev)
+    obj._cluster_ptr = np.asarray(arrays["cluster_ptr"], np.int64)
+    obj._seg_cluster = np.asarray(arrays["seg_cluster"], np.int32)
+    obj.last_fallback_rate = 0.0
+    obj._derived = {}
+    return obj
+
+
+def kmknn_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``KmknnIndex`` from a JAX index's state: ``arrays`` holds
+    :data:`KMKNN_ARRAYS`, ``meta`` the scalars :data:`KMKNN_SCALARS` and
+    optionally ``metric``."""
+    from .models.kmknn import KmknnIndex
+    from .utils.dist import parse_ann_dist
+
+    _require("KmknnIndex", arrays, meta, KMKNN_ARRAYS, KMKNN_SCALARS)
+    dev = torch.device(device)
+    obj = KmknnIndex.__new__(KmknnIndex)
+    obj.device = dev
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    obj.n, obj.dim, obj.nlist = int(meta["n"]), int(meta["dim"]), int(meta["nlist"])
+    obj.centroids = torch.as_tensor(np.array(arrays["centroids"], np.float32), device=dev)
+    x = torch.as_tensor(np.array(arrays["vectors"][: obj.n], np.float32), device=dev)
+    obj._set_state(
+        x, np.asarray(arrays["original_ids"], np.int64), arrays["seg_offsets"],
+        arrays["seg_counts"], arrays["seg_cluster"], arrays["cluster_ptr"],
+        int(meta["seg_size"]), np.asarray(arrays["radii"], np.float32), arrays["cell_counts"],
+    )
     return obj

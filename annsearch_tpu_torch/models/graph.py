@@ -11,7 +11,7 @@ One index serves two uses:
     ``query`` walks by beam search from routed entry points. It is built on
     the first query.
 
-Not ported yet (ROADMAP, still to port): the approximate build above the
+Not ported yet (ROADMAP P5): the approximate build above the
 budget (``approx_knn_graph``), ``refine_rounds`` and ``diversify_prob``;
 each raises ``NotImplementedError``.
 """
@@ -76,13 +76,13 @@ class NNDescentIndex(BaseIndex):
         Numpy inputs are validated; tensors are trusted."""
         if refine_rounds > 0:
             raise NotImplementedError(
-                "refine_rounds > 0 needs nnd_round_chunked (ROADMAP, still to "
-                "port: the approximate graph build)"
+                "refine_rounds > 0 needs nnd_round_chunked (ROADMAP P5: the "
+                "approximate graph build)"
             )
         if diversify_prob > 0.0:
             raise NotImplementedError(
-                "diversify_prob > 0 needs diversify_graph (ROADMAP, still to "
-                "port: the approximate graph build with diversify_graph)"
+                "diversify_prob > 0 needs diversify_graph (ROADMAP P5: the "
+                "approximate graph build with diversify_graph)"
             )
         if has_sentinel and isinstance(mat, np.ndarray):
             if mat.shape[0] < 1 or np.any(mat[-1]):
@@ -96,7 +96,7 @@ class NNDescentIndex(BaseIndex):
             raise NotImplementedError(
                 f"n²·d = {n * n * self.dim:.3g} exceeds BRUTE_BUILD_FLOP_BUDGET: "
                 "the approximate build (approx_knn_graph) is not ported yet "
-                "(ROADMAP, still to port: the approximate graph build)"
+                "(ROADMAP P5: the approximate graph build)"
             )
         self.k_build = min(build_k if build_k is not None else 2 * k, max(n - 1, 1))
         self.out_deg = min(out_deg if out_deg is not None else max(k, 16), self.k_build)

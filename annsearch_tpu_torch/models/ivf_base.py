@@ -22,9 +22,9 @@ Query, two tiers over three scans:
 * the cluster scan (``ops/ivf_scan.py``, tensor operations, exact per-cell
   selection) answers everything else, as in the JAX package: the PQ-coded
   modes, the exact tier of the int8-decode modes, and any shape the fused
-  scan's gate refuses (k > 128, a ``seg_size`` that is no multiple of 128,
-  rows wider than the kernel takes). It routes to clusters and builds its
-  task lists on the device when no cell is split, else on the host.
+  scan's gate refuses (k > 128, a ``seg_size`` that is no multiple of
+  128). It routes to clusters and builds its task lists on the device when
+  no cell is split, else on the host.
 
 f64 queries to an index built from f64 data take a 2k pool from the f32
 scan and rescore it in f64 on the host.
@@ -304,6 +304,7 @@ class IvfBase(BaseIndex):
         approx: bool = False,
         q_split: bool | None = None,
         certify: bool = False,
+        fold_depth: int = 2,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Top-k ``(ids, dists)``.
 
@@ -325,7 +326,9 @@ class IvfBase(BaseIndex):
         ``q_split`` acts, as in the JAX package, only in the fused
         approximate tier of the int8-decode modes: ``None`` and ``False``
         score one bf16 query term (kernels K1a, K1b-cos), ``True`` two
-        (K1b-l2, K1b-cos); everywhere else it is ignored."""
+        (K1b-l2, K1b-cos); everywhere else it is ignored. ``fold_depth``
+        (1 or 2) is the fused approximate tier's fold depth, the JAX
+        package's ``ANNSEARCH_IVF_FOLD1`` as an argument."""
         if certify and (approx or self.mode != "f32"):
             raise ValueError(
                 "certify=True requires the exact f32 tier (approx=False and a "
@@ -336,7 +339,7 @@ class IvfBase(BaseIndex):
         if q64 is not None:
             k_scan = min(2 * self._clamp_k(k), self.n)
         q = self._prep_queries(query_mat)
-        ids, d = self._query_prepped(q, k, nprobe, k_scan, approx, q_split)
+        ids, d = self._query_prepped(q, k, nprobe, k_scan, approx, q_split, fold_depth)
         if q64 is not None:
             ids, d = self._rescore_f64(q64, ids, k)
         if certify:
@@ -395,7 +398,7 @@ class IvfBase(BaseIndex):
         return ids, d
 
     def _scan(self, q: torch.Tensor, k: int, nprobe: int, approx: bool,
-              q_split: bool | None = None):
+              q_split: bool | None = None, fold_depth: int = 2):
         """Route → task lists → scan. Returns (dists [nq, k],
         sorted-storage positions [nq, k])."""
         fused = fused_eligible(self.mode, self.seg_size, int(self.storage.shape[1]), k)
@@ -403,7 +406,7 @@ class IvfBase(BaseIndex):
             # q_split None is one bf16 query pass: the int8 codes' own
             # quantisation dominates the query's rounding there, and no
             # other mode reads the knob
-            return self._scan_approx(q, k, nprobe, bool(q_split))
+            return self._scan_approx(q, k, nprobe, bool(q_split), fold_depth)
         if not approx and fused and self.mode in _EXACT_MODES:
             return self._scan_exact(q, k, nprobe)
         return self._scan_cluster(q, k, nprobe)
@@ -412,7 +415,7 @@ class IvfBase(BaseIndex):
         cells, sn = self._fused_blocks()
         return cells, sn, self.seg_offsets, self.seg_counts, self._scan_seg_centroids()
 
-    def _scan_approx(self, q, k, nprobe, q_split):
+    def _scan_approx(self, q, k, nprobe, q_split, fold_depth=2):
         # route straight to segments: a split cell's segments are duplicate
         # routing rows, probed together; nprobe scales to segments so the
         # probed fraction of the database matches cell semantics
@@ -426,6 +429,7 @@ class IvfBase(BaseIndex):
         return fused_ivf_scan(
             self._encode_queries(q), cluster_ids, lists, gmap, *self._fused_args(), k,
             self.metric, self.mode, self._codebooks(), kb, q_split=q_split,
+            fold_depth=fold_depth,
         )
 
     def _scan_cluster(self, q, k, nprobe):
@@ -492,11 +496,13 @@ class IvfBase(BaseIndex):
             return d, i
         return _exact_rescore(q, self.storage, d, i, k, self.metric)
 
-    def _query_prepped(self, q, k, nprobe=None, k_scan=None, approx=False, q_split=None):
+    def _query_prepped(self, q, k, nprobe=None, k_scan=None, approx=False, q_split=None,
+                       fold_depth=2):
         k = self._clamp_k(k)
         nprobe = self.default_nprobe() if nprobe is None else nprobe
         nprobe = max(1, min(nprobe, self.nlist))
-        d, i = self._scan(q, k if k_scan is None else k_scan, nprobe, approx, q_split)
+        d, i = self._scan(q, k if k_scan is None else k_scan, nprobe, approx, q_split,
+                          fold_depth)
         ids = self.original_ids[torch.clamp(i, 0, self.n - 1)]
         return ids, d
 

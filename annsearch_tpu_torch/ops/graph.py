@@ -8,7 +8,7 @@ Ported: ``_row_dedup_inf``, ``_next_pow2``, ``cagra_prune``,
 ``beam_search`` with ``return_trail``. Not ported: the approximate graph
 build (``random_init_graph``, ``rp_forest_round``, ``kmeans_leaves``,
 ``leaf_join_merge``, ``nnd_round_chunked``) and ``diversify_graph``
-(ROADMAP, still to port); ``nav_hl_split``, ``pack_neighbor_table`` /
+(ROADMAP P5); ``nav_hl_split``, ``pack_neighbor_table`` /
 ``maybe_pack_neighbors`` and the bitonic networks (ROADMAP, not to port):
 they are bf16 and DMA-granularity layouts of the TPU. The port scores
 candidates in FP32 from the f32 table, the grade the JAX package's packed

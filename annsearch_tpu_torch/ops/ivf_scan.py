@@ -9,7 +9,7 @@ pair's top k; a host-built gather map then regroups the lanes per
 query for the final top-k. It serves what the fused kernels do not: the
 PQ-coded modes (``pq``, ``pq_residual``), the exact tier of the int8-decode
 modes, and every shape the fused scan's gate refuses (k > 128, a
-``seg_size`` that is no multiple of 128, rows wider than its limit).
+``seg_size`` that is no multiple of 128).
 
 Choices of the port, where the JAX package's depend on its hardware:
 
@@ -148,23 +148,26 @@ def ivf_cluster_scan(
     mode: str,
     codebooks: torch.Tensor | None = None,  # [m, 256, ds] (pq modes) or [d] scales (i8dec modes)
     step_bytes: int = _STEP_BYTES,
+    k_cell: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan the task rows; ``(best_d, best_i) [nq, k]`` ascending, ``best_i``
     positions in the sorted storage, padded with (+inf, 0) where a query has
     fewer than k candidates. ``storage`` and ``sqnorms`` carry at least
     ``cap`` trailing pad rows. Each (query, task) pair keeps its exact top
-    ``min(k, cap)``."""
+    ``min(k_cell, cap)``: ``k_cell`` defaults to ``k``; LSH keeps its
+    caller's k per cell under a wider final k, since a row appears at most
+    once per cell."""
     if mode in _BINARY_MODES:
         raise NotImplementedError(
             f"cluster scan mode {mode!r} comes with the binary index family "
-            "(ROADMAP, still to port, item 6)"
+            "(ROADMAP P3)"
         )
     if mode not in _MODES:
         raise ValueError(f"unknown cluster scan mode {mode!r}")
     nq, dq = queries.shape
     nlist = offsets.shape[0]
     dev = queries.device
-    kc = min(k, cap)
+    kc = min(k_cell if k_cell is not None else k, cap)
     ncl, maxq = probe_lists.shape
     residual = mode.endswith("_residual")
     cosine = metric == Dist.COSINE

@@ -1,8 +1,9 @@
 """Fused IVF cell scan (port of ``annsearch_tpu.ops.ivf_scan_pallas``).
 
-Ten variants of the Pallas ``_scan_kernel`` / ``_scan_body`` (launched
-by ``_fused_cell_scan``) are ported, each a hand-written kernel in
-``csrc/ivf_scan.cu`` with a wrapper and a plain PyTorch version here:
+Every variant of the Pallas ``_scan_kernel`` / ``_scan_body`` (launched
+by ``_fused_cell_scan``) is ported, each an instance of one hand-written
+kernel template in ``csrc/ivf_scan.cu`` with a wrapper and a plain PyTorch
+version here:
 
 * K1a, ``ivf_cell_scan``: int8 residual cells (``i8dec_residual``), ``l2``
   epilogue, depth-2 stride-class fold, one bf16 query term — the IVF-PQ
@@ -27,7 +28,20 @@ by ``_fused_cell_scan``) are ported, each a hand-written kernel in
 * K1d-sq8 / K1c-sq8, ``ivf_cell_scan_sq8_fold`` / ``_exact``: int8 cells
   and int8 query codes, ``l2`` or ``cos_qnorm`` — ``IvfSq8Index``. Every
   product and partial sum is an integer below 2²⁴, so the dots, and the
-  ``l2`` distances, equal the JAX package's bit for bit.
+  ``l2`` distances, equal the JAX package's bit for bit;
+* K1-fold1: every fold wrapper takes ``fold_depth`` 1 (one survivor per
+  stride class, 128 in all) or 2 (the default, 256), the Pallas
+  ``fold_depth``. The IVF indexes pass it as a keyword where the JAX
+  package reads ``ANNSEARCH_IVF_FOLD1``;
+* K1-exact-i8, ``ivf_cell_scan_i8_exact``: the int8-decode prologues with
+  the exact selection (``selection="exact"`` over ``i8dec`` /
+  ``i8dec_residual`` cells). No index routes to it, as in the JAX
+  package: the exact tier of those modes is the cluster scan;
+* rows of any width: a block holds 8 query rows whole in shared memory up
+  to a padded d of 4,096 (198,656 bytes with the staged cells, of the
+  232,448 a block may use); above it each variant stages its query rows in
+  column blocks of 128 beside the cells' (``csrc/ivf_scan.cu``), so
+  ``fused_eligible`` is the JAX package's rule, with no width limit.
 
 A wrapper launches its kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors; there is no fallback between the two. The
@@ -44,7 +58,12 @@ layout.
 
 ``fused_ivf_scan`` is the host side around the kernels: per task row, the
 segment and its valid-row count; after it, the lane → storage-row remap,
-the gather-map regroup per query and the final top-k.
+the gather-map regroup per query and the final top-k, or with ``groups``
+a top-k per group of task lanes (K1-groups: the forests' per-tree merge,
+host tensor code in both packages).
+
+Not ported: the ``packed2`` lane layout (f32 rows are scored with FP32
+FFMA, K1d-f32), the ``interpret`` plumbing and ``ANNSEARCH_NO_PALLAS``.
 """
 
 from __future__ import annotations
@@ -55,11 +74,13 @@ from ..utils.dist import Dist, fp32_matmul
 
 __all__ = [
     "fused_eligible",
+    "fold_kb",
     "repack_blocks",
     "ivf_cell_scan",
     "ivf_cell_scan_split",
     "ivf_cell_scan_cos",
     "ivf_cell_scan_i8dec",
+    "ivf_cell_scan_i8_exact",
     "ivf_cell_scan_plain",
     "ivf_cell_scan_f32_exact",
     "ivf_cell_scan_f32_fold",
@@ -79,10 +100,6 @@ LANES = 128
 BIG = 3.0e38
 #: the kernel reads rows in 16-byte vectors: cells pad d to this
 _D_ALIGN = 16
-#: widest padded row the kernel takes: its shared memory holds 128 staged
-#: rows of at most 132 floats and 8 query rows of dp floats (198,656 bytes
-#: at 4096, of the 232,448 a block may use)
-_D_MAX = 4096
 #: task rows per step of the plain versions (bounds their [rows, maxq, seg]
 #: tiles)
 _PLAIN_ROWS = 64
@@ -94,18 +111,23 @@ _I8DEC_MODES = ("i8dec", "i8dec_residual")
 
 def fused_eligible(mode: str, seg_size: int, dim_w: int, k: int) -> bool:
     """Whether the fused scan handles this index: int8 decode cells (K1a,
-    K1b, K1d-i8dec), or f32, bf16 or sq8 cells (K1c / K1d); the PQ-coded
-    modes keep the cluster scan. Unlike the JAX package's rule, rows wider
-    than ``_D_MAX`` are not eligible: the kernel's shared memory holds each
-    query slot's whole padded row, so such an index takes the cluster scan
-    too."""
+    K1b, K1d-i8dec), or f32, bf16 or sq8 cells (K1c / K1d), in segments of
+    a multiple of 128 rows, k ≤ 128, rows of any width (the JAX package's
+    rule); the PQ-coded modes keep the cluster scan."""
+    del dim_w  # any width: the kernel stages wide query rows in column blocks
     return (
         mode in _FUSED_MODES
         and seg_size % LANES == 0
         and seg_size >= LANES
         and k <= LANES
-        and -(-dim_w // _D_ALIGN) * _D_ALIGN <= _D_MAX
     )
+
+
+def fold_kb(k: int) -> int:
+    """Candidates a fold keeps per (task row, query slot) for a final top-k:
+    k rounded up to a power of two in [8, 128] (the tree and LSH indexes'
+    rule)."""
+    return min(LANES, max(8, 1 << (max(k, 8) - 1).bit_length()))
 
 
 def repack_blocks(
@@ -164,9 +186,12 @@ def _pad_cols(t: torch.Tensor, dp: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, dp - t.shape[-1])) if dp > t.shape[-1] else t
 
 
-def _fold_extract(dist: torch.Tensor, kb: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Depth-2 stride-class fold of ``dist [..., seg]`` and kb rounds of the
-    lexicographic (value, lane) minimum."""
+def _fold_extract(
+    dist: torch.Tensor, kb: int, depth: int = 2
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stride-class fold of ``dist [..., seg]`` at ``depth`` 1 (each class
+    keeps its minimum) or 2 (its minimum and runner-up), then kb rounds of
+    the lexicographic (value, lane) minimum over the survivors."""
     seg = dist.shape[-1]
     li = torch.arange(LANES, device=dist.device).expand(dist.shape[:-1] + (LANES,))
     vals, idx = dist[..., :LANES], li
@@ -180,11 +205,13 @@ def _fold_extract(dist: torch.Tensor, kb: int) -> tuple[torch.Tensor, torch.Tens
         lose_i = torch.where(upd, idx, ni)
         vals = torch.where(upd, nv, vals)
         idx = torch.where(upd, ni, idx)
-        upd2 = lose_v < vals2
-        vals2 = torch.where(upd2, lose_v, vals2)
-        idx2 = torch.where(upd2, lose_i, idx2)
-    vals = torch.cat([vals, vals2], dim=-1)
-    idx = torch.cat([idx, idx2], dim=-1)
+        if depth == 2:
+            upd2 = lose_v < vals2
+            vals2 = torch.where(upd2, lose_v, vals2)
+            idx2 = torch.where(upd2, lose_i, idx2)
+    if depth == 2:
+        vals = torch.cat([vals, vals2], dim=-1)
+        idx = torch.cat([idx, idx2], dim=-1)
     out_d, out_i = [], []
     for _ in range(kb):
         v = vals.min(dim=-1, keepdim=True).values
@@ -212,12 +239,14 @@ def _exact_extract(
 
 def ivf_cell_scan_plain(
     lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
-    cosine: bool = False, q_split: bool = False,
+    cosine: bool = False, q_split: bool = False, fold_depth: int = 2,
+    exact: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the int8-decode kernels, chunked over task
     rows to bound memory: K1a as it stands, K1b-l2 with ``q_split``,
     K1b-cos with ``cosine`` (``cos_renorm``), K1d-i8dec with ``cent_x``
-    None. Arguments and result as :func:`ivf_cell_scan`."""
+    None; the fold at ``fold_depth``, or with ``exact`` K1-exact-i8's exact
+    selection. Arguments and result as :func:`ivf_cell_scan`."""
     R, maxq = lists.shape
     seg, dp = cells.shape[1], cells.shape[2]
     out_d = torch.empty((R, maxq, kb), device=lists.device)
@@ -238,13 +267,16 @@ def ivf_cell_scan_plain(
         else:
             dist = torch.clamp(qadd[:, :, None] + sn[s][:, None, :] - 2.0 * dots, min=0.0)
         dist = torch.where(lane < cnt[rs].long()[:, None, None], dist, BIG)
-        out_d[rs], out_i[rs] = _fold_extract(dist, kb)
+        if exact:
+            out_d[rs], out_i[rs] = _exact_extract(dist, kb, cnt[rs])
+        else:
+            out_d[rs], out_i[rs] = _fold_extract(dist, kb, fold_depth)
     return out_d, out_i
 
 
 def _dense_plain(
     lists, task_seg, cnt, queries_x, cells, sn, kb: int, epilogue: str,
-    exact: bool, bf16_query: bool = False,
+    exact: bool, bf16_query: bool = False, fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dense-cell variants (f32, bf16 and
     int8 cells), chunked over task rows: the query as it is (or rounded to
@@ -279,39 +311,41 @@ def _dense_plain(
         if exact:
             out_d[rs], out_i[rs] = _exact_extract(dist, kb, cnt[rs])
         else:
-            out_d[rs], out_i[rs] = _fold_extract(dist, kb)
+            out_d[rs], out_i[rs] = _fold_extract(dist, kb, fold_depth)
     return out_d, out_i
 
 
 def ivf_cell_scan_f32_plain(
     lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
-    exact: bool,
+    exact: bool, fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1c-f32 (``exact``) and K1d-f32 (fold).
-    Arguments and result as :func:`ivf_cell_scan_f32_exact`."""
+    """Plain PyTorch version of K1c-f32 (``exact``) and K1d-f32 (the fold
+    at ``fold_depth``). Arguments and result as
+    :func:`ivf_cell_scan_f32_exact`."""
     return _dense_plain(lists, task_seg, cnt, queries_x, cells, sn, kb,
-                        "cos_plain" if cosine else "l2", exact)
+                        "cos_plain" if cosine else "l2", exact, fold_depth=fold_depth)
 
 
 def ivf_cell_scan_bf16_plain(
     lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
-    exact: bool,
+    exact: bool, fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1c-bf16 (``exact``: the f32 query) and
     K1d-bf16 (fold: the query rounded to bf16) over bf16 ``cells``."""
     return _dense_plain(lists, task_seg, cnt, queries_x, cells, sn, kb,
-                        "cos_plain" if cosine else "l2", exact, bf16_query=not exact)
+                        "cos_plain" if cosine else "l2", exact, bf16_query=not exact,
+                        fold_depth=fold_depth)
 
 
 def ivf_cell_scan_sq8_plain(
     lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool,
-    exact: bool,
+    exact: bool, fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1c-sq8 (``exact``) and K1d-sq8 (fold):
     int8 ``cells``, ``queries_x`` the int8 query codes as f32, epilogue
     ``l2`` or ``cos_qnorm``."""
     return _dense_plain(lists, task_seg, cnt, queries_x, cells, sn, kb,
-                        "cos_qnorm" if cosine else "l2", exact)
+                        "cos_qnorm" if cosine else "l2", exact, fold_depth=fold_depth)
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -338,7 +372,7 @@ def _check_shapes(name, lists, task_seg, cnt, queries_x, cells, sn, kb) -> None:
         task_seg.shape[0] != R or cnt.shape[0] != R
         or sn.shape != (nsegp, seg)
         or seg % LANES or not 0 < kb <= LANES
-        or dp % _D_ALIGN or not d <= dp <= _D_MAX
+        or dp % _D_ALIGN or not d <= dp
     ):
         raise ValueError(
             f"{name}: unsupported shapes R={R} maxq={maxq} seg={seg} d={d} "
@@ -352,6 +386,13 @@ def _outputs(lists, kb):
         torch.empty((R, maxq, kb), dtype=torch.float32, device=lists.device),
         torch.empty((R, maxq, kb), dtype=torch.int32, device=lists.device),
     )
+
+
+def _sel(fold_depth: int) -> int:
+    """The C entries' ``sel`` of a fold: its depth, 1 or 2 (0 is exact)."""
+    if fold_depth not in (1, 2):
+        raise ValueError(f"fold_depth must be 1 or 2, got {fold_depth}")
+    return fold_depth
 
 
 def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
@@ -396,17 +437,19 @@ def ivf_cell_scan(
     cells: torch.Tensor,      # [nseg+1, seg, dp] int8 (repack_blocks)
     sn: torch.Tensor,         # [nseg+1, seg] f32 reconstruction sq norms
     kb: int,
+    fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1a. Per task row and query slot, the kb best ``(distance, lane)``
     of the row's segment: ``out_d [R, maxq, kb]`` f32, ``out_i [R, maxq,
-    kb]`` int32. CUDA tensors launch the kernel (or raise); CPU tensors run
-    the plain version."""
+    kb]`` int32; ``fold_depth`` 1 is K1-fold1. CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version."""
     if not lists.is_cuda:
         return ivf_cell_scan_plain(
-            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+            fold_depth=fold_depth,
         )
     out = _launch_i8dec("ivf_cell_scan", "annsearch_ivf_scan_k1a", lists, task_seg,
-                        cnt, queries_x, cent_x, scales, cells, sn, kb)
+                        cnt, queries_x, cent_x, scales, cells, sn, kb, (_sel(fold_depth),))
     ivf_cell_scan.launches += 1
     return out
 
@@ -417,16 +460,19 @@ ivf_cell_scan.launches = 0
 
 def ivf_cell_scan_split(
     lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+    fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1b-l2: K1a with two bf16 query terms (``q_split=True``): the scaled
     residual keeps about 16 mantissa bits where K1a keeps 8. Arguments and
     result as :func:`ivf_cell_scan`."""
     if not lists.is_cuda:
         return ivf_cell_scan_plain(
-            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb, q_split=True
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb, q_split=True,
+            fold_depth=fold_depth,
         )
     out = _launch_i8dec("ivf_cell_scan_split", "annsearch_ivf_scan_k1b_l2", lists,
-                        task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb)
+                        task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+                        (_sel(fold_depth),))
     ivf_cell_scan_split.launches += 1
     return out
 
@@ -436,7 +482,7 @@ ivf_cell_scan_split.launches = 0
 
 def ivf_cell_scan_cos(
     lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
-    q_split: bool = False,
+    q_split: bool = False, fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1b-cos: int8 residual cells under cosine. ``qk = q·scales`` (one
     bf16 term, or two with ``q_split``), ``qadd = q·c``, ``sn`` the squared
@@ -445,11 +491,11 @@ def ivf_cell_scan_cos(
     if not lists.is_cuda:
         return ivf_cell_scan_plain(
             lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
-            cosine=True, q_split=q_split,
+            cosine=True, q_split=q_split, fold_depth=fold_depth,
         )
     out = _launch_i8dec("ivf_cell_scan_cos", "annsearch_ivf_scan_k1b_cos", lists,
                         task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
-                        (int(q_split),))
+                        (int(q_split), _sel(fold_depth)))
     ivf_cell_scan_cos.launches += 1
     return out
 
@@ -459,7 +505,7 @@ ivf_cell_scan_cos.launches = 0
 
 def ivf_cell_scan_i8dec(
     lists, task_seg, cnt, queries_x, scales, cells, sn, kb: int,
-    cosine: bool = False, q_split: bool = False,
+    cosine: bool = False, q_split: bool = False, fold_depth: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1d-i8dec: int8 decode cells with no centroids (mode ``i8dec``).
     ``qk = q·scales`` (one bf16 term, or two with ``q_split``); ``l2`` with
@@ -468,11 +514,11 @@ def ivf_cell_scan_i8dec(
     if not lists.is_cuda:
         return ivf_cell_scan_plain(
             lists, task_seg, cnt, queries_x, None, scales, cells, sn, kb,
-            cosine=cosine, q_split=q_split,
+            cosine=cosine, q_split=q_split, fold_depth=fold_depth,
         )
     out = _launch_i8dec("ivf_cell_scan_i8dec", "annsearch_ivf_scan_i8dec", lists,
                         task_seg, cnt, queries_x, None, scales, cells, sn, kb,
-                        (int(cosine), int(q_split)))
+                        (int(cosine), int(q_split), _sel(fold_depth)))
     ivf_cell_scan_i8dec.launches += 1
     return out
 
@@ -480,8 +526,41 @@ def ivf_cell_scan_i8dec(
 ivf_cell_scan_i8dec.launches = 0
 
 
+def ivf_cell_scan_i8_exact(
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+    cosine: bool = False, q_split: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1-exact-i8: the int8-decode prologues with the exact selection
+    (K1c's sorted per-warp list): mode ``i8dec_residual`` with ``cent_x``
+    (K1a's, K1b-l2's or K1b-cos's prologue), mode ``i8dec`` with ``cent_x``
+    None (K1d-i8dec's); ``cosine`` takes ``cos_renorm``, ``q_split`` two
+    bf16 query terms. Per task row and slot, the kb lexicographically
+    smallest ``(distance, lane)`` pairs, then (3e38, 0) past the valid rows.
+    Arguments and result as :func:`ivf_cell_scan`."""
+    if not lists.is_cuda:
+        return ivf_cell_scan_plain(
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+            cosine=cosine, q_split=q_split, exact=True,
+        )
+    head = ("ivf_cell_scan_i8_exact",)
+    tail = (lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb)
+    if cent_x is None:
+        out = _launch_i8dec(*head, "annsearch_ivf_scan_i8dec", *tail,
+                            (int(cosine), int(q_split), 0))
+    elif cosine:
+        out = _launch_i8dec(*head, "annsearch_ivf_scan_k1b_cos", *tail, (int(q_split), 0))
+    else:
+        entry = "annsearch_ivf_scan_k1b_l2" if q_split else "annsearch_ivf_scan_k1a"
+        out = _launch_i8dec(*head, entry, *tail, (0,))
+    ivf_cell_scan_i8_exact.launches += 1
+    return out
+
+
+ivf_cell_scan_i8_exact.launches = 0
+
+
 def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
-                  cells, sn, kb, cosine, exact):
+                  cells, sn, kb, cosine, sel):
     from ._cuda import load_library
 
     _check_inputs(
@@ -498,7 +577,7 @@ def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
         lists.data_ptr(), task_seg.data_ptr(), cnt.data_ptr(),
         queries_x.data_ptr(), cells.data_ptr(), sn.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), R, maxq, seg, queries_x.shape[1],
-        dp, kb, int(cosine), int(exact),
+        dp, kb, int(cosine), sel,
         torch.cuda.current_stream(lists.device).cuda_stream,
     )
     if err:
@@ -508,15 +587,25 @@ def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
 
 def _dense_wrapper(name, entry, cell_dtype, plain, exact, doc):
     """The wrapper of one dense-cell variant: its kernel on CUDA tensors,
-    ``plain`` on CPU tensors, and its own launch count."""
+    ``plain`` on CPU tensors, and its own launch count. The fold wrappers
+    take ``fold_depth``."""
 
-    def wrapper(lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool = False):
+    def launch(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, fold_depth):
         if not lists.is_cuda:
-            return plain(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, exact=exact)
-        out = _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt,
-                            queries_x, cells, sn, kb, cosine, exact)
+            return plain(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine,
+                         exact=exact, fold_depth=fold_depth)
+        out = _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
+                            cells, sn, kb, cosine, 0 if exact else _sel(fold_depth))
         wrapper.launches += 1
         return out
+
+    if exact:
+        def wrapper(lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool = False):
+            return launch(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, 2)
+    else:
+        def wrapper(lists, task_seg, cnt, queries_x, cells, sn, kb: int, cosine: bool = False,
+                    fold_depth: int = 2):
+            return launch(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, fold_depth)
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
@@ -531,10 +620,11 @@ _DENSE_ARGS = """
     ``task_seg [R]`` int32 segment block of each task row, ``cnt [R]``
     int32 valid rows of that block (0 = skip), ``queries_x [nq+1, d]`` f32
     (last row zero), ``cells [nseg+1, seg, dp]`` (:func:`repack_blocks`),
-    ``sn [nseg+1, seg]`` f32 row squared norms, ``kb``, and ``cosine``
-    (the mode's cosine epilogue, else ``l2``). Returns ``out_d [R, maxq,
-    kb]`` f32 and ``out_i [R, maxq, kb]`` int32 lanes. CUDA tensors launch
-    the kernel (or raise); CPU tensors run the plain version."""
+    ``sn [nseg+1, seg]`` f32 row squared norms, ``kb``, ``cosine`` (the
+    mode's cosine epilogue, else ``l2``) and, for a fold, ``fold_depth``
+    (1: K1-fold1). Returns ``out_d [R, maxq, kb]`` f32 and ``out_i [R,
+    maxq, kb]`` int32 lanes. CUDA tensors launch the kernel (or raise); CPU
+    tensors run the plain version."""
 
 ivf_cell_scan_f32_exact = _dense_wrapper(
     "ivf_scan_f32_exact", "annsearch_ivf_scan_f32", torch.float32,
@@ -546,7 +636,7 @@ ivf_cell_scan_f32_exact = _dense_wrapper(
 ivf_cell_scan_f32_fold = _dense_wrapper(
     "ivf_scan_f32_fold", "annsearch_ivf_scan_f32", torch.float32,
     ivf_cell_scan_f32_plain, False,
-    "K1d-f32: as K1c-f32, with K1a's depth-2 stride-class fold in place of "
+    "K1d-f32: as K1c-f32, with K1a's stride-class fold in place of "
     "the exact selection." + _DENSE_ARGS,
 )
 ivf_cell_scan_bf16_exact = _dense_wrapper(
@@ -595,14 +685,25 @@ def fused_ivf_scan(
     mode: str,
     scales: torch.Tensor | None, # [d] f32 decode scales (the i8dec modes)
     kb: int,
-    selection: str = "fold",     # "fold" or "exact" (dense cells only)
+    selection: str = "fold",     # "fold" or "exact"
     q_split: bool = False,       # two bf16 query terms (the i8dec modes only)
+    fold_depth: int = 2,         # survivors per stride class of the fold
+    groups: int = 1,             # independent top-k runs of each query's lanes
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused scan of the task lists; ``(best_d, best_i)`` of shape
     ``[nq, k]`` ascending, ``best_i`` positions in the sorted storage.
     ``queries`` are the scoring-space queries: for mode ``sq8`` the int8
     query codes. ``q_split`` defaults to one bf16 query pass, what
-    ``IvfBase`` resolves its ``None`` to for the int8-decode modes."""
+    ``IvfBase`` resolves its ``None`` to for the int8-decode modes.
+    ``groups > 1`` is the forests' per-tree merge (see
+    :func:`regroup_topk`): the result is then ``[nq, groups·k]``,
+    group-major."""
+    if mode not in _FUSED_MODES or selection not in ("fold", "exact"):
+        raise ValueError(
+            f"fused scan mode={mode!r} selection={selection!r}: the fused scan "
+            f"takes modes {_FUSED_MODES} with selection 'fold' or 'exact'; the "
+            "PQ-coded modes belong to the cluster scan (ops/ivf_scan.py)"
+        )
     nq, d = queries.shape
     nseg = seg_offsets.shape[0]
     dev = queries.device
@@ -613,6 +714,8 @@ def fused_ivf_scan(
     cid = torch.clamp(cluster_ids.long(), max=nseg)
     qid = torch.clamp(probe_lists, max=nq).int().contiguous()
     task = (qid, cid.int(), cnts_x[cid].contiguous(), queries_x)
+    cosine = metric == Dist.COSINE
+    exact = selection == "exact"
 
     # the cosine epilogue: cos_plain for f32 / bf16 rows (stored
     # normalised), cos_qnorm for sq8 codes
@@ -621,36 +724,33 @@ def fused_ivf_scan(
         "bf16": (ivf_cell_scan_bf16_exact, ivf_cell_scan_bf16_fold),
         "sq8": (ivf_cell_scan_sq8_exact, ivf_cell_scan_sq8_fold),
     }
-    if mode in dense and selection in ("fold", "exact"):
-        scan = dense[mode][selection == "fold"]
-        cd, ci = scan(*task, cells, sn, kb, cosine=metric == Dist.COSINE)
-    elif mode in _I8DEC_MODES and selection == "fold":
-        sc = scales.float().contiguous()
-        cosine = metric == Dist.COSINE
-        if mode == "i8dec":
-            cd, ci = ivf_cell_scan_i8dec(*task, sc, cells, sn, kb, cosine=cosine,
-                                         q_split=q_split)
+    if mode in dense:
+        if exact:
+            cd, ci = dense[mode][0](*task, cells, sn, kb, cosine=cosine)
         else:
-            cent_x = torch.cat([seg_centroids.float(), zero_row])
-            if cosine:
-                cd, ci = ivf_cell_scan_cos(*task, cent_x, sc, cells, sn, kb, q_split=q_split)
-            elif q_split:
-                cd, ci = ivf_cell_scan_split(*task, cent_x, sc, cells, sn, kb)
-            else:
-                cd, ci = ivf_cell_scan(*task, cent_x, sc, cells, sn, kb)
+            cd, ci = dense[mode][1](*task, cells, sn, kb, cosine=cosine, fold_depth=fold_depth)
     else:
-        raise NotImplementedError(
-            f"fused scan mode={mode!r} selection={selection!r}: the fold is "
-            "ported for the int8-decode modes (K1a, K1b, K1d-i8dec), the fold "
-            "and the exact selection for f32, bf16 and sq8 cells (K1c / K1d). "
-            "No path of the JAX package selects exactly over int8-decode "
-            "cells (ROADMAP, still to port, beside groups and fold_depth=1)"
-        )
+        sc = scales.float().contiguous()
+        cent_x = None if mode == "i8dec" else torch.cat([seg_centroids.float(), zero_row])
+        if exact:
+            cd, ci = ivf_cell_scan_i8_exact(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
+                                            q_split=q_split)
+        elif mode == "i8dec":
+            cd, ci = ivf_cell_scan_i8dec(*task, sc, cells, sn, kb, cosine=cosine,
+                                         q_split=q_split, fold_depth=fold_depth)
+        elif cosine:
+            cd, ci = ivf_cell_scan_cos(*task, cent_x, sc, cells, sn, kb, q_split=q_split,
+                                       fold_depth=fold_depth)
+        elif q_split:
+            cd, ci = ivf_cell_scan_split(*task, cent_x, sc, cells, sn, kb,
+                                         fold_depth=fold_depth)
+        else:
+            cd, ci = ivf_cell_scan(*task, cent_x, sc, cells, sn, kb, fold_depth=fold_depth)
     # lane → sorted-storage row; a sentinel lane of a short segment lands
     # in the padded trailing storage rows
     gi = offs_x[cid][:, None, None] + ci.long()
 
-    return regroup_topk(cd.reshape(-1, kb), gi.reshape(-1, kb), gather_map, k)
+    return regroup_topk(cd.reshape(-1, kb), gi.reshape(-1, kb), gather_map, k, groups)
 
 
 def regroup_topk(
@@ -658,25 +758,36 @@ def regroup_topk(
     flat_i: torch.Tensor,      # [lanes, kc] their sorted-storage positions
     gather_map: torch.Tensor,  # [nq, T] flat scan lanes (pad = -1)
     k: int,
+    groups: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Regroup the scan lanes per query and take the final top-k: ``(best_d,
     best_i) [nq, k]`` ascending, padded with (+inf, 0) where a query has
     fewer than k candidates. Shared by the fused scan and the cluster
-    scan."""
+    scan.
+
+    ``groups > 1`` (K1-groups, the forests' per-tree merge): each query's
+    ``T`` gather lanes split into ``groups`` equal runs in the gather map's
+    order (``T`` must divide), each run takes its own top-k, and the result
+    is ``[nq, groups·k]``, group-major. The caller keeps one lane per probe
+    in probe order, so that a run is one tree's probes."""
     dev = flat_d.device
-    nq, kb = gather_map.shape[0], flat_d.shape[1]
+    nq, T = gather_map.shape
+    kb = flat_d.shape[1]
+    if T % groups:
+        raise ValueError(f"groups={groups} does not divide the {T} task lanes of a query")
     # pad lanes (-1) read an appended (+inf, 0) row
     flat_d = torch.cat([flat_d, torch.full((1, kb), float("inf"), device=dev)])
     flat_i = torch.cat([flat_i.long(), torch.zeros((1, kb), dtype=torch.long, device=dev)])
     gm = torch.where(gather_map < 0, flat_d.shape[0] - 1, gather_map.long())
-    gd = flat_d[gm].reshape(nq, -1)
-    gi2 = flat_i[gm].reshape(nq, -1)
+    rows = nq * groups
+    gd = flat_d[gm].reshape(rows, -1)
+    gi2 = flat_i[gm].reshape(rows, -1)
     kk = min(k, gd.shape[1])
     # stable: equal distances keep task order, as lax.top_k keeps them
     order = torch.sort(gd, dim=-1, stable=True).indices[:, :kk]
     best_d = torch.gather(gd, 1, order)
     best_i = torch.gather(gi2, 1, order)
     if kk < k:
-        best_d = torch.cat([best_d, torch.full((nq, k - kk), float("inf"), device=dev)], 1)
-        best_i = torch.cat([best_i, torch.zeros((nq, k - kk), dtype=torch.long, device=dev)], 1)
-    return best_d, best_i
+        best_d = torch.cat([best_d, torch.full((rows, k - kk), float("inf"), device=dev)], 1)
+        best_i = torch.cat([best_i, torch.zeros((rows, k - kk), dtype=torch.long, device=dev)], 1)
+    return best_d.reshape(nq, -1), best_i.reshape(nq, -1)

@@ -47,6 +47,23 @@ sampled rows against the exact selector, and reads the same scan through
 of ``benchmarks/bench_config1_exhaustive.py`` (100k × 128d, k 10 self-query)
 through the three selectors. Phase 10 queries phase 9's index with 10,000
 queries: the exact fallback, then the beam search at beam 32 and 64.
+Phase 2f holds the last K1 variants against their plain versions: fold
+depth 1 for the seven fold kernels at their phase-2 shapes, the exact
+selection over int8-decode cells (K1-exact-i8) at K1a's shapes, and
+K1c-/K1d-f32 at padded d 4,224 and 8,192 (the query in column blocks);
+phase 2g drives an IvfIndex over 20,000 × 4,224 rows through both tiers.
+Phases 3, 6 and 7 add one batch at fold depth 1 per fold kernel, and phase
+7 the exact selection over int8 residual cells through ``fused_ivf_scan``.
+Phases 11 to 14 run the tree, LSH and kMkNN indexes on phase 9's data:
+Annoy and the kd-forest (16 trees) on its first 500,000 rows, self-queries
+through the facade at k 15 (the fused route with the per-tree merge); a
+ball tree over all 1M rows with phase 10's 10,000 queries at budget 0.01
+and 0.05 (the fused route), through the facade (the exact fallback), and a
+30,000-row tree (the gather route); LSH with 8 tables at 16 bits (the
+cluster scan) and 12 bits (the fused route); kMkNN (nlist 1,000), exact up
+to ties. The last K1d-f32 call of each fused run in phases 11 to 13 is held
+against the plain version, and phase 2g also times the cluster scan, the
+route rows wider than 4,096 took before the fused kernels took them.
 
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
@@ -87,6 +104,9 @@ PQ_NQ, PQ_NPROBES = 10_000, (8, 16, 32)
 #: recall@10 floors of phase 8 at nprobe 16, a little under this script's
 #: first run on the card: {m: floor}
 PQ_RECALL_FLOOR = {64: 0.80, 16: 0.24}
+#: phase 3 at fold depth 1: a bring-up floor (one survivor per stride class
+#: loses a neighbour that shares its class with a better one)
+FOLD1_RECALL_MIN = 0.85
 #: recall@10 of IvfSq8Index at nprobe 16 that docs/benchmarks_tpu.md states
 #: for the JAX package (TPU, its own data generator): printed, not asserted
 JAX_SQ8_RECALL = 0.8437
@@ -99,6 +119,28 @@ F_N, F_D, F_K = 100_000, 128, 10
 GRAPH_RECALL_MIN = 0.998
 #: phase 10: bring-up floor of the beam search's recall@15 at the default beam
 BEAM_RECALL_MIN = 0.90
+
+# phase 2f / 2g: rows wider than 4,096 (F6)
+W_DIMS, W_N, W_NQ = (4224, 8192), 20_000, 2_000
+#: phase 2g: recall@10 floor of both tiers at nprobe 4 of 16
+WIDE_RECALL_MIN = 0.90
+# phases 11-14: phase 9's 1M x 32d lowrank rows (the forests take the first 500k)
+T_N, T_K, T_SAMPLE = 500_000, 15, 8_192
+#: floors of recall@15, a little under what this script read on the card
+#: (Annoy 0.9931 at n_probes 2 and 0.9991 at 4, the kd-forest 0.9128 at 2)
+FOREST_RECALL_MIN = {("annoy", 2): 0.98, ("annoy", 4): 0.99}
+FOREST_RECALL_FLOOR = 0.90
+BALL_BUDGETS = (0.01, 0.05)
+#: the ball tree's floors of recall@15 by budget (read: 0.8755, 0.9990)
+BALL_RECALL_MIN = {0.01: 0.85, 0.05: 0.99}
+BALL_GATHER_N = 30_000
+#: the gather route's floor (budget 0.05 of 30,000 rows; read: 0.9504)
+BALL_GATHER_RECALL_MIN = 0.93
+LSH_BITS = (16, 12)
+#: LSH's floor of recall@15 at n_probes 4 (read: 0.99995 and 0.99997, as a
+#: query's probes cover about 65% of the rows; the K1d-f32 check of the
+#: fused route is what can catch a wrong scan there)
+LSH_RECALL_MIN = 0.999
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory, fp32 on the
 #: CUDA cores, bf16 on the tensor cores
@@ -243,7 +285,7 @@ def _l2_scale(a, cosine):
     lists, task_seg, _, queries_x = a[:4]
     sn = a[-2]
     qn = queries_x.norm(dim=1)[lists.long()]
-    if len(a) == 9:     # K1a, K1b-l2: qadd = ‖q − c‖² ≤ (‖q‖ + ‖c‖)²
+    if len(a) == 9 and a[4] is not None:   # K1a, K1b-l2: qadd = ‖q − c‖² ≤ (‖q‖ + ‖c‖)²
         qn = qn + a[4].norm(dim=1)[task_seg.long()][:, None]
     return qn * qn + sn.max(dim=1).values[task_seg.long()][:, None]
 
@@ -484,7 +526,18 @@ def phase_ivf_pq(dev, x, q, ti):
     fp32_ms = _bound(cap.args["ivf_cell_scan"][0], 16, 1, FP32_FLOP_S, D * 4)[0]
     print(f"  K1a bound at the fp32 CUDA-core peak: {fp32_ms:.4f} ms", flush=True)
     entry["launches"] = launches
-    return entry, recall, index
+    # K1-fold1: the same batch at fold depth 1 (one survivor per stride class)
+    ms1, (ids1, d1), fold1 = _path_entry(
+        "ivf_scan_k1a_fold1", "ivf_cell_scan", tsf.ivf_cell_scan_plain,
+        lambda: index.query(q, K, nprobe=NPROBE, approx=True, fold_depth=1), 1, BF16_FLOP_S,
+        D * 4)
+    _check_result("IVF-PQ fold depth 1", ids1, d1, N)
+    r1 = at.calculate_recall(ti, ids1[:NQ_GT], K)
+    print(f"  fold depth 1 (K1-fold1): {ms1:.1f} ms (median of 3), recall@10 {r1:.4f}; "
+          f"depth 2: {ms:.1f} ms, {recall:.4f}", flush=True)
+    if r1 < FOLD1_RECALL_MIN:
+        raise AssertionError(f"fold depth 1 recall@10 {r1:.4f} < {FOLD1_RECALL_MIN}")
+    return entry, recall, index, fold1
 
 
 # -- phase 4: the plain IVF exact tier ----------------------------------------
@@ -805,6 +858,19 @@ def phase_quantised(dev, x, q) -> list[dict]:
               f"{at.calculate_recall(ids_e, ids_a, K):.4f})", flush=True)
         if cov < 0.99:
             raise AssertionError(f"{name}: the approximate tier covers < 0.99 of the exact tier")
+        # K1-fold1: one approximate batch at fold depth 1
+        plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+        peak, cell_bytes = {"f32": (FP32_FLOP_S, 4), "bf16": (BF16_FLOP_S, 2),
+                            "sq8": (INT8_OP_S, 1)}[mode]
+        ms1, (ids1, d1), fold1 = _path_entry(
+            f"ivf_scan_{mode}_fold1", f"ivf_cell_scan_{mode}_fold",
+            lambda *a, _p=plain, **kw: _p(*a, exact=False, **kw),
+            lambda: index.query(q, K, nprobe=NPROBE, approx=True, fold_depth=1), cell_bytes,
+            peak, exact=mode == "sq8")
+        _check_result(f"{name} fold depth 1", ids1, d1, index.n)
+        print(f"  {name} approx nprobe {NPROBE} at fold depth 1: {ms1:.1f} ms (median of 3), "
+              f"recall@10 {at.calculate_recall(ti, ids1[:NQ_GT], K):.4f}", flush=True)
+        entries.append(fold1)
         if mode == "f32":
             f32_ids = {key: r[0][:NQ_GT] for key, r in runs.items()}
             del index
@@ -839,7 +905,6 @@ def phase_quantised(dev, x, q) -> list[dict]:
         # the tensor cores would take three passes over the bf16 cells
         peaks = {"bf16": (BF16_FLOP_S, BF16_FLOP_S / 3, 2),
                  "sq8": (INT8_OP_S, INT8_OP_S, 1)}[mode]
-        plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
         for tier, sel, peak in (("approx", "fold", peaks[0]), ("exact", "exact", peaks[1])):
             entry = _kernel_entry(
                 f"ivf_scan_{mode}_{sel}", getattr(tsf, f"ivf_cell_scan_{mode}_{sel}"),
@@ -883,7 +948,7 @@ def phase_quantised_cosine(dev, x, q) -> None:
 
 
 FUSED_WRAPPERS = ("ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos",
-                  "ivf_cell_scan_i8dec") + tuple(
+                  "ivf_cell_scan_i8dec", "ivf_cell_scan_i8_exact") + tuple(
     f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold"))
 
 
@@ -905,6 +970,22 @@ def _expect_launches(what, counts, only):
     if set(counts) != ({only} if only else set()):
         raise AssertionError(f"{what}: fused launches {counts}, expected "
                              f"{only or 'none'} only")
+
+
+def _path_entry(name, wname, plain, fn, cell_bytes, peak, seg_bytes=0, cosine=None, exact=False):
+    """Drive ``fn`` (a warm-up and 3 timed runs) with every fused wrapper's
+    launches counted from 0; exactly ``wname`` must launch. The kernel's
+    JSON entry from its last call on this path. Returns (ms, result,
+    entry)."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    with _Capture(wname) as cap:
+        ms, out, counts = _counted(fn)
+    _expect_launches(name, counts, wname)
+    entry = _kernel_entry(name, getattr(tsf, wname), plain, cap.args[wname], cell_bytes, peak,
+                          seg_bytes, exact=exact, cosine=cosine)
+    entry["launches"] = counts[wname]
+    return ms, out, entry
 
 
 def _cluster_scan_stages(index, q) -> None:
@@ -963,6 +1044,13 @@ def phase_ivf_pq_complete(dev, x, q, ti, index, pq_recall) -> list[dict]:
                           1, BF16_FLOP_S / 2, D * 4)
     entry["launches"] = counts["ivf_cell_scan_split"]
     entries.append(entry)
+    ms1, (ids1, _), fold1 = _path_entry(
+        "ivf_scan_k1b_l2_fold1", "ivf_cell_scan_split", _plain_i8dec(q_split=True),
+        lambda: index.query(q, K, nprobe=NPROBE, approx=True, q_split=True, fold_depth=1),
+        1, BF16_FLOP_S / 2, D * 4)
+    print(f"  q_split=True at fold depth 1: {ms1:.1f} ms, recall@10 "
+          f"{at.calculate_recall(ti, ids1[:NQ_GT], K):.4f}", flush=True)
+    entries.append(fold1)
 
     # (b) the exact tier of phase 3's index: the cluster scan, no fused launch
     ms, (ids, d), counts = _counted(lambda: index.query(q, K, nprobe=NPROBE))
@@ -986,9 +1074,9 @@ def phase_ivf_pq_complete(dev, x, q, ti, index, pq_recall) -> list[dict]:
     cells, sn = index._fused_blocks()
     layout = (index.seg_offsets, index.seg_counts, index.seg_centroids)
 
-    def i8dec(split):
+    def i8dec(split, fold_depth=2):
         return tsf.fused_ivf_scan(q, *lists, cells, sn, *layout, K, Dist.EUCLIDEAN, "i8dec",
-                                  index.dec_scales, 16, q_split=split)
+                                  index.dec_scales, 16, q_split=split, fold_depth=fold_depth)
 
     with _Capture("ivf_cell_scan_i8dec") as cap:
         ms2, (d2, i2), counts2 = _counted(lambda: i8dec(True))
@@ -1008,7 +1096,34 @@ def phase_ivf_pq_complete(dev, x, q, ti, index, pq_recall) -> list[dict]:
                           cap.args["ivf_cell_scan_i8dec"], 1, BF16_FLOP_S)
     entry["launches"] = counts["ivf_cell_scan_i8dec"]
     entries.append(entry)
-    del cells, sn, lists, dc, ic
+    entries.append(_path_entry(
+        "ivf_scan_i8dec_fold1", "ivf_cell_scan_i8dec", _plain_i8dec(cents=False),
+        lambda: i8dec(False, fold_depth=1), 1, BF16_FLOP_S)[2])
+
+    # (c') K1-exact-i8: the exact selection over the same int8 residual
+    # cells through fused_ivf_scan(selection="exact"), two query terms,
+    # against the cluster scan (exact per cell, f32 query) of the same lists
+    msx, (dx, ix), entry = _path_entry(
+        "ivf_scan_i8_exact", "ivf_cell_scan_i8_exact",
+        lambda *a, **kw: tsf.ivf_cell_scan_plain(*a, exact=True, **kw),
+        lambda: tsf.fused_ivf_scan(q, *lists, cells, sn, *layout, K, Dist.EUCLIDEAN,
+                                   "i8dec_residual", index.dec_scales, 16, selection="exact",
+                                   q_split=True),
+        1, BF16_FLOP_S, D * 4)
+    dr, ir = ivf_cluster_scan(q, *lists, index.storage, index.store_sqnorms, *layout, K,
+                              Dist.EUCLIDEAN, index.seg_size, "i8dec_residual",
+                              codebooks=index.dec_scales)
+    rx = at.calculate_recall(ir[:NQ_GT], ix[:NQ_GT], K)
+    errx = ((dx - dr).abs() / (1.0 + dr.abs()))[ix == ir].max().item()
+    print(f"  K1-exact-i8 through fused_ivf_scan(selection='exact'): {msx:.1f} ms; recall@10 "
+          f"vs the cluster scan of the same lists {rx:.4f}, shared ids max |d| err / (1 + d) "
+          f"{errx:.2e}", flush=True)
+    # two bf16 terms carry about 16 bits of the scaled residual; the
+    # residual distances are small, so the error is read against 1 + d
+    if rx < 0.98 or errx > 5e-3:
+        raise AssertionError("K1-exact-i8 disagrees with the cluster scan")
+    entries.append(entry)
+    del cells, sn, lists, dc, ic, dr, ir
 
     # (d) cosine IVF-PQ: K1b-cos with one and two query terms, the exact tier
     torch.cuda.synchronize()
@@ -1047,6 +1162,10 @@ def phase_ivf_pq_complete(dev, x, q, ti, index, pq_recall) -> list[dict]:
                           cap.args["ivf_cell_scan_cos"], 1, BF16_FLOP_S, D * 4, cosine=True)
     entry["launches"] = counts["ivf_cell_scan_cos"]
     entries.append(entry)
+    entries.append(_path_entry(
+        "ivf_scan_k1b_cos_fold1", "ivf_cell_scan_cos", _plain_i8dec(cosine=True),
+        lambda: cos.query(q, K, nprobe=NPROBE, approx=True, fold_depth=1), 1, BF16_FLOP_S,
+        D * 4, cosine=True)[2])
     del cos, recon
 
     # (e) IVF-OPQ, m = dim: a learned rotation before the int8 fast-scan
@@ -1403,6 +1522,410 @@ def phase_kmeans_sums(dev) -> None:
           f"index_add_ {atomic:.3f} ms; the assignment step {assign:.3f} ms", flush=True)
 
 
+# -- phase 2f: the last K1 variants against their plain versions ---------------
+
+
+def phase_new_variants(dev) -> None:
+    """Phase 2f: K1-fold1 of the seven fold kernels at their phase-2 shapes
+    (K1a, K1b-l2, K1b-cos, K1d-i8dec at K1a's; K1d-f32 at d 64 and 128,
+    K1d-bf16 and K1d-sq8 at d 128 and 256, maxq 256, both epilogues),
+    K1-exact-i8 at K1a's shapes (residual l2 and cos_renorm, mode i8dec;
+    one and two query terms), and K1c-/K1d-f32 at padded d 4,224 and 8,192
+    (the query in column blocks). sq8 bit for bit; the others within phase
+    2's tolerances."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lists, task_seg, cnt, queries, cents, scales, cells, sn, kb = _k1a_inputs(gen, dev)
+    qn = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    sn_cos = ((cells.float() * scales + cents[:, None, :]) ** 2).sum(-1)
+    head = (lists, task_seg, cnt)
+    plain = tsf.ivf_cell_scan_plain
+    shapes = "(R=384, maxq=256, seg=1024, d=128, kb=16)"
+    res, res_cos = (*head, queries, cents, scales, cells, sn, kb), (*head, qn, cents, scales,
+                                                                     cells, sn_cos, kb)
+    dec, dec_cos = (*head, queries, None, scales, cells, sn, kb), (*head, qn, None, scales,
+                                                                   cells, sn, kb)
+    # (name, wrapper, its args, its keywords, the plain version's args and keywords)
+    fold1 = [
+        ("K1a", tsf.ivf_cell_scan, res, {}, res, {}),
+        ("K1b-l2", tsf.ivf_cell_scan_split, res, {}, res, {"q_split": True}),
+        ("K1b-cos", tsf.ivf_cell_scan_cos, res_cos, {"q_split": True}, res_cos,
+         {"cosine": True, "q_split": True}),
+        ("K1d-i8dec", tsf.ivf_cell_scan_i8dec, dec[:4] + dec[5:], {"cosine": False}, dec, {}),
+    ]
+    for name, fn, a, kw, pa, pkw in fold1:
+        cosine = pkw.get("cosine", False)
+        _agree(f"{name} fold depth 1 {shapes}", *fn(*a, fold_depth=1, **kw),
+               *plain(*pa, fold_depth=1, **pkw), scale=_l2_scale(pa, cosine))
+        ms1 = _cuda_ms(lambda: fn(*a, fold_depth=1, **kw), reps=3)
+        ms2 = _cuda_ms(lambda: fn(*a, **kw), reps=3)
+        print(f"    kernel at depth 1 {ms1:.3f} ms, at depth 2 {ms2:.3f} ms", flush=True)
+    for name, a, cosine, split in (("residual l2", res, False, False),
+                                   ("residual l2", res, False, True),
+                                   ("residual cos_renorm", res_cos, True, False),
+                                   ("residual cos_renorm", res_cos, True, True),
+                                   ("i8dec l2", dec, False, False),
+                                   ("i8dec cos_renorm", dec_cos, True, True)):
+        kw = {"cosine": cosine, "q_split": split}
+        _agree(f"K1-exact-i8 {name} nq_t {1 + split} {shapes}",
+               *tsf.ivf_cell_scan_i8_exact(*a, **kw), *plain(*a, exact=True, **kw),
+               scale=_l2_scale(a, cosine))
+        ms = _cuda_ms(lambda: tsf.ivf_cell_scan_i8_exact(*a, **kw), reps=3)
+        pms = _cuda_ms(lambda: plain(*a, exact=True, **kw), reps=3)
+        print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+    del lists, cells, sn, sn_cos, res, res_cos, dec, dec_cos
+
+    for mode, dims in (("f32", (64, 128)), ("bf16", (128, 256)), ("sq8", (128, 256))):
+        wrapper = getattr(tsf, f"ivf_cell_scan_{mode}_fold")
+        mplain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+        for d in dims:
+            t = _dense_inputs(gen, dev, mode, d, 256)
+            for cosine in (False, True):
+                epi = ("cos_qnorm" if mode == "sq8" else "cos_plain") if cosine else "l2"
+                _agree(f"K1d-{mode} fold depth 1 {epi} (R=192, maxq=256, seg=1024, d={d}, kb=16)",
+                       *wrapper(*t, 16, cosine=cosine, fold_depth=1),
+                       *mplain(*t, 16, cosine, exact=False, fold_depth=1), exact=mode == "sq8")
+            ms1 = _cuda_ms(lambda: wrapper(*t, 16, fold_depth=1), reps=3)
+            ms2 = _cuda_ms(lambda: wrapper(*t, 16), reps=3)
+            print(f"    l2 kernel at depth 1 {ms1:.3f} ms, at depth 2 {ms2:.3f} ms", flush=True)
+            del t
+
+    for d in W_DIMS:
+        t = _dense_inputs(gen, dev, "f32", d, 64, R=64, nseg=20)
+        for exact, kb in ((True, 24), (False, 16)):
+            wrapper = tsf.ivf_cell_scan_f32_exact if exact else tsf.ivf_cell_scan_f32_fold
+            for cosine in (False, True):
+                name = (f"{'K1c' if exact else 'K1d'}-f32 wide {'cos_plain' if cosine else 'l2'} "
+                        f"(R=64, maxq=64, seg=1024, d={d}, kb={kb})")
+                _agree(name, *wrapper(*t, kb, cosine=cosine),
+                       *tsf.ivf_cell_scan_f32_plain(*t, kb, cosine, exact=exact),
+                       scale=_l2_scale((*t, kb), cosine))
+            ms = _cuda_ms(lambda: wrapper(*t, kb), reps=3)
+            pms = _cuda_ms(lambda: tsf.ivf_cell_scan_f32_plain(*t, kb, False, exact=exact),
+                           reps=3)
+            bound, by, macs = _bound(t, kb, 4, FP32_FLOP_S)
+            print(f"    l2 kernel {ms:.3f} ms ({2 * macs / ms / 1e9:.2f} TFLOP/s), plain "
+                  f"{pms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+        del t
+
+
+def phase_wide_index(dev) -> list[dict]:
+    """Phase 2g: an IvfIndex over rows wider than 4,096 (F6): 20,000 ×
+    4,224 Gaussian clusters, nlist 16, 2,000 queries, nprobe 4, k 10: both
+    tiers take the fused kernels (K1c-/K1d-f32 with the query in column
+    blocks), recall@10 against an exact scan."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x_np, _ = generate_clustered_data(W_N, W_DIMS[0], 20, seed=SEED)
+    x = torch.as_tensor(x_np, device=dev)
+    q = torch.as_tensor(subsample_with_noise(x_np, W_NQ, seed=SEED), device=dev)
+    del x_np
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index = at.build_ivf_index(x, nlist=16, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    ti, _ = at.build_exhaustive_index(x, device=dev).query(q, K)
+    print(f"  build {time.time() - t0:.2f} s, seg_size {index.seg_size}, padded d "
+          f"{index._fused_blocks()[0].shape[2]}", flush=True)
+    entries, tier_ms = [], {}
+    for tier, exact in (("exact", True), ("approx", False)):
+        sel = "exact" if exact else "fold"
+        ms, (ids, d), entry = _path_entry(
+            f"ivf_scan_f32_{sel} (wide rows, d {W_DIMS[0]})", f"ivf_cell_scan_f32_{sel}",
+            lambda *a, _e=exact, **kw: tsf.ivf_cell_scan_f32_plain(*a, exact=_e, **kw),
+            lambda: index.query(q, K, nprobe=4, approx=not exact), 4, FP32_FLOP_S)
+        rec = at.calculate_recall(ti, ids, K)
+        print(f"  {tier} tier: {ms:.1f} ms (median of 3), recall@10 {rec:.4f}", flush=True)
+        if not torch.isfinite(d).all() or rec < WIDE_RECALL_MIN:
+            raise AssertionError(f"wide rows, {tier} tier: recall@10 {rec:.4f} < "
+                                 f"{WIDE_RECALL_MIN} or distances not finite")
+        entries.append(entry)
+        tier_ms[tier] = ms
+    # the route both tiers took while the fused kernels refused rows wider
+    # than 4,096: the cluster scan, through the same query call
+    index._scan = lambda qq, k, nprobe, *a: index._scan_cluster(qq, k, nprobe)
+    ms_c, (ids, _) = _wall_ms(lambda: index.query(q, K, nprobe=4))
+    del index._scan
+    rec = at.calculate_recall(ti, ids, K)
+    slower = [t for t, ms in tier_ms.items() if ms > ms_c]
+    print(f"  the cluster scan as both tiers' route: {ms_c:.1f} ms (median of 3), recall@10 "
+          f"{rec:.4f}; fused exact / approximate tier {tier_ms['exact'] / ms_c:.3f}x / "
+          f"{tier_ms['approx'] / ms_c:.3f}x of it"
+          + (f" (a regression: {', '.join(slower)})" if slower else ""), flush=True)
+    return entries
+
+
+# -- phases 11-14: the tree, LSH and kMkNN indexes -------------------------------
+
+
+def _sample_truth(x, q, k):
+    """``(ids, dists)`` of the exact top-k of queries ``q`` against ``x``
+    (the exact selector, fp32)."""
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.utils.dist import Dist, sq_norms
+
+    d, i = blocked_query_topk(q, x, k, Dist.EUCLIDEAN, x_sqnorm=sq_norms(x))
+    return i, d
+
+
+def _timed(fn):
+    """Seconds of ``fn()`` ended by a synchronise, and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _f32_fold_plain(*a, **kw):
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    return tsf.ivf_cell_scan_f32_plain(*a, exact=False, **kw)
+
+
+def _f32_fold_check(name, call, launches=None):
+    """K1d-f32 against its plain version on a path's captured call, at
+    phase 2's tolerance. With ``launches`` (the count of the path's run),
+    also time both and return the kernel's JSON entry."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    if launches is None:
+        a, kw = call
+        _agree(name, *tsf.ivf_cell_scan_f32_fold(*a, **kw), *_f32_fold_plain(*a, **kw),
+               scale=_l2_scale(a, False))
+        return None
+    entry = _kernel_entry(name, tsf.ivf_cell_scan_f32_fold, _f32_fold_plain, call, 4,
+                          FP32_FLOP_S, cosine=False)
+    entry["launches"] = launches
+    return entry
+
+
+def _check_ids(name, ids, d, nq, k, n):
+    if ids.shape != (nq, k) or ids.min() < 0 or ids.max() >= n:
+        raise AssertionError(f"{name}: bad ids")
+    if not torch.isfinite(d).all() or (d.diff(dim=1) < 0).any():
+        raise AssertionError(f"{name}: distances not finite and ascending")
+
+
+def _merge_times(args) -> None:
+    """K1-groups on one query block of phase 11 (host tensor code, no
+    kernel): the per-tree merge against one global top-k of the same lanes,
+    and its bound, the bytes it must move (the gathered lanes' distances
+    and positions and the gather map read once, the result written once)."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    flat_d, flat_i, gmap, k, groups = args
+    ms_g = _cuda_ms(lambda: tsf.regroup_topk(flat_d, flat_i, gmap, k, groups), reps=5)
+    ms_1 = _cuda_ms(lambda: tsf.regroup_topk(flat_d, flat_i, gmap, k), reps=5)
+    nq, T = gmap.shape
+    lanes = nq * T * flat_d.shape[1]
+    nbytes = lanes * 12 + gmap.numel() * 8 + nq * groups * k * 12
+    print(f"  K1-groups on one block ({nq} queries, {T} task lanes of {flat_d.shape[1]}, "
+          f"groups {groups}, k {k}): {ms_g:.3f} ms; one global top-{k} of the same lanes "
+          f"{ms_1:.3f} ms; bound {nbytes / HBM_BYTES_S * 1e3:.4f} ms (bytes: "
+          f"{nbytes / 1e9:.4f} GB)", flush=True)
+
+
+def phase_forests(dev, x_np) -> dict:
+    """Phase 11: Annoy and the kd-forest, 16 trees, leaf 64, on the first
+    500,000 rows of phase 9's data; self-queries through the facade at k 15
+    (the fused route: K1d-f32 with the per-tree merge, groups = 16), recall
+    on 8,192 sampled rows against an exact scan. Each run's last K1d-f32
+    call is held against the plain version; returns the kernel's entry
+    from Annoy at n_probes 2."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    x = torch.as_tensor(x_np[:T_N], device=dev)
+    rows = torch.as_tensor(np.random.default_rng(1).choice(T_N, T_SAMPLE, replace=False),
+                           device=dev)
+    truth, _ = _sample_truth(x, x[rows], T_K)
+    entry = None
+    for name, build, query, probes in (
+        ("annoy", at.build_annoy_index, at.query_annoy_self, (2, 4)),
+        ("kd", at.build_kd_tree_index, at.query_kd_tree_self, (2,)),
+    ):
+        build_s, index = _timed(lambda: build(x, n_trees=16, leaf=64, seed=SEED, device=dev))
+        _, scan = _timed(index._scan_setup)
+        print(f"  {name}: build {build_s:.2f} s (16 trees, {index.trees[0].n_levels} levels); "
+              f"scan view: cells of {scan['cell']} rows, {scan['nseg_tree']} a tree, "
+              f"{scan['cells'].numel() * 4 / 1e9:.3f} GB", flush=True)
+        for p in probes:
+            plan = index._fused_plan(T_N, T_K, p)
+            tsf.ivf_cell_scan_f32_fold.launches = 0
+            with _Capture("regroup_topk", "ivf_cell_scan_f32_fold") as cap:
+                query_s, (ids, d) = _timed(lambda: query(index, T_K, p, None, True))
+            launches = tsf.ivf_cell_scan_f32_fold.launches
+            scan_call = cap.args["ivf_cell_scan_f32_fold"]
+            if name == "annoy" and p == 2:
+                _merge_times(cap.args["regroup_topk"][0])
+                entry = _f32_fold_check("ivf_scan_f32_fold (forest, annoy p2, d 32)",
+                                        scan_call, launches)
+            else:
+                _f32_fold_check(f"ivf_scan_f32_fold ({name} p{p})", scan_call)
+            del cap, scan_call
+            _check_ids(f"{name} p{p}", ids, d, T_N, T_K, T_N)
+            rec = at.calculate_recall(truth, ids[rows], T_K)
+            blocks = -(-T_N // plan[1])
+            print(f"  {name} self-query n_probes {p}: {query_s:.3f} s, recall@15 {rec:.6f} "
+                  f"(8,192 rows); K1d-f32 launches {launches} ({blocks} query blocks of "
+                  f"{plan[1]}, maxq {plan[2]}, R {plan[3]})", flush=True)
+            if launches != blocks:
+                raise AssertionError(f"{name}: the fused route ran {launches} launches, "
+                                     f"expected {blocks}")
+            floor = FOREST_RECALL_MIN.get((name, p), FOREST_RECALL_FLOOR)
+            if rec < floor:
+                raise AssertionError(f"{name} n_probes {p}: recall@15 {rec:.6f} < {floor}")
+        del index, scan
+    return entry
+
+
+def phase_balltree(dev, x_np, q_np) -> dict:
+    """Phase 12: a ball tree over phase 9's 1M rows, phase 10's 10,000
+    queries, k 15: the fused route (8,192 cells of 128 rows, K1d-f32) at
+    budget 0.01 and 0.05, each run's last K1d-f32 call held against the
+    plain version; the facade's default call (the exact fallback), and the
+    gather route on a 30,000-row tree (256 cells). Returns the kernel's
+    entry from budget 0.01."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    os.environ.pop("ANNSEARCH_NO_EXACT_FALLBACK", None)
+    x = torch.as_tensor(x_np, device=dev)
+    q = torch.as_tensor(q_np, device=dev)
+    truth, _ = _sample_truth(x, q, T_K)
+    build_s, index = _timed(lambda: at.build_balltree_index(x, seed=SEED, device=dev))
+    _, scan = _timed(index._scan_setup)
+    print(f"  build {build_s:.2f} s ({index.tree.n_levels} levels); {scan['nseg']} cells of "
+          f"{scan['cell']} rows", flush=True)
+    entry = None
+    for budget in BALL_BUDGETS:
+        tsf.ivf_cell_scan_f32_fold.launches = 0
+        with _Capture("ivf_cell_scan_f32_fold") as cap:
+            ms, (ids, d) = _wall_ms(lambda: index.query(q, T_K, budget=budget,
+                                                        exact_fallback=False))
+        launches = tsf.ivf_cell_scan_f32_fold.launches
+        _check_ids(f"ball b{budget}", ids, d, len(q_np), T_K, len(x_np))
+        rec = at.calculate_recall(truth, ids, T_K)
+        print(f"  fused route, budget {budget}: {ms:.1f} ms (median of 3), recall@15 "
+              f"{rec:.6f}; K1d-f32 launches {launches} over 4 batches", flush=True)
+        if launches != 4 or rec < BALL_RECALL_MIN[budget]:
+            raise AssertionError(f"ball tree budget {budget}: {launches} launches, recall@15 "
+                                 f"{rec:.6f} (floor {BALL_RECALL_MIN[budget]})")
+        e = _f32_fold_check(f"ivf_scan_f32_fold (ball tree, b{budget}, d 32)",
+                            cap.args["ivf_cell_scan_f32_fold"],
+                            launches if budget == BALL_BUDGETS[0] else None)
+        entry = entry or e
+        del cap
+    tsf.ivf_cell_scan_f32_fold.launches = 0
+    ms, (ids, d) = _wall_ms(lambda: at.query_balltree_index(q, index, T_K, return_dist=True))
+    rec = at.calculate_recall(truth, ids, T_K)
+    print(f"  query_balltree_index (the exact fallback): {ms:.1f} ms, recall@15 {rec:.6f}, "
+          f"fused launches {tsf.ivf_cell_scan_f32_fold.launches}", flush=True)
+    if rec < 1.0 or tsf.ivf_cell_scan_f32_fold.launches:
+        raise AssertionError("the ball tree's exact fallback is not exact or ran the scan")
+    del index, scan
+    small = x[:BALL_GATHER_N]
+    qs = q[:2000]
+    t_small, _ = _sample_truth(small, qs, T_K)
+    st = at.build_balltree_index(small, seed=SEED, device=dev)
+    if st._scan_setup() is not None:
+        raise AssertionError("the 30,000-row ball tree took the fused route")
+    tsf.ivf_cell_scan_f32_fold.launches = 0
+    ms, (ids, d) = _wall_ms(lambda: st.query(qs, T_K, exact_fallback=False))
+    rec = at.calculate_recall(t_small, ids, T_K)
+    print(f"  gather route ({BALL_GATHER_N} rows, {st.tree.centers[-1].shape[0]} leaves, "
+          f"2,000 queries, budget 0.05): {ms:.1f} ms, recall@15 {rec:.6f}, fused launches "
+          f"{tsf.ivf_cell_scan_f32_fold.launches}", flush=True)
+    if tsf.ivf_cell_scan_f32_fold.launches or rec < BALL_GATHER_RECALL_MIN:
+        raise AssertionError(f"the ball tree's gather route launched the scan, or its "
+                             f"recall@15 {rec:.6f} < {BALL_GATHER_RECALL_MIN}")
+    return entry
+
+
+def phase_lsh(dev, x_np, q_np) -> dict:
+    """Phase 13: LSH over phase 9's 1M rows, 8 tables, phase 10's 10,000
+    queries, k 15, n_probes 4: 16 bits (64-row segments: the cluster scan
+    with k_cell) and 12 bits (256-row segments: the fused route, K1d-f32,
+    its last call held against the plain version). Returns the kernel's
+    entry from the fused route."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    x = torch.as_tensor(x_np, device=dev)
+    q = torch.as_tensor(q_np, device=dev)
+    truth, _ = _sample_truth(x, q, T_K)
+    entry = None
+    for bits in LSH_BITS:
+        build_s, index = _timed(lambda: at.build_lsh_index(x, bits_per_hash=bits, seed=SEED,
+                                                           device=dev))
+        sizes = np.diff(index._cluster_ptr)
+        fused = index.seg_size % 128 == 0
+        print(f"  {bits} bits: build {build_s:.2f} s, seg_size {index.seg_size}, "
+              f"{int(index.seg_offsets.shape[0])} segments, s_max {index._s_max()}, "
+              f"{(sizes == 0).mean():.4f} of buckets empty", flush=True)
+        tsf.ivf_cell_scan_f32_fold.launches = 0
+        with _Capture("ivf_cell_scan_f32_fold") as cap:
+            ms, (ids, d) = _wall_ms(lambda: index.query(q, T_K, exact_fallback=False), reps=1)
+        launches = tsf.ivf_cell_scan_f32_fold.launches
+        rec = at.calculate_recall(truth, ids, T_K)
+        print(f"  {bits} bits ({'fused' if fused else 'cluster scan'} route): {ms:.1f} ms "
+              f"(the second of 2), recall@15 {rec:.6f}, last_fallback_rate "
+              f"{index.last_fallback_rate:.6f}; K1d-f32 launches {launches} over 2 batches",
+              flush=True)
+        _check_ids(f"lsh {bits} bits", ids, d, len(q_np), T_K, len(x_np))
+        if (launches > 0) != fused or rec < LSH_RECALL_MIN:
+            raise AssertionError(f"LSH {bits} bits: {launches} fused launches, recall@15 "
+                                 f"{rec:.6f} (floor {LSH_RECALL_MIN})")
+        if fused:
+            entry = _f32_fold_check(f"ivf_scan_f32_fold (LSH, {bits} bits, d 32)",
+                                    cap.args["ivf_cell_scan_f32_fold"], launches)
+        del index, cap
+    if entry is None:
+        raise AssertionError("no LSH run took the fused route")
+    return entry
+
+
+def phase_kmknn(dev, x_np, q_np) -> None:
+    """Phase 14: kMkNN over phase 9's 1M rows (nlist 1,000), phase 10's
+    10,000 queries, k 15: both phases through the cluster scan. Exact:
+    recall@15 1.0, ties counted by equal k-th distances."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models import kmknn as tkm
+
+    x = torch.as_tensor(x_np, device=dev)
+    q = torch.as_tensor(q_np, device=dev)
+    truth, td = _sample_truth(x, q, T_K)
+    build_s, index = _timed(lambda: at.build_kmknn_index(x, seed=SEED, device=dev))
+    print(f"  build {build_s:.2f} s: nlist {index.nlist}, seg_size {index.seg_size}, s_max "
+          f"{index._s_max}", flush=True)
+    ms, (ids, d) = _wall_ms(lambda: index.query(q, T_K, exact_fallback=False))
+    _check_ids("kmknn", ids, d, len(q_np), T_K, len(x_np))
+    # ties: a returned row at the true k-th distance (within the f32 grain
+    # of the ‖q‖² + ‖x‖² − 2q·x identity) counts as found
+    x64, q64 = x.double(), q.double()
+    d_ret = ((q64[:, None, :] - x64[ids]) ** 2).sum(-1)
+    d_true = ((q64[:, None, :] - x64[truth]) ** 2).sum(-1)
+    kth = d_true.max(dim=1).values
+    grain = 2.0 ** -20 * ((q64 * q64).sum(1) + (x64 * x64).sum(1).max())
+    hit = d_ret <= (kth + grain)[:, None]
+    rec_ties = hit.double().mean().item()
+    rec = at.calculate_recall(truth, ids, T_K)
+    qp = index._prep_queries(q)
+    p0 = max(1, int(np.sqrt(index.nlist)))
+    _, _, need = tkm._kmknn_phase1(index, qp, T_K, p0)
+    extra = int(need.sum())
+    print(f"  query: {ms:.1f} ms (median of 3), recall@15 {rec:.6f}, with ties {rec_ties:.6f}; "
+          f"phase 1 scans {p0} cells a query ({p0 * len(q_np):,} pairs), phase 2 adds {extra:,} "
+          f"pairs = {extra / (len(q_np) * index.nlist):.4f} of all (query, cell) pairs",
+          flush=True)
+    if rec_ties < 1.0:
+        raise AssertionError(f"kMkNN is not exact: recall@15 with ties {rec_ties:.6f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1446,12 +1969,26 @@ def main() -> int:
 
     phase("2e: K2 against its plain version")
     phase_flat_kernel(dev)
+    phase("2f: K1-fold1, K1-exact-i8 and wide rows against their plain versions")
+    phase_new_variants(dev)
+    phase("2g: IvfIndex over 20,000 x 4,224 rows (wide rows, both tiers)")
+    wide = phase_wide_index(dev)
 
     phase("9: the kNN graph, 1M x 32d lowrank, k 15 (NNDescentIndex, K2)")
     k2, graph_index, graph_x = phase_knn_graph(dev)
     phase("10: 10,000 queries on the graph index: exact fallback and beam search")
     phase_graph_queries(dev, graph_index, graph_x)
-    del graph_index, graph_x
+    del graph_index
+    graph_q = subsample_with_noise(graph_x, G_NQ, seed=SEED)
+    phase("11: Annoy and kd-forest, 500k x 32d, 16 trees, self-queries (K1-groups)")
+    forest = phase_forests(dev, graph_x)
+    phase("12: ball tree, 1M x 32d, 10,000 queries: fused route, exact fallback, gather route")
+    ball = phase_balltree(dev, graph_x, graph_q)
+    phase("13: LSH, 1M x 32d, 8 tables, 16 and 12 bits, 10,000 queries")
+    lsh = phase_lsh(dev, graph_x, graph_q)
+    phase("14: kMkNN, 1M x 32d, nlist 1,000, 10,000 queries")
+    phase_kmknn(dev, graph_x, graph_q)
+    del graph_x, graph_q
     phase("9b: the flat index, 100k x 128d self-query, k 10, three selectors")
     k2_flat = phase_flat_index(dev)
 
@@ -1465,7 +2002,7 @@ def main() -> int:
     ti, _ = at.build_exhaustive_index(x, device=dev).query(q[:NQ_GT], K)
     print(f"  data {N}x{D} + {NQ} queries and the exact scan in "
           f"{time.time() - t0:.1f} s", flush=True)
-    k1a, pq_recall, pq_index = phase_ivf_pq(dev, x, q, ti)
+    k1a, pq_recall, pq_index, k1a_fold1 = phase_ivf_pq(dev, x, q, ti)
 
     phase("4: IvfIndex exact tier, 500k x 64d lowrank, nprobe 22, k 15")
     exact = phase_exact_tier(dev)
@@ -1501,7 +2038,8 @@ def main() -> int:
           f"total {time.time() - t_start:.1f} s", flush=True)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1a, exact, fold, *quant, *i8dec, k2, k2_flat]}), flush=True)
+    print(json.dumps({"kernels": [k1a, k1a_fold1, exact, fold, *quant, *i8dec, *wide, forest,
+                                  ball, lsh, k2, k2_flat]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -158,3 +158,23 @@ def test_cluster_scan_refuses_the_binary_modes():
             t_scan(z, z, z, z, z, z, z, z, z, 1, Dist.EUCLIDEAN, 8, mode)
     with pytest.raises(ValueError, match="unknown"):
         t_scan(z, z, z, z, z, z, z, z, z, 1, Dist.EUCLIDEAN, 8, "f16")
+
+
+def test_cluster_scan_k_cell_matches_jax(carried):
+    """``k_cell`` (LSH's per-cell width under a wider final k): each cell
+    keeps its top 3, the merge takes 12, as the JAX scan does."""
+    j, q_enc, lists = carried("f32", "euclidean")
+    args = (j.storage, j.store_sqnorms, j.seg_offsets, j.seg_counts, j._scan_seg_centroids())
+    wd, wi = j_scan(q_enc, *(jnp.asarray(a) for a in lists), *args, 12, JDist.EUCLIDEAN,
+                    j.seg_size, "f32", k_cell=3)
+    gd, gi = t_scan(_t(q_enc), *(_t(a) for a in lists), *(_t(a) for a in args), 12,
+                    Dist.EUCLIDEAN, j.seg_size, "f32", k_cell=3)
+    assert gd.shape == (q_enc.shape[0], 12)
+    np.testing.assert_array_equal(np.isinf(gd.numpy()), np.isinf(np.asarray(wd)))
+    fin = np.isfinite(np.asarray(wd))
+    assert np.all(np.abs(gd.numpy()[fin] - np.asarray(wd)[fin])
+                  <= 1e-4 * (1.0 + np.abs(np.asarray(wd)[fin])))
+    assert (gi.numpy() == np.asarray(wi)).mean() >= 0.98
+    full, _ = t_scan(_t(q_enc), *(_t(a) for a in lists), *(_t(a) for a in args), 12,
+                     Dist.EUCLIDEAN, j.seg_size, "f32")
+    assert (full.numpy() <= gd.numpy()).all() and (full.numpy() != gd.numpy()).any()

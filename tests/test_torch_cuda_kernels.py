@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1a, K1b-l2, K1b-cos, K1d-i8dec, K1c-f32,
-K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8 and K2) against their plain
-PyTorch versions, on the card, and the IVF and graph paths on the card
-against the CPU.
+K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8, their fold-1 and wide-row
+instances, K1-exact-i8 and K2) against their plain PyTorch versions, on the
+card, and the IVF, graph, tree, LSH and kMkNN paths on the card against the
+CPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present. On a
 machine with a card and without JAX, run them with
@@ -575,3 +576,164 @@ def test_nndescent_on_the_card_matches_the_cpu(dev, metric):
     fi, _ = gpu.query(q, 10, exact_fallback=True)
     ei, _ = cpu.query(q, 10, exact_fallback=True)
     assert (fi.cpu() == ei).float().mean().item() >= 0.999
+
+
+# -- K1-fold1, K1-exact-i8 and wide rows ------------------------------------------
+
+
+def _dense_args(gen, dev, mode, **shape):
+    args = list(_f32_tasks(gen, dev, **shape))
+    if mode == "bf16":
+        args[4] = args[4].to(torch.bfloat16)
+    elif mode == "sq8":   # small codes: integer sums stay below 2^24 at any width here
+        args[4] = torch.randint(-8, 9, args[4].shape, generator=gen, device=dev,
+                                dtype=torch.int8)
+        args[4][..., args[3].shape[1]:] = 0
+        args[3] = torch.randint(-8, 9, args[3].shape, generator=gen, device=dev).float()
+        args[3][-1] = 0
+    args[5] = (args[4].float() ** 2).sum(-1)
+    return args
+
+
+@pytest.mark.parametrize("wrapper,cents,kw", [
+    ("ivf_cell_scan", True, {}), ("ivf_cell_scan_split", True, {}),
+    ("ivf_cell_scan_cos", True, {"q_split": True}),
+    ("ivf_cell_scan_i8dec", False, {"cosine": True}),
+], ids=["K1a", "K1b-l2", "K1b-cos", "K1d-i8dec"])
+def test_i8dec_fold1_matches_plain(dev, wrapper, cents, kw):
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cosine = wrapper == "ivf_cell_scan_cos" or kw.get("cosine", False)
+    args = _i8_args(gen, dev, cosine, cents, R=192, maxq=64, seg=1024)
+    plain_args = list(args)
+    if not cents:
+        plain_args[4] = None
+        del args[4]
+    fn = getattr(tsf, wrapper)
+    before = fn.launches
+    kd, ki = fn(*args, 16, fold_depth=1, **kw)
+    assert fn.launches == before + 1
+    pd, pi = tsf.ivf_cell_scan_plain(*plain_args, 16, cosine=cosine,
+                                     q_split=wrapper == "ivf_cell_scan_split" or kw.get(
+                                         "q_split", False), fold_depth=1)
+    _assert_close(kd, ki, pd, pi)
+    assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "sq8"])
+@pytest.mark.parametrize("cosine", [False, True], ids=["l2", "cos"])
+def test_dense_fold1_matches_plain(dev, mode, cosine):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    args = _dense_args(gen, dev, mode, R=192, maxq=64, seg=1024)
+    fn = getattr(tsf, f"ivf_cell_scan_{mode}_fold")
+    kd, ki = fn(*args, 16, cosine=cosine, fold_depth=1)
+    pd, pi = getattr(tsf, f"ivf_cell_scan_{mode}_plain")(*args, 16, cosine, exact=False,
+                                                          fold_depth=1)
+    if mode == "sq8":
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    else:
+        _assert_close(kd, ki, pd, pi)
+
+
+@pytest.mark.parametrize("cents,cosine,q_split", [
+    (True, False, False), (True, False, True), (True, True, False), (True, True, True),
+    (False, False, False), (False, True, True),
+], ids=["residual-l2", "residual-l2-nq_t2", "residual-cos", "residual-cos-nq_t2",
+        "i8dec-l2", "i8dec-cos-nq_t2"])
+@pytest.mark.parametrize("shape,kb", [(dict(), 16), (dict(R=384, maxq=256, seg=1024), 16),
+                                      (dict(seg=128, maxq=32), 128)])
+def test_i8_exact_matches_plain(dev, cents, cosine, q_split, shape, kb):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    args = _i8_args(gen, dev, cosine, cents, **shape)
+    if not cents:
+        args[4] = None
+    before = tsf.ivf_cell_scan_i8_exact.launches
+    kd, ki = tsf.ivf_cell_scan_i8_exact(*args, kb, cosine=cosine, q_split=q_split)
+    assert tsf.ivf_cell_scan_i8_exact.launches == before + 1
+    pd, pi = tsf.ivf_cell_scan_plain(*args, kb, cosine=cosine, q_split=q_split, exact=True)
+    _assert_close(kd, ki, pd, pi)
+    assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+    assert (kd[2, :, 5:] == np.float32(3e38)).all() and (ki[2, :, 5:] == 0).all()
+
+
+@pytest.mark.parametrize("d", [4224, 8192])
+@pytest.mark.parametrize("mode,exact", [("f32", True), ("f32", False), ("bf16", False),
+                                        ("sq8", True)])
+def test_wide_rows_match_plain(dev, d, mode, exact):
+    """F6: padded rows past 4,096 columns, the query staged in column
+    blocks."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    args = _dense_args(gen, dev, mode, R=24, maxq=16, seg=256, d=d, nq=40)
+    fn = getattr(tsf, f"ivf_cell_scan_{mode}_{'exact' if exact else 'fold'}")
+    kd, ki = fn(*args, 16)
+    pd, pi = getattr(tsf, f"ivf_cell_scan_{mode}_plain")(*args, 16, False, exact=exact)
+    if mode == "sq8":
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    else:   # sums of d products: the tolerance grows with √d
+        torch.cuda.synchronize()
+        assert torch.all((kd - pd).abs() <= 1e-4 * (1.0 + pd.abs()) * (d / 128) ** 0.5)
+        assert (ki == pi).float().mean().item() >= 0.99
+    wide = _i8_args(gen, dev, False, True, R=24, maxq=16, seg=256, d=d, nq=40)
+    kd, ki = tsf.ivf_cell_scan(*wide, 16)
+    pd, pi = tsf.ivf_cell_scan_plain(*wide, 16)
+    torch.cuda.synchronize()
+    assert (ki == pi).float().mean().item() >= 0.99
+
+
+# -- the tree, LSH and kMkNN paths on the card --------------------------------------
+
+
+def test_forest_and_ball_on_the_card_match_the_cpu(dev, tmp_path, monkeypatch):
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models import trees
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 32, 20, seed=8)
+    x = x * np.float32(0.125)
+    q = subsample_with_noise(x, 400, seed=8)
+    cpu = at.build_annoy_index(x, n_trees=8, seed=0, device="cpu")
+    cpu.save(str(tmp_path / "annoy"))
+    gpu = trees.AnnoyIndex.load(str(tmp_path / "annoy.npz"), device=dev)
+    before = tsf.ivf_cell_scan_f32_fold.launches
+    gi, gd = gpu.query(q, 10, n_probes=4, exact_fallback=False)
+    assert tsf.ivf_cell_scan_f32_fold.launches > before
+    ci, cd = cpu.query(q, 10, n_probes=4, exact_fallback=False)
+    assert (gi.cpu() == ci).float().mean().item() >= 0.99
+    monkeypatch.setattr(trees, "_BALL_FUSED_MIN_CELLS", 1)
+    bc = at.build_balltree_index(x, device="cpu")
+    bc.save(str(tmp_path / "ball"))
+    bg = trees.BallTreeIndex.load(str(tmp_path / "ball"), device=dev)
+    before = tsf.ivf_cell_scan_f32_fold.launches
+    gi, _ = bg.query(q, 10, budget=0.05, exact_fallback=False)
+    assert tsf.ivf_cell_scan_f32_fold.launches == before + 1
+    ci, _ = bc.query(q, 10, budget=0.05, exact_fallback=False)
+    assert (gi.cpu() == ci).float().mean().item() >= 0.99
+
+
+def test_lsh_and_kmknn_on_the_card_match_the_cpu(dev, tmp_path):
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.kmknn import KmknnIndex
+    from annsearch_tpu_torch.models.lsh import LSHIndex
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 32, 20, seed=9)
+    x = x * np.float32(0.125)
+    q = subsample_with_noise(x, 400, seed=9)
+    for bits in (16, 7):             # the cluster scan; the fused scan (seg 256)
+        cpu = at.build_lsh_index(x, bits_per_hash=bits, device="cpu")
+        cpu.save(str(tmp_path / "lsh"))
+        gpu = LSHIndex.load(str(tmp_path / "lsh.npz"), device=dev)
+        before = tsf.ivf_cell_scan_f32_fold.launches
+        gi, _ = gpu.query(q, 10, exact_fallback=False)
+        assert (tsf.ivf_cell_scan_f32_fold.launches > before) == (cpu.seg_size % 128 == 0)
+        ci, _ = cpu.query(q, 10, exact_fallback=False)
+        assert (gi.cpu() == ci).float().mean().item() >= 0.99
+    km = at.build_kmknn_index(x, seed=0, device="cpu")
+    km.save(str(tmp_path / "km"))
+    kg = KmknnIndex.load(str(tmp_path / "km.npz"), device=dev)
+    gi, gd = kg.query(q, 10, exact_fallback=False)
+    ti, td = at.build_exhaustive_index(x, device=dev).query(q, 10)
+    kth = td[:, -1:]
+    assert torch.all(gd <= kth + 1e-4 * (1 + kth))
+    assert (gi == ti).float().mean().item() >= 0.999

@@ -18,8 +18,8 @@
   stream): recall@10 against the port's exact scan within 0.06 of the JAX
   index's against its own.
 * The shapes the fused scan's gate refuses (k > 128, a ``seg_size`` that is
-  no multiple of 128, rows wider than the kernel takes) answer through the
-  cluster scan, as in the JAX package.
+  no multiple of 128) answer through the cluster scan, as in the JAX
+  package; rows wider than 4,096 take the fused tiers, as there.
 """
 
 import numpy as np
@@ -293,14 +293,15 @@ def test_ragged_seg_size_takes_the_cluster_scan(data128, cls):
 
 
 def test_rows_wider_than_the_kernel_take_the_cluster_scan():
-    """Rows wider than 4,096 after padding: the port's fused kernels do not
-    take them (the JAX package's does), so both tiers scan by the cluster
-    scan and equal the exhaustive scan at full probe."""
+    """Rows wider than 4,096 after padding, which the fused kernels once
+    left to the cluster scan: they now take the fused tiers, as in the JAX
+    package (the kernel stages the query rows in column blocks), and both
+    tiers equal the exhaustive scan at full probe."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((300, 4100)).astype(np.float32) * np.float32(0.05)
     q = x[:8] + np.float32(0.001)
     idx = at.build_ivf_index(x, nlist=2, seed=0, device="cpu")
-    assert not fused_eligible(idx.mode, idx.seg_size, idx.dim, 5)
+    assert fused_eligible(idx.mode, idx.seg_size, idx.dim, 5)
     ti, td = at.build_exhaustive_index(x, device="cpu").query(q, 5)
     for approx in (False, True):
         ids, d = idx.query(q, 5, nprobe=2, approx=approx)

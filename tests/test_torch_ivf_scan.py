@@ -232,31 +232,28 @@ def test_fused_ivf_scan_pads_when_fewer_candidates_than_k():
 
 
 def test_fused_eligible():
-    for mode in ("i8dec", "i8dec_residual", "f32", "bf16", "sq8"):
-        assert tsf.fused_eligible(mode, 1024, 128, 10)
-        assert tsf.fused_eligible(mode, 128, 4096, 128)
-        assert not tsf.fused_eligible(mode, 1000, 128, 10)   # seg % 128
-        assert not tsf.fused_eligible(mode, 1024, 128, 129)  # k > 128
-        assert not tsf.fused_eligible(mode, 1024, 4100, 10)  # wide rows
-        # the JAX package's rule, but for the width limit
-        assert jsp.fused_eligible(mode, 1024, 128, 10)
-        assert not jsp.fused_eligible(mode, 1000, 128, 10)
-    for mode in ("pq", "pq_residual", "hamming"):   # the cluster scan's
-        assert not tsf.fused_eligible(mode, 1024, 128, 10)
-        assert not jsp.fused_eligible(mode, 1024, 128, 10)
+    """The JAX package's rule on a grid of (mode, seg, d, k): rows of any
+    width are eligible (the kernel stages wide query rows in column
+    blocks)."""
+    for mode in ("i8dec", "i8dec_residual", "f32", "bf16", "sq8", "pq", "pq_residual",
+                 "hamming"):
+        for seg in (64, 128, 256, 1000, 1024):
+            for d in (8, 40, 128, 4096, 4100, 8192):
+                for k in (1, 10, 128, 129):
+                    assert tsf.fused_eligible(mode, seg, d, k) == jsp.fused_eligible(
+                        mode, seg, d, k), (mode, seg, d, k)
+    assert tsf.fused_eligible("f32", 1024, 4100, 10)      # wide rows
 
 
 def test_fused_ivf_scan_unported_variants_raise():
-    """No path of the JAX package selects exactly over int8-decode cells,
-    and the PQ-coded modes belong to the cluster scan."""
+    """Every (mode, selection) of the JAX scan's dense modes answers; the
+    PQ-coded modes belong to the cluster scan and an unknown selection is
+    refused, each with a ValueError."""
     z = torch.zeros(1)
-    for mode, metric, sel in (("i8dec", Dist.EUCLIDEAN, "exact"),
-                              ("i8dec_residual", Dist.COSINE, "exact"),
-                              ("i8dec_residual", Dist.EUCLIDEAN, "exact"),
-                              ("pq_residual", Dist.EUCLIDEAN, "fold")):
-        with pytest.raises(NotImplementedError, match="K1"):
+    for mode, sel in (("pq_residual", "fold"), ("pq", "exact"), ("f32", "approx")):
+        with pytest.raises(ValueError, match="cluster scan"):
             tsf.fused_ivf_scan(torch.zeros((1, 8)), z, z, z, z, z, z, z, z, 1,
-                               metric, mode, z, 8, selection=sel)
+                               Dist.EUCLIDEAN, mode, z, 8, selection=sel)
 
 
 # -- K1c-f32 and K1d-f32 ------------------------------------------------------
@@ -282,7 +279,8 @@ def _grid_tasks(seed, d, R=24, maxq=32, seg=256, nseg=6, nq=50):
     return lists, task_seg, cnt, queries_x, cells, sn
 
 
-def _jax_f32_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, selection):
+def _jax_f32_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, selection,
+                       fold_depth=2):
     """The JAX scan on port-style task inputs, as ``fused_ivf_scan`` runs it
     for f32 cells (layout "plain"): hi/lo mantissa terms of queries and
     cells, qadd = ‖q‖² (l2) or 0 (cos_plain), ``_fused_cell_scan`` in
@@ -296,7 +294,8 @@ def _jax_f32_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, cosine, s
         mantissa_split(qg, 2), jnp.broadcast_to(qadd[:, None, :], (R, 8, maxq)),
         jnp.asarray(task_seg), jnp.asarray(cnt), mantissa_split(jnp.asarray(cells), 2),
         jnp.broadcast_to(jnp.asarray(sn)[:, None, :], (sn.shape[0], 8, seg)),
-        kb, "cos_plain" if cosine else "l2", True, fold_depth=2, selection=selection,
+        kb, "cos_plain" if cosine else "l2", True, fold_depth=fold_depth,
+        selection=selection,
     )
     return np.asarray(cd), np.asarray(ci)
 
@@ -440,7 +439,8 @@ def _quant_tasks(seed, d, cell_dtype, R=24, maxq=32, seg=256, nseg=6, nq=50, pow
     return lists, task_seg, cnt, queries_x, cells, sn
 
 
-def _jax_quant_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, mode, cosine, selection):
+def _jax_quant_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, mode, cosine, selection,
+                         fold_depth=2):
     """The JAX scan on port-style task inputs, with the query terms, qadd and
     epilogue that ``fused_ivf_scan`` picks for mode bf16 or sq8;
     ``_fused_cell_scan`` in interpret mode."""
@@ -463,19 +463,19 @@ def _jax_quant_cell_scan(lists, task_seg, cnt, queries_x, cells, sn, kb, mode, c
         qk_t, jnp.broadcast_to(qadd[:, None, :], (R, 8, maxq)),
         jnp.asarray(task_seg), jnp.asarray(cnt), (jnp.asarray(cells),),
         jnp.broadcast_to(jnp.asarray(sn)[:, None, :], (sn.shape[0], 8, seg)),
-        kb, epilogue, True, fold_depth=2, selection=selection,
+        kb, epilogue, True, fold_depth=fold_depth, selection=selection,
     )
     return np.asarray(cd), np.asarray(ci)
 
 
-def _port_quant_plain(args, kb, mode, cosine, selection):
+def _port_quant_plain(args, kb, mode, cosine, selection, fold_depth=2):
     lists, task_seg, cnt, queries_x, cells, sn = args
     cells_t = (torch.tensor(np.asarray(cells, np.float32)).to(torch.bfloat16)
                if mode == "bf16" else torch.as_tensor(cells))
     plain = tsf.ivf_cell_scan_bf16_plain if mode == "bf16" else tsf.ivf_cell_scan_sq8_plain
     return plain(torch.as_tensor(lists), torch.as_tensor(task_seg), torch.as_tensor(cnt),
                  torch.as_tensor(queries_x), cells_t, torch.as_tensor(sn), kb, cosine,
-                 exact=selection == "exact")
+                 exact=selection == "exact", fold_depth=fold_depth)
 
 
 def _assert_sentinels(gd, gi, wd, wi, cnt, selection):
@@ -587,7 +587,7 @@ def test_bf16_terms_match_jax_mantissa_split():
 
 
 def _jax_i8_cell_scan(lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
-                      mode, cosine, q_split):
+                      mode, cosine, q_split, fold_depth=2, selection="fold"):
     """The JAX scan on port-style task inputs: the prologue as
     ``fused_ivf_scan`` computes it for the int8-decode modes, then
     ``_fused_cell_scan`` in interpret mode."""
@@ -609,7 +609,8 @@ def _jax_i8_cell_scan(lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn
         qk_t, jnp.broadcast_to(qadd[:, None, :], (R, 8, maxq)),
         jnp.asarray(task_seg), jnp.asarray(cnt), (jnp.asarray(cells),),
         jnp.broadcast_to(jnp.asarray(sn)[:, None, :], (sn.shape[0], 8, seg)),
-        kb, "cos_renorm" if cosine else "l2", True, fold_depth=2, selection="fold",
+        kb, "cos_renorm" if cosine else "l2", True, fold_depth=fold_depth,
+        selection=selection,
     )
     return np.asarray(cd), np.asarray(ci)
 
@@ -706,3 +707,250 @@ def test_i8dec_wrappers_on_cpu_are_the_plain_version(wrapper, kw):
     pd, pi = tsf.ivf_cell_scan_plain(*plain_args, 16, **plain_kw)
     assert torch.equal(gd, pd) and torch.equal(gi, pi)
     assert fn.launches == before    # no kernel launched
+
+
+# -- K1-fold1, K1-exact-i8, wide rows (F6) and K1-groups ------------------------
+#
+# The same references as above with the Pallas kernel's other arguments:
+# fold_depth=1 (one survivor per stride class), selection="exact" over the
+# int8-decode modes, and padded rows wider than the kernel's single-block
+# limit of 4,096 columns; the tolerances are those of each mode's section.
+
+
+@pytest.mark.parametrize("seed,d,cosine", [(20, 64, False), (21, 40, True)])
+def test_f32_fold1_matches_jax_bit_for_bit(seed, d, cosine):
+    args = _grid_tasks(seed, d)
+    t = [torch.as_tensor(a) for a in args]
+    gd, gi = tsf.ivf_cell_scan_f32_plain(*t, 16, cosine, exact=False, fold_depth=1)
+    wd, wi = _jax_f32_cell_scan(*args, 16, cosine, "fold", fold_depth=1)
+    np.testing.assert_array_equal(gd.numpy(), wd)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+    # one survivor per class: two of a class's lanes never both return
+    d2, _ = tsf.ivf_cell_scan_f32_plain(*t, 16, cosine, exact=False, fold_depth=2)
+    assert (gd.numpy() != d2.numpy()).any()
+    assert (gd.numpy() >= d2.numpy()).all()
+    lanes = gi.numpy()[gd.numpy() < np.float32(3e38)]
+    assert lanes.max() < 256
+
+
+@pytest.mark.parametrize("mode", ["sq8", "bf16"])
+def test_quantised_fold1_matches_jax(mode):
+    args = _quant_tasks(22, 40, "int8" if mode == "sq8" else "bf16")
+    gd, gi = _port_quant_plain(args, 16, mode, False, "fold", fold_depth=1)
+    wd, wi = _jax_quant_cell_scan(*args, 16, mode, False, "fold", fold_depth=1)
+    if mode == "sq8":
+        np.testing.assert_array_equal(gd.numpy(), wd)
+        np.testing.assert_array_equal(gi.numpy(), wi)
+    else:
+        real = wd != np.float32(3e38)
+        np.testing.assert_allclose(gd.numpy()[real], wd[real], rtol=1e-5, atol=0)
+        assert (gi.numpy() == wi).mean() >= 0.9999
+    _assert_sentinels(gd.numpy(), gi.numpy(), wd, wi, args[2], "fold")
+
+
+K1A_CASE = ("i8dec_residual", False, False)
+I8_ALL = [K1A_CASE] + I8_CASES
+I8_ALL_IDS = ["i8dec_residual-l2-nq_t1"] + I8_IDS
+
+
+def _i8_args(mode, cosine, seed=11, **kw):
+    """``_random_tasks`` as the index of ``mode`` would hold them (unit
+    queries and sn = ‖c + dec‖² under cosine); ``(numpy args, tensors)``,
+    the tensors with ``cent_x`` None for mode i8dec."""
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn = _random_tasks(seed, **kw)
+    if cosine:
+        queries_x = queries_x / np.maximum(np.linalg.norm(queries_x, axis=1, keepdims=True), 1e-30)
+        dec = cells.astype(np.float32) * scales
+        if mode == "i8dec_residual":
+            dec = dec + cent_x[:, None, :]
+        sn = (dec * dec).sum(-1).astype(np.float32)
+    args = (lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn)
+    t = [torch.as_tensor(a) for a in args]
+    if mode == "i8dec":
+        t[4] = None
+    return args, t
+
+
+@pytest.mark.parametrize("mode,cosine,q_split", I8_ALL, ids=I8_ALL_IDS)
+@pytest.mark.parametrize("selection,fold_depth", [("fold", 1), ("exact", 2)],
+                         ids=["K1-fold1", "K1-exact-i8"])
+def test_i8dec_fold1_and_exact_match_jax(mode, cosine, q_split, selection, fold_depth):
+    args, t = _i8_args(mode, cosine)
+    gd, gi = tsf.ivf_cell_scan_plain(*t, KB, cosine=cosine, q_split=q_split,
+                                     fold_depth=fold_depth, exact=selection == "exact")
+    wd, wi = _jax_i8_cell_scan(*args, KB, mode, cosine, q_split, fold_depth=fold_depth,
+                               selection=selection)
+    _assert_i8_parity(gd.numpy(), gi.numpy(), wd, wi, cosine)
+    cnt = args[2]
+    assert (gd.numpy()[cnt == 0] == np.float32(3e38)).all() and (gi.numpy()[cnt == 0] == 0).all()
+    if selection == "exact":         # past the valid rows: (3e38, lane 0)
+        assert (gd.numpy()[2, :, 5:] == np.float32(3e38)).all()
+        assert (gi.numpy()[2, :, 5:] == 0).all()
+
+
+@pytest.mark.parametrize("mode,cosine,q_split", I8_ALL, ids=I8_ALL_IDS)
+def test_i8_exact_wrapper_on_cpu_is_the_plain_version(mode, cosine, q_split):
+    _, t = _i8_args(mode, cosine, seed=12, R=6)
+    before = tsf.ivf_cell_scan_i8_exact.launches
+    gd, gi = tsf.ivf_cell_scan_i8_exact(*t, 16, cosine=cosine, q_split=q_split)
+    pd, pi = tsf.ivf_cell_scan_plain(*t, 16, cosine=cosine, q_split=q_split, exact=True)
+    assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    assert tsf.ivf_cell_scan_i8_exact.launches == before    # no kernel launched
+
+
+@pytest.mark.parametrize("wrapper,kw", [
+    ("ivf_cell_scan", {}), ("ivf_cell_scan_split", {}), ("ivf_cell_scan_cos", {}),
+    ("ivf_cell_scan_i8dec", {"cosine": True}),
+])
+def test_i8dec_fold1_wrappers_on_cpu_are_the_plain_version(wrapper, kw):
+    cosine = wrapper == "ivf_cell_scan_cos" or kw.get("cosine", False)
+    mode = "i8dec" if wrapper == "ivf_cell_scan_i8dec" else "i8dec_residual"
+    _, t = _i8_args(mode, cosine, seed=13, R=6)
+    fn = getattr(tsf, wrapper)
+    before = fn.launches
+    gd, gi = fn(*(t[:4] + t[5:] if mode == "i8dec" else t), 16, fold_depth=1, **kw)
+    pd, pi = tsf.ivf_cell_scan_plain(*t, 16, cosine=cosine,
+                                     q_split=wrapper == "ivf_cell_scan_split", fold_depth=1)
+    assert torch.equal(gd, pd) and torch.equal(gi, pi)
+    assert fn.launches == before
+
+
+def test_fold_depth_outside_1_and_2_is_refused():
+    args = [torch.as_tensor(a) for a in _grid_tasks(23, 16, R=4)]
+    for depth in (0, 3):
+        with pytest.raises(ValueError, match="fold_depth"):
+            tsf._sel(depth)
+    gd, _ = tsf.ivf_cell_scan_f32_fold(*args, 8, fold_depth=1)
+    assert gd.shape == (4, 32, 8)
+
+
+@pytest.mark.parametrize("selection", ["exact", "fold"])
+def test_wide_f32_rows_match_jax_bit_for_bit(selection):
+    """F6: padded rows past 4,096 columns (4,224: the kernel stages the
+    query in column blocks) give the Pallas kernel's result."""
+    args = _grid_tasks(24, 4224, R=6, maxq=8, seg=128, nseg=3, nq=10)
+    gd, gi = tsf.ivf_cell_scan_f32_plain(*(torch.as_tensor(a) for a in args), 8, False,
+                                         exact=selection == "exact")
+    wd, wi = _jax_f32_cell_scan(*args, 8, False, selection)
+    assert gd.shape == (6, 8, 8)
+    np.testing.assert_array_equal(gd.numpy(), wd)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+
+
+def test_wide_sq8_and_i8dec_rows_match_jax():
+    """sq8's integer dots pass 2²⁴ at this width, so the f32 sums round in
+    both packages, each in its own order: a relative tolerance."""
+    args = _quant_tasks(25, 4200, "int8", R=6, maxq=8, seg=128, nseg=3, nq=10)
+    gd, gi = _port_quant_plain(args, 8, "sq8", False, "fold")
+    wd, wi = _jax_quant_cell_scan(*args, 8, "sq8", False, "fold")
+    np.testing.assert_allclose(gd.numpy(), wd, rtol=1e-6, atol=0)
+    assert (gi.numpy() == wi).mean() >= 0.99
+    a, t = _i8_args("i8dec_residual", False, seed=26, R=6, maxq=8, seg=128, d=4160, nseg=3,
+                    nq=10)
+    gd, gi = tsf.ivf_cell_scan_plain(*t, 8)
+    wd, wi = _jax_i8_cell_scan(*a, 8, "i8dec_residual", False, False)
+    _assert_i8_parity(gd.numpy(), gi.numpy(), wd, wi, False)
+
+
+def test_regroup_topk_groups_is_a_top_k_per_group():
+    """K1-groups: each query's lanes split into equal runs in gather-map
+    order, each run's own top-k, group-major; pad lanes read (+inf, 0)."""
+    rng = np.random.default_rng(27)
+    nq, T, kb, groups, k = 5, 8, 4, 4, 3
+    flat_d = torch.as_tensor(rng.integers(0, 50, (60, kb)).astype(np.float32))
+    flat_i = torch.as_tensor(rng.integers(0, 1000, (60, kb)))
+    gmap = torch.as_tensor(rng.permutation(60)[: nq * T].reshape(nq, T))
+    gmap[0, :2] = -1                 # query 0's first group is all padding
+    gd, gi = tsf.regroup_topk(flat_d, flat_i, gmap, k, groups)
+    assert gd.shape == (nq, groups * k) and gi.shape == (nq, groups * k)
+    pad_d = torch.cat([flat_d, torch.full((1, kb), float("inf"))])
+    pad_i = torch.cat([flat_i, torch.zeros((1, kb), dtype=torch.long)])
+    gm = torch.where(gmap < 0, 60, gmap)
+    for q in range(nq):
+        for g in range(groups):
+            lanes = gm[q, g * (T // groups):(g + 1) * (T // groups)]
+            vals, pos = torch.sort(pad_d[lanes].reshape(-1), stable=True)
+            np.testing.assert_array_equal(gd[q, g * k:(g + 1) * k].numpy(), vals[:k].numpy())
+            np.testing.assert_array_equal(gi[q, g * k:(g + 1) * k].numpy(),
+                                          pad_i[lanes].reshape(-1)[pos[:k]].numpy())
+    assert torch.isinf(gd[0, :k]).all() and (gi[0, :k] == 0).all()
+    one_d, _ = tsf.regroup_topk(flat_d, flat_i, gmap, k)
+    assert one_d.shape == (nq, k)
+    with pytest.raises(ValueError, match="groups"):
+        tsf.regroup_topk(flat_d, flat_i, gmap, k, 3)
+
+
+def test_fused_ivf_scan_groups_matches_jax():
+    """``groups=2`` over f32 grid cells, two probes per group with a
+    duplicate probe masked to the pad segment (as the forests mask them):
+    both packages' ``fused_ivf_scan`` on the same task lists."""
+    from annsearch_tpu_torch.ops.probe_device import build_probe_lists_device as t_build
+
+    rng = np.random.default_rng(28)
+    nseg, seg, d, nq, k, kb = 8, 128, 16, 12, 5, 8
+    storage = (rng.integers(-15, 16, (nseg * seg + seg, d)) / np.float32(8)).astype(np.float32)
+    storage[nseg * seg:] = 0
+    sqn = (storage * storage).sum(1).astype(np.float32)
+    offs = (np.arange(nseg) * seg).astype(np.int32)
+    counts = np.full(nseg, seg, np.int32)
+    counts[-1] = 70
+    q = (rng.integers(-15, 16, (nq, d)) / np.float32(8)).astype(np.float32)
+    probes = rng.integers(0, nseg, (nq, 4)).astype(np.int32)
+    probes[:, 1] = np.where(probes[:, 1] == probes[:, 0], nseg, probes[:, 1])
+    probes[0, 3] = nseg
+    maxq, R = device_probe_shapes(nq, 4, nseg, 1)
+    jl = j_build(jnp.asarray(probes), nseg, maxq, R)
+    tl = t_build(torch.as_tensor(probes), nseg, maxq, R)
+    for a, b in zip(jl, tl):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    jcells, jsn = jsp.repack_blocks(jnp.asarray(storage), jnp.asarray(sqn),
+                                    jnp.asarray(offs), seg)
+    wd, wi = jsp.fused_ivf_scan(
+        jnp.asarray(q), *jl, jcells, jsn, jnp.asarray(offs), jnp.asarray(counts),
+        jnp.zeros((nseg, d), jnp.float32), k, JDist.EUCLIDEAN, "f32", None, kb,
+        interpret=True, groups=2,
+    )
+    cells, sn = tsf.repack_blocks(torch.as_tensor(storage), torch.as_tensor(sqn),
+                                  torch.as_tensor(offs), seg)
+    gd, gi = tsf.fused_ivf_scan(
+        torch.as_tensor(q), *tl, cells, sn, torch.as_tensor(offs), torch.as_tensor(counts),
+        torch.zeros((nseg, d)), k, Dist.EUCLIDEAN, "f32", None, kb, groups=2,
+    )
+    assert gd.shape == (nq, 2 * k)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    assert (gi.numpy() == np.asarray(wi)).mean() >= 0.99
+
+
+def test_fused_ivf_scan_fold1_matches_jax_and_the_index_passes_it(jindex, tasks):
+    """``fused_ivf_scan(fold_depth=1)`` end to end against the JAX scan's,
+    and ``IvfBase.query(fold_depth=1)`` reaches it (the JAX package's
+    ``ANNSEARCH_IVF_FOLD1``)."""
+    from annsearch_tpu_torch.interop import ivf_pq_from_jax_arrays
+
+    j, q = jindex
+    cids, lists, gmap = tasks
+    jcells, jsn = jsp.repack_blocks(j.storage, j.store_sqnorms, j.seg_offsets, j.seg_size)
+    wd, wi = jsp.fused_ivf_scan(
+        jnp.asarray(q), cids, lists, gmap, jcells, jsn, j.seg_offsets, j.seg_counts,
+        j.seg_centroids, K, JDist.EUCLIDEAN, "i8dec_residual", j.dec_scales, KB,
+        interpret=True, q_split=False, fold_depth=1,
+    )
+    cells, sn = tsf.repack_blocks(
+        _t(j.storage), _t(j.store_sqnorms), _t(j.seg_offsets), j.seg_size
+    )
+    gd, gi = tsf.fused_ivf_scan(
+        torch.as_tensor(q), _t(cids), _t(lists), _t(gmap), cells, sn,
+        _t(j.seg_offsets), _t(j.seg_counts), _t(j.seg_centroids), K,
+        Dist.EUCLIDEAN, "i8dec_residual", _t(j.dec_scales), KB, fold_depth=1,
+    )
+    _assert_scan_parity(gd.numpy(), gi.numpy(), np.asarray(wd), np.asarray(wi))
+    arrays = {a: np.asarray(getattr(j, a)) for a in (
+        "storage", "store_sqnorms", "centroids", "seg_centroids", "seg_offsets",
+        "seg_counts", "original_ids", "codebooks", "dec_scales")}
+    arrays["cluster_ptr"] = np.asarray(j._cluster_ptr)
+    port = ivf_pq_from_jax_arrays(arrays, {"n": j.n, "dim": j.dim, "nlist": j.nlist,
+                                           "seg_size": j.seg_size, "m": j.m}, device="cpu")
+    i1, d1 = port.query(q, K, nprobe=2, approx=True, fold_depth=1)
+    i2, d2 = port.query(q, K, nprobe=2, approx=True)
+    assert bool((d1 >= d2 - 1e-5).all())       # fewer survivors: never better
+    assert (i1 == i2).float().mean() >= 0.9
