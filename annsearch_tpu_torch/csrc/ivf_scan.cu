@@ -1,6 +1,6 @@
 // IVF cell scan: one kernel template, every variant of the Pallas kernel
 // annsearch_tpu/ops/ivf_scan_pallas.py (_scan_kernel / _scan_body, launched
-// by _fused_cell_scan):
+// by _fused_cell_scan), its products on the tensor cores:
 //
 //   K1a       int8 residual cells ("i8dec_residual"), l2, depth-2 fold, one
 //             bf16 query term (the IVF-PQ main path);
@@ -25,31 +25,35 @@
 //   K1-exact-i8  the int8-decode prologues (K1a, K1b, K1d-i8dec) with the
 //             exact selection, _scan_body's selection="exact" over int8
 //             decode cells;
-//   wide rows every variant at a padded d above kDMax (4,096): the query
-//             term is staged in column blocks beside the cells' (below).
+//   wide rows every variant whose query terms do not fit the block whole:
+//             the query terms are staged in column blocks beside the cells'
+//             (below).
 //
 // What it computes, for task row r (segment s = task_seg[r], n = cnt[r]
 // valid rows) and each query slot j < maxq (query id qid = lists[r, j]):
-//   K1a, K1b-l2: qr = q[qid] - cent[s], qadd = sum(qr * qr), qk = T(qr * scales)
-//   K1b-cos:     qk = T(q[qid] * scales), qadd = sum(q[qid] * cent[s])
-//   K1d-i8dec:   qk = T(q[qid] * scales), qadd = sum(q * q) (l2) or 0
-//         T(v) = bf16_rne(v) with one query term. With two, hi is v rounded
-//         to bf16 by integer add-then-mask ((bits + 0x8000) & 0xFFFF0000:
-//         ties away from zero, as the JAX package's mantissa_split), lo =
-//         bf16_rne(v - hi), and T(v) = hi + lo. That sum is exact in f32
-//         (both terms are multiples of ulp(v) and |hi + lo| <= 2^(e+1)), so
-//         the kernel carries ONE f32 query value of up to 16 mantissa bits
-//         and one FFMA per cell value: the FMA forms (hi + lo) * x exactly
-//         and rounds only the running sum, where two separately accumulated
-//         dots hi.x + lo.x round twice as often. The Pallas kernel sums two
-//         MXU passes; either way the order of the f32 sums differs, so a
-//         tolerance, not bits, holds the two packages together.
-//   else: qk = q[qid] (K1d-bf16: bf16_rne(q[qid])); qadd = sum(q * q) (l2),
-//         unused (cos_plain), or q_sq = sum(q * q) and qadd = 1 / sqrt(q_sq)
-//         or 0 for a zero query (cos_qnorm)
-//   dot_l = sum_c qk[c] * cell[s, l, c]   l < seg    (f32 FFMA; the int8 x
-//           bf16, bf16 x bf16 and int8 x int8 products are exact in f32, and
-//           sq8's sums stay integers below 2^24, so they are exact too)
+//   K1a, K1b-l2: v = (q[qid] - cent[s]) * scales, qadd = |q[qid] - cent[s]|^2
+//   K1b-cos:     v = q[qid] * scales, qadd = q[qid] . cent[s]
+//   K1d-i8dec:   v = q[qid] * scales, qadd = |q|^2 (l2) or 0
+//   else: v = q[qid]; qadd = |q|^2 (l2), unused (cos_plain), or q_sq =
+//         |q|^2 and qadd = 1 / sqrt(q_sq), 0 for a zero query (cos_qnorm)
+//   dot_l = sum over the pairs (a, b) of q_a . x_b[s, l]   l < seg
+//         where q_a are the terms of v and x_b those of the cell row
+//         (mma_terms.cuh), every pair and column into one accumulator:
+//           int8 decode cells: x as bf16 (exact), v as one bf16 term
+//             (bf16_rne) or two (q_split: hi by add-then-mask, lo =
+//             bf16_rne(v - hi)): one or two passes, as the Pallas kernel;
+//           bf16 cells: v as one term (K1d-bf16, bf16_rne) or as three
+//             (K1c-bf16: exact, the f32 query's 24 bits): 1 or 3 passes;
+//           f32 cells: both sides as three terms, the six largest cross
+//             terms (_CROSS[3]). The Pallas kernel splits f32 cells in two
+//             (3 or 4 passes, about 16 mantissa bits); the port keeps f32
+//             grade: three terms hold all 24 bits, and each 16-column
+//             step is summed to 24 bits of its largest term (below), so
+//             the dots stray from f64 no more than an FFMA loop's;
+//           sq8: int8 codes x int8 cells on the integer tensor cores,
+//             summed exactly in int32 and converted to f32 once (< 2^24:
+//             the JAX package's integer-space distances bit for bit).
+//         Products of bf16 terms are exact and sum into f32.
 //   dist  = max(qadd + sn[s, l] - 2 dot_l, 0) (l2), 1 - dot_l (cos_plain),
 //           1 - (dot_l * qadd) * (1 / sqrt(max(sn[s, l], 1e-12)))
 //           (cos_qnorm), or 1 - (dot_l + qadd) * (1 / sqrt(max(sn[s, l],
@@ -71,82 +75,98 @@
 // (3e38, 0) everywhere, as the computation itself would.
 //
 // Bound on the H100: the multiply-adds, about (real query slots) x n x d per
-// task row, done here on the CUDA cores in f32 (K1a's bf16 x int8, K1d-bf16's
-// bf16 x bf16 and sq8's int8 x int8 products are exact in tensor-core MMA,
-// so their bounds are the bf16 or int8 tensor-core peaks; the two-term
-// variants' is two passes at the bf16 peak; K1c-bf16's f32 query is three
-// exact bf16 terms, so its bound is three passes at the bf16 peak; the f32
-// variants' is the fp32 peak). Each cell row is read from
-// device memory once per block of 8 slots; f32 rows are 4x the bytes of int8
+// task row, times the passes of the variant, at the tensor-core peak of
+// their type (bf16; int8 for sq8). Each cell row is read from device
+// memory once per block of 32 slots; f32 rows are 4x the bytes of int8
 // ones, bf16 rows 2x.
-// Design: one block per (task row, 8 query slots), one warp per slot. The
-// segment's rows are staged 128 at a time, and at most 128 columns at a
-// time, into shared memory as f32 and shared by the block's 8 warps, so a
-// block holds at most 128 x 132 floats of cells whatever d is (three blocks
-// fit an SM at d 256); thread t of a warp owns lanes t, t+32, t+64, t+96 of
-// each chunk and keeps its selection state in registers, so the [maxq, seg]
-// distance tile never leaves the SM. Chunks wholly past the row's valid
-// rows are skipped (their lanes are 3e38 and change no selection state).
-// The row stride in shared memory is padded by 4 floats, so the 128-bit
-// loads of a quarter-warp fall in distinct banks. Each warp's query term
-// sits in shared memory whole up to a padded d of kDMax (8 x 4,096 floats
-// beside the staged cells); above it (kWide) the warp writes its query
-// term's current 128 columns anew beside each staged column block, from
-// the same per-element prologue, and qadd is summed once over all
-// columns, so a wide row's partial dots add up over the blocks in column
-// order before the epilogue, as a narrow row's do.
-//   fold:  each thread holds the (best, runner-up) of its 4 stride classes
-//          (the best alone at depth 1).
-//   exact: the warp holds a sorted top-kb list (slot t in thread t mod 32,
-//          register t / 32). A chunk whose lanes all rank after the list's
-//          kb-th entry (a warp ballot) costs nothing more; otherwise the
-//          list and the chunk's 128 candidates are merged by kb rounds of the
-//          warp-wide lexicographic arg-min. seg is not bounded: a segment is
-//          never held whole.
-// Tensor-core MMA (wgmma) and TMA staging are left for later work.
+// Design: one block per (task row, 32 query slots), eight warps. The
+// segment's rows go 128 at a time (a chunk) and 128 source bytes of a row
+// at a time (a step: 32 f32, 64 bf16 or 128 int8 columns) through shared
+// memory, converted once per block into the bf16 terms the products take
+// (int8 widened exactly, f32 split in three, bf16 and sq8 as they are);
+// the next step's 16 KB are loaded into registers while the tensor cores
+// work on this one. The slots' query terms come from the per-element
+// prologue into shared memory as bf16 (int8 for sq8), whole when the block
+// fits 110 KB (two blocks an SM); otherwise (kWide) each step's query
+// columns are formed anew beside its cells, and qadd is summed once over
+// all columns. Warp w takes slots 16 (w mod 2) .. +15 x lanes 32 (w / 2) ..
+// +31 of a chunk: four m16n8 tiles, fed by ldmatrix, one mma.sync per
+// (term pair, tile) per 16 columns (32 for int8), the accumulators carried
+// over the steps of a chunk, so a wide row's sums run over all its columns
+// before the epilogue, as a narrow row's do. The cross terms go smallest
+// first; for f32 cells, the f32 query in three terms (K1c-bf16) and wide
+// rows each 16 columns sum apart and join the chunk's sums by one IEEE
+// add: an mma chops its sum to 24 bits of its largest term (mma_terms.cuh),
+// and one accumulator over many steps gathers those chops, all leaning one
+// way (hundreds of ulps over thousands of columns). Chunks wholly past the
+// row's valid rows are skipped (their lanes are 3e38 and change no
+// selection).
+//   fold:  by the fragment map a thread holds the same 16 (slot, stride
+//          class) elements in every chunk, and keeps their (best,
+//          runner-up) in registers; after the last chunk the survivors go
+//          to shared memory and each warp runs the kb-round extraction for
+//          its 4 slots.
+//   exact: each chunk's [32, 128] distance tile goes to shared memory (over
+//          the staged cells), and each warp merges it into its 4 slots'
+//          sorted top-kb lists (shared memory) with a ballot skip (a chunk
+//          whose lanes all rank after a list's kb-th entry costs nothing
+//          more) and kb rounds of the warp-wide lexicographic arg-min. seg
+//          is not bounded: a segment is never held whole.
+// wgmma and TMA staging are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cfloat>
 #include <climits>
+#include <type_traits>
 
 #include "lex_min.cuh"
+#include "mma_terms.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;   // chunk width: stride classes per query
-constexpr int kCols = 128;    // columns staged at a time
-constexpr int kWarps = 8;     // query slots per block
-constexpr int kDMax = 4096;   // widest padded row whose query term is held whole
+constexpr int kLanes = 128;    // chunk width: stride classes per query
+constexpr int kSlots = 32;     // query slots per block
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kStepBytes = 128;        // source bytes of a cell row per step
+constexpr int kNarrowSmem = 110 * 1024;  // largest block with its query terms whole
+constexpr int kTileStride = kLanes + 8;  // exact: floats of a distance-tile row
 constexpr float kBig = 3.0e38f;
-constexpr float kEmpty = 3.4028234663852886e38f;  // FLT_MAX: an empty exact slot
+constexpr float kEmpty = FLT_MAX;       // an empty exact slot
+constexpr uint32_t kNoChunk = 0xFFFFu;  // fold: a runner-up that is still lane 0
 
 enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2, kCosRenorm = 3 };
-// the query term: the scaled residual (K1a, K1b-l2), the query as it is,
-// rounded to bf16, the scaled query (K1d-i8dec), or the scaled query with
+// the query value: the scaled residual (K1a, K1b-l2), the query as it is
+// (scored in three terms, or in int8 for sq8), the query in one bf16 term
+// (K1d-bf16), the scaled query (K1d-i8dec), or the scaled query with
 // qadd = q . centroid (K1b-cos)
 enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2, kScaled = 3, kScaledCent = 4 };
 // the selection: exact, or the fold at depth 1 or 2 (the C entries' `sel`)
 enum Selection { kExactSel = 0, kFold1 = 1, kFold2 = 2 };
 
-// the scaled query value as the scan scores it: one bf16 term, or the exact
-// f32 sum of the two bf16 terms of the mantissa split (see the file header)
-template <bool kSplit>
-__device__ __forceinline__ float query_term(float v) {
-  if constexpr (!kSplit) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    const float hi = __uint_as_float((__float_as_uint(v) + 0x8000u) & 0xFFFF0000u);
-    const float lo = __bfloat162float(__float2bfloat16_rn(__fsub_rn(v, hi)));
-    return __fadd_rn(hi, lo);
-  }
-}
+// the arithmetic of an instance: which products, how many terms, and how a
+// step is staged
+template <typename CellT, int kPro, bool kSplit>
+struct Terms {
+  static constexpr bool kInt8 = std::is_same<CellT, int8_t>::value && kPro == kPlain;
+  static constexpr int kXT = std::is_same<CellT, float>::value ? 3 : 1;   // cell terms
+  static constexpr int kQT = kInt8 ? 1
+                             : kPro == kPlain ? 3
+                             : (kSplit && kPro != kBf16Query) ? 2 : 1;  // query terms
+  static constexpr int kES = kInt8 ? 1 : 2;              // bytes of a term element
+  static constexpr int kKStep = kInt8 ? 32 : 16;         // columns of one mma
+  static constexpr int kCols = kStepBytes / (int)sizeof(CellT);   // columns of a step
+  static constexpr int kRow = kCols * kES + 16;          // bytes of a staged row
+  static constexpr int kCellTerm = kLanes * kRow;        // bytes of a staged cell term
+  static constexpr int kMaxKs = kCols * kES / 32;        // mma steps of a step
+};
 
-// column c of a query slot's term as the scan scores it (0 past d), and its
-// share of qadd added to `qadd`; `cent` is the segment's centroid row
-template <int kPro, int kEpi, bool kSplit>
+// the query value of column c of a slot (0 past d), before the split, and
+// its share of qadd added to `qadd`; `cent` is the segment's centroid row
+template <int kPro, int kEpi>
 __device__ __forceinline__ float query_value(const float* qrow, const float* cent,
                                              const float* scales, int c, int d,
                                              float& qadd) {
@@ -154,7 +174,7 @@ __device__ __forceinline__ float query_value(const float* qrow, const float* cen
   if constexpr (kPro == kResidual) {
     const float qr = __fsub_rn(qrow[c], cent[c]);
     qadd = __fadd_rn(qadd, __fmul_rn(qr, qr));
-    return query_term<kSplit>(__fmul_rn(qr, scales[c]));
+    return __fmul_rn(qr, scales[c]);
   } else if constexpr (kPro == kScaled || kPro == kScaledCent) {
     const float qv = qrow[c];
     if constexpr (kPro == kScaledCent) {
@@ -162,64 +182,87 @@ __device__ __forceinline__ float query_value(const float* qrow, const float* cen
     } else if constexpr (kEpi == kL2) {
       qadd = __fadd_rn(qadd, __fmul_rn(qv, qv));
     }
-    return query_term<kSplit>(__fmul_rn(qv, scales[c]));
+    return __fmul_rn(qv, scales[c]);
   } else {
     const float v = qrow[c];
     if constexpr (kEpi != kCosPlain) qadd = __fadd_rn(qadd, __fmul_rn(v, v));
-    if constexpr (kPro == kBf16Query) return __bfloat162float(__float2bfloat16_rn(v));
     return v;
   }
 }
 
-// stage columns [c0, c0 + w) of rows [0, 128) of `src` ([128, dp] cells)
-// into cell_s as f32 (w a multiple of 16)
-__device__ __forceinline__ void stage_chunk(const int8_t* src, float* cell_s,
-                                            int dp, int c0, int w, int stride) {
-  const int vec_per_row = w / 16;
-  for (int v = threadIdx.x; v < kLanes * vec_per_row; v += kThreads) {
-    const int row = v / vec_per_row;
-    const int col = (v - row * vec_per_row) * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)row * dp + c0 + col);
+// element c of a slot's query row in shared memory: the kQT bf16 terms of
+// v at `term` bytes apart, or v as an int8 code
+template <int kQT, bool kInt8>
+__device__ __forceinline__ void put_query(unsigned char* row, int term, int c, float v) {
+  if constexpr (kInt8) {
+    row[c] = (unsigned char)(int8_t)__float2int_rn(v);
+  } else {
+    uint16_t t[kQT];
+    mma::split<kQT>(v, t);
+#pragma unroll
+    for (int i = 0; i < kQT; ++i) *reinterpret_cast<uint16_t*>(row + i * term + 2 * c) = t[i];
+  }
+}
+
+// a staged 16-byte source vector (row `row`, vector `vec` of the step) as
+// the cell terms in shared memory
+__device__ __forceinline__ void put_cells(unsigned char* cs, int row, int vec,
+                                          const uint4& raw, const float*) {
+  // f32: four values, three bf16 terms each
+  const float* f = reinterpret_cast<const float*>(&raw);
+  uint16_t t[4][3];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) mma::split<3>(f[e], t[e]);
+  constexpr int kRow = Terms<float, kPlain, false>::kRow;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    *reinterpret_cast<uint2*>(cs + i * Terms<float, kPlain, false>::kCellTerm + row * kRow +
+                              vec * 8) =
+        make_uint2(mma::pack2(t[0][i], t[1][i]), mma::pack2(t[2][i], t[3][i]));
+  }
+}
+__device__ __forceinline__ void put_cells(unsigned char* cs, int row, int vec,
+                                          const uint4& raw, const __nv_bfloat16*) {
+  constexpr int kRow = Terms<__nv_bfloat16, kPlain, false>::kRow;
+  *reinterpret_cast<uint4*>(cs + row * kRow + vec * 16) = raw;
+}
+// int8: as it is for the integer products (sq8), else widened to bf16
+template <bool kInt8>
+__device__ __forceinline__ void put_cells_i8(unsigned char* cs, int row, int vec,
+                                             const uint4& raw) {
+  constexpr int kRow = Terms<int8_t, kInt8 ? kPlain : kResidual, false>::kRow;
+  if constexpr (kInt8) {
+    *reinterpret_cast<uint4*>(cs + row * kRow + vec * 16) = raw;
+  } else {
     const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    float4* dst = reinterpret_cast<float4*>(cell_s + row * stride + col);
+    uint32_t w[8];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dst[e] = make_float4((float)b[4 * e], (float)b[4 * e + 1],
-                           (float)b[4 * e + 2], (float)b[4 * e + 3]);
+    for (int e = 0; e < 8; ++e) {
+      w[e] = mma::pack2(__bfloat16_as_ushort(__float2bfloat16_rn((float)b[2 * e])),
+                        __bfloat16_as_ushort(__float2bfloat16_rn((float)b[2 * e + 1])));
     }
+    uint4* dst = reinterpret_cast<uint4*>(cs + row * kRow + vec * 32);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
   }
 }
 
-__device__ __forceinline__ void stage_chunk(const __nv_bfloat16* src, float* cell_s,
-                                            int dp, int c0, int w, int stride) {
-  const int vec_per_row = w / 8;
-  for (int v = threadIdx.x; v < kLanes * vec_per_row; v += kThreads) {
-    const int row = v / vec_per_row;
-    const int col = (v - row * vec_per_row) * 8;
-    const int4 raw = *reinterpret_cast<const int4*>(src + (size_t)row * dp + c0 + col);
-    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    float4* dst = reinterpret_cast<float4*>(cell_s + row * stride + col);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      dst[e] = make_float4(__bfloat162float(b[4 * e]), __bfloat162float(b[4 * e + 1]),
-                           __bfloat162float(b[4 * e + 2]), __bfloat162float(b[4 * e + 3]));
-    }
-  }
-}
-
-__device__ __forceinline__ void stage_chunk(const float* src, float* cell_s,
-                                            int dp, int c0, int w, int stride) {
-  const int vec_per_row = w / 4;
-  for (int v = threadIdx.x; v < kLanes * vec_per_row; v += kThreads) {
-    const int row = v / vec_per_row;
-    const int col = (v - row * vec_per_row) * 4;
-    *reinterpret_cast<float4*>(cell_s + row * stride + col) =
-        *reinterpret_cast<const float4*>(src + (size_t)row * dp + c0 + col);
-  }
+// dynamic shared memory of an instance: the staged cell terms, the query
+// terms (whole, or one step's columns when wide) and the exact lists; a
+// fold's survivors reuse it after the scan
+template <typename CellT, int kPro, int kSel, bool kSplit>
+size_t smem_bytes(int dp, bool wide) {
+  using TT = Terms<CellT, kPro, kSplit>;
+  const size_t dkq = (size_t)(dp + TT::kKStep - 1) / TT::kKStep * TT::kKStep;
+  const size_t qstride = wide ? TT::kRow : dkq * TT::kES + 16;
+  size_t stage = (size_t)TT::kXT * TT::kCellTerm + (size_t)TT::kQT * kSlots * qstride;
+  if (kSel == kExactSel) stage += (size_t)kSlots * kLanes * 8;
+  const size_t surv = kSel == kExactSel ? 0 : (size_t)kSlots * kSel * kLanes * 8;
+  return stage > surv ? stage : surv;
 }
 
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 ivf_scan_kernel(const int* __restrict__ lists,
                 const int* __restrict__ task_seg,
                 const int* __restrict__ cnt,
@@ -230,227 +273,413 @@ ivf_scan_kernel(const int* __restrict__ lists,
                 const float* __restrict__ sn,
                 float* __restrict__ out_d, int* __restrict__ out_i,
                 int maxq, int seg, int d, int dp, int kb) {
+  using TT = Terms<CellT, kPro, kSplit>;
+  constexpr int kQT = TT::kQT, kXT = TT::kXT;
+  constexpr bool kInt8 = TT::kInt8;
   constexpr bool kExact = kSel == kExactSel;
-  extern __shared__ __align__(16) float smem[];
-  const int cols = min(dp, kCols);
-  const int stride = cols + 4;
-  float* cell_s = smem;                            // [kLanes][cols + 4]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  // this warp's query term: [dp], or its current column block [kCols]
-  float* qk = smem + kLanes * stride + warp * (kWide ? kCols : dp);
+  constexpr int kDepth = kExact ? 1 : kSel;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float qadd_s[kSlots];
+  __shared__ int qid_s[kSlots];   // a slot's query row, -1 past maxq
 
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
   const int r = blockIdx.x;
-  const int j = blockIdx.y * kWarps + warp;
-  const bool active = j < maxq;
+  const int j0 = blockIdx.y * kSlots;
   const int n_valid = cnt[r];
-  const size_t out_base = ((size_t)r * maxq + j) * kb;
 
   if (n_valid == 0) {  // block-uniform: no thread reaches a barrier
-    if (active) {
-      for (int t = lane; t < kb; t += 32) {
-        out_d[out_base + t] = kBig;
-        out_i[out_base + t] = 0;
+    for (int i = tid; i < kSlots * kb; i += kThreads) {
+      const int slot = i / kb;
+      if (j0 + slot < maxq) {
+        const size_t o = ((size_t)r * maxq + j0 + slot) * kb + (i - slot * kb);
+        out_d[o] = kBig;
+        out_i[o] = 0;
       }
     }
     return;
   }
   const int s = task_seg[r];
 
-  // prologue: this warp's query term and qadd
-  float qadd = 0.f;
-  const float* qrow = nullptr;
+  // shared memory: staged cell terms [kXT][128][kRow], query terms
+  // [kQT][32][qstride], then the exact lists [32][128] (values, lanes)
+  const int dkq = (dp + TT::kKStep - 1) / TT::kKStep * TT::kKStep;
+  const int qstride = kWide ? TT::kRow : dkq * TT::kES + 16;
+  const int q_term = kSlots * qstride;
+  unsigned char* cell_s = smem;
+  unsigned char* q_s = smem + kXT * TT::kCellTerm;
+  float* list_v = reinterpret_cast<float*>(q_s + kQT * q_term);
+  int* list_i = reinterpret_cast<int*>(list_v + kSlots * kLanes);
+  float* tile_s = reinterpret_cast<float*>(smem);   // exact, over the cells
+
+  // prologue: each warp forms the query terms and qadd of its 4 slots,
+  // the 4 side by side column by column so that their loads overlap
+  constexpr int kPerWarp = kSlots / kWarps;
   const float* cent = nullptr;
   if constexpr (kPro == kResidual || kPro == kScaledCent) cent = cents + (size_t)s * d;
-  if (active) {
-    qrow = queries + (size_t)lists[(size_t)r * maxq + j] * d;
-    for (int c = lane; c < dp; c += 32) {
-      const float v = query_value<kPro, kEpi, kSplit>(qrow, cent, scales, c, d, qadd);
-      if constexpr (!kWide) qk[c] = v;
+  {
+    int qid[kPerWarp];
+    float qadd[kPerWarp];
+#pragma unroll
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int j = j0 + warp * kPerWarp + i;
+      qid[i] = j < maxq ? lists[(size_t)r * maxq + j] : -1;   // warp-uniform
+      qadd[i] = 0.f;
+    }
+    for (int c = lane; c < (kWide ? d : dkq); c += 32) {
+#pragma unroll
+      for (int i = 0; i < kPerWarp; ++i) {
+        const float v = qid[i] >= 0 ? query_value<kPro, kEpi>(queries + (size_t)qid[i] * d,
+                                                              cent, scales, c, d, qadd[i])
+                                    : 0.f;
+        if constexpr (!kWide) {
+          put_query<kQT, kInt8>(q_s + (warp * kPerWarp + i) * qstride, q_term, c, v);
+        }
+      }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      qadd += __shfl_xor_sync(0xffffffffu, qadd, o);
+    for (int i = 0; i < kPerWarp; ++i) {
+      float qa = qadd[i];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) qa += __shfl_xor_sync(0xffffffffu, qa, o);
+      if constexpr (kEpi == kCosQnorm) {  // qadd = 1 / |q| (0 for a zero query)
+        qa = qa > 0.f ? __fdiv_rn(1.f, __fsqrt_rn(fmaxf(qa, 1e-12f))) : 0.f;
+      }
+      if (lane == 0) {
+        qadd_s[warp * kPerWarp + i] = qa;
+        qid_s[warp * kPerWarp + i] = qid[i];
+      }
     }
-    if constexpr (kEpi == kCosQnorm) {  // qadd = 1 / |q| (0 for a zero query)
-      qadd = qadd > 0.f ? __fdiv_rn(1.f, __fsqrt_rn(fmaxf(qadd, 1e-12f))) : 0.f;
+  }
+  if constexpr (kExact) {
+    for (int i = tid; i < kSlots * kLanes; i += kThreads) {
+      list_v[i] = kEmpty;
+      list_i[i] = INT_MAX;
     }
   }
 
-  // fold state: (best, runner-up) of stride classes lane + 32 i
-  float v1[4], v2[4];
-  int i1[4], i2[4];
-  // exact state: sorted list slots lane + 32 i, and its kb-th entry
-  float ev[4];
-  int ei[4];
-  float tv = kEmpty;
-  int ti = INT_MAX;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { ev[i] = kEmpty; ei[i] = INT_MAX; }
+  // fold state of the thread's 16 elements: element e of n-tile nb at
+  // 4 nb + e is slot 16 wm + g + 8 (e / 2), stride class 32 wn + 8 nb +
+  // 2 t4 + e % 2. A survivor's lane is chunk * 128 + its class, so one
+  // register holds both survivors' chunks: the best's in the low 16 bits,
+  // the runner-up's in the high 16 (kNoChunk: the runner-up's initial
+  // lane 0); the C entries refuse segments of 65,535 chunks or more
+  float v1[16], v2[16];
+  uint32_t ic[16];
+  Acc acc[4][4];
+  // f32-grade products (f32 cells, the f32 query in three terms) and wide
+  // rows: each 16 (32) columns' products sum into a fresh `part`, smallest
+  // cross terms first, which joins `acc` by one IEEE add. An mma chops its
+  // sum to 24 bits of its largest term, so one accumulator over many steps
+  // gathers chops that all lean one way
+  constexpr bool kStepSums = !kInt8 && (kXT == 3 || kQT == 3 || kWide);
+  Acc part[4][4];
+  Acc(&sum)[4][4] = kStepSums ? part : acc;
 
   const CellT* blk = cells + (size_t)s * seg * dp;
   const float* snr = sn + (size_t)s * seg;
   // chunks past the valid rows hold only 3e38 lanes: skipped
   const int nchunks = (n_valid + kLanes - 1) / kLanes;
+  const int ncb = (dkq + TT::kCols - 1) / TT::kCols;
+  const int nsteps = nchunks * ncb;
+  constexpr int kVE = 16 / (int)sizeof(CellT);   // elements of a 16-byte vector
 
-  for (int ch = 0; ch < nchunks; ++ch) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c0 = 0; c0 < dp; c0 += cols) {
-      const int w = min(cols, dp - c0);
-      __syncthreads();  // the previous block's reads are done (and qk written)
-      stage_chunk(blk + (size_t)ch * kLanes * dp, cell_s, dp, c0, w, stride);
-      if constexpr (kWide) {  // this block's query columns, beside the cells'
-        if (active) {
-          float unused = 0.f;
-          for (int c = lane; c < w; c += 32) {
-            qk[c] = query_value<kPro, kEpi, kSplit>(qrow, cent, scales, c0 + c, d, unused);
+  // step t = (chunk, column block): the thread's up to 4 source vectors
+  uint4 pre[4];
+  auto load = [&](int t) {
+    const int ch = t / ncb, c0 = (t - ch * ncb) * TT::kCols;
+    const int vpr = min(TT::kCols, dkq - c0) / kVE;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + kThreads * i;
+      const int row = v / vpr, col = c0 + (v - row * vpr) * kVE;
+      pre[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (v < kLanes * vpr && col < dp) {
+        pre[i] = *reinterpret_cast<const uint4*>(blk + ((size_t)ch * kLanes + row) * dp + col);
+      }
+    }
+  };
+  auto store = [&](int t) {
+    const int c0 = (t - t / ncb * ncb) * TT::kCols;
+    const int vpr = min(TT::kCols, dkq - c0) / kVE;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + kThreads * i;
+      if (v >= kLanes * vpr) continue;
+      const int row = v / vpr, vec = v - row * vpr;
+      if constexpr (std::is_same<CellT, int8_t>::value) {
+        put_cells_i8<kInt8>(cell_s, row, vec, pre[i]);
+      } else {
+        put_cells(cell_s, row, vec, pre[i], static_cast<const CellT*>(nullptr));
+      }
+    }
+  };
+
+  const int a_base = mma::a_offset(lane, qstride) + wm * 16 * qstride;
+  const int b_base = mma::b_offset(lane, TT::kRow) + wn * 32 * TT::kRow;
+  load(0);
+  for (int t = 0; t < nsteps; ++t) {
+    const int ch = t / ncb, cb = t - ch * ncb;
+    const int c0 = cb * TT::kCols;
+    const int w = min(TT::kCols, dkq - c0);
+    __syncthreads();  // the previous step's reads of the staged terms are done
+    store(t);
+    if constexpr (kWide) {  // this step's query columns, beside the cells'
+      for (int i = tid; i < kSlots * w; i += kThreads) {
+        const int slot = i / w, c = i - slot * w;
+        const int qid = qid_s[slot];
+        float unused = 0.f;
+        const float v = qid >= 0 ? query_value<kPro, kEpi>(queries + (size_t)qid * d, cent,
+                                                         scales, c0 + c, d, unused)
+                                 : 0.f;
+        put_query<kQT, kInt8>(q_s + slot * qstride, q_term, c, v);
+      }
+    }
+    __syncthreads();
+    if (t + 1 < nsteps) load(t + 1);
+    if (cb == 0) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0;
+      }
+    }
+    const unsigned char* qa = q_s + a_base + (kWide ? 0 : c0 * TT::kES);
+    const unsigned char* xb = cell_s + b_base;
+    const int nks = w * TT::kES / 32;
+#pragma unroll
+    for (int ks = 0; ks < TT::kMaxKs; ++ks) {
+      if (ks >= nks) break;
+      uint32_t a[kQT][4];
+#pragma unroll
+      for (int i = 0; i < kQT; ++i) mma::ldsm_x4(a[i], qa + i * q_term + ks * 32);
+      if constexpr (kStepSums) {
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[nb][e] = 0;
+        }
+      }
+      // cell terms from the smallest; within one, query terms likewise
+#pragma unroll
+      for (int b = kXT - 1; b >= 0; --b) {
+        uint32_t b01[4], b23[4];
+        mma::ldsm_x4(b01, xb + b * TT::kCellTerm + ks * 32);
+        mma::ldsm_x4(b23, xb + b * TT::kCellTerm + 16 * TT::kRow + ks * 32);
+#pragma unroll
+        for (int p = mma::cross_count(kQT, kXT) - 1; p >= 0; --p) {
+          if (mma::cross_b(kXT, p) != b) continue;
+          const int ai = mma::cross_a(kXT, p);
+          if constexpr (kInt8) {
+            mma::mma_s8(sum[0], a[ai], b01[0], b01[1]);
+            mma::mma_s8(sum[1], a[ai], b01[2], b01[3]);
+            mma::mma_s8(sum[2], a[ai], b23[0], b23[1]);
+            mma::mma_s8(sum[3], a[ai], b23[2], b23[3]);
+          } else {
+            mma::mma_bf16(sum[0], a[ai], b01[0], b01[1]);
+            mma::mma_bf16(sum[1], a[ai], b01[2], b01[3]);
+            mma::mma_bf16(sum[2], a[ai], b23[0], b23[1]);
+            mma::mma_bf16(sum[3], a[ai], b23[2], b23[3]);
           }
         }
       }
-      __syncthreads();
-      if (!active) continue;
-      const float* qb = kWide ? qk : qk + c0;
-      // columns in order, as without the column blocks
-      for (int c = 0; c < w; c += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qb + c);
+      if constexpr (kStepSums) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 x4 =
-              *reinterpret_cast<const float4*>(cell_s + (lane + 32 * i) * stride + c);
-          acc[i] = __fmaf_rn(q4.x, x4.x, acc[i]);
-          acc[i] = __fmaf_rn(q4.y, x4.y, acc[i]);
-          acc[i] = __fmaf_rn(q4.z, x4.z, acc[i]);
-          acc[i] = __fmaf_rn(q4.w, x4.w, acc[i]);
+        for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nb][e] = __fadd_rn(acc[nb][e], part[nb][e]);
         }
       }
     }
-    if (!active) continue;
-    float dist[4];
+    if (cb != ncb - 1) continue;
+
+    // epilogue of chunk ch on the fragment
+    const float qa0 = qadd_s[wm * 16 + g], qa1 = qadd_s[wm * 16 + g + 8];
+    float dist[16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int l = ch * kLanes + lane + 32 * i;
-      if constexpr (kEpi == kL2) {
-        dist[i] = fmaxf(__fsub_rn(__fadd_rn(qadd, snr[l]), 2.f * acc[i]), 0.f);
-      } else if constexpr (kEpi == kCosPlain) {
-        dist[i] = __fsub_rn(1.f, acc[i]);
-      } else {
-        const float rs = __fdiv_rn(1.f, __fsqrt_rn(fmaxf(snr[l], 1e-12f)));
-        if constexpr (kEpi == kCosQnorm) {
-          dist[i] = __fsub_rn(1.f, __fmul_rn(__fmul_rn(acc[i], qadd), rs));
-        } else {  // cos_renorm
-          dist[i] = __fsub_rn(1.f, __fmul_rn(__fadd_rn(acc[i], qadd), rs));
+    for (int nb = 0; nb < 4; ++nb) {
+      const int l0 = ch * kLanes + wn * 32 + nb * 8 + 2 * t4;
+      const float2 sv = *reinterpret_cast<const float2*>(snr + l0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = l0 + (e & 1);
+        const float snl = (e & 1) ? sv.y : sv.x;
+        const float qadd = (e >> 1) ? qa1 : qa0;
+        const float dot = (float)acc[nb][e];
+        float dv;
+        if constexpr (kEpi == kL2) {
+          dv = fmaxf(__fsub_rn(__fadd_rn(qadd, snl), 2.f * dot), 0.f);
+        } else if constexpr (kEpi == kCosPlain) {
+          dv = __fsub_rn(1.f, dot);
+        } else {
+          const float rs = __fdiv_rn(1.f, __fsqrt_rn(fmaxf(snl, 1e-12f)));
+          if constexpr (kEpi == kCosQnorm) {
+            dv = __fsub_rn(1.f, __fmul_rn(__fmul_rn(dot, qadd), rs));
+          } else {  // cos_renorm
+            dv = __fsub_rn(1.f, __fmul_rn(__fadd_rn(dot, qadd), rs));
+          }
         }
+        dist[nb * 4 + e] = l >= n_valid ? kBig : dv;
       }
-      if (l >= n_valid) dist[i] = kBig;
     }
 
     if constexpr (!kExact) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = ch * kLanes + lane + 32 * i;
+      for (int k = 0; k < 16; ++k) {
         if (ch == 0) {
-          v1[i] = dist[i]; i1[i] = l; v2[i] = kBig; i2[i] = 0;
+          v1[k] = dist[k]; v2[k] = kBig; ic[k] = kNoChunk << 16;
         } else {
-          const bool upd = dist[i] < v1[i];
-          const float lose_v = upd ? v1[i] : dist[i];
-          const int lose_i = upd ? i1[i] : l;
-          if (upd) { v1[i] = dist[i]; i1[i] = l; }
+          const bool upd = dist[k] < v1[k];
+          const float lose_v = upd ? v1[k] : dist[k];
+          const uint32_t lose_c = upd ? ic[k] & 0xFFFFu : (uint32_t)ch;
+          if (upd) { v1[k] = dist[k]; ic[k] = (ic[k] & 0xFFFF0000u) | ch; }
           if constexpr (kSel == kFold2) {
-            if (lose_v < v2[i]) { v2[i] = lose_v; i2[i] = lose_i; }
+            if (lose_v < v2[k]) { v2[k] = lose_v; ic[k] = (ic[k] & 0xFFFFu) | (lose_c << 16); }
           }
         }
       }
     } else {
-      // candidates: the chunk's valid lanes; the rest never enter the list
-      float cv[4];
-      int ci[4];
-      bool beats = false;
+      __syncthreads();  // every warp's products are done with the staged cells
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = ch * kLanes + lane + 32 * i;
-        cv[i] = l < n_valid ? dist[i] : kEmpty;
-        ci[i] = l < n_valid ? l : INT_MAX;
-        beats |= lex_less(cv[i], ci[i], tv, ti);
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = wm * 16 + g + 8 * h;
+          *reinterpret_cast<float2*>(tile_s + slot * kTileStride + wn * 32 + nb * 8 + 2 * t4) =
+              make_float2(dist[nb * 4 + 2 * h], dist[nb * 4 + 2 * h + 1]);
+        }
       }
-      if (__any_sync(0xffffffffu, beats)) {
-        float nv[4];
-        int ni[4];
+      __syncthreads();
+      // each warp merges the tile rows of its 4 slots into their lists:
+      // candidates are the chunk's valid lanes; the rest never enter
+      for (int i = 0; i < kPerWarp; ++i) {
+        const int slot = warp * kPerWarp + i;
+        if (qid_s[slot] < 0) continue;   // warp-uniform
+        float* lv = list_v + slot * kLanes;
+        int* li = list_i + slot * kLanes;
+        const float tv = lv[kb - 1];
+        const int ti = li[kb - 1];
+        float cv[4];
+        int ci[4];
+        bool beats = false;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) { nv[i] = kEmpty; ni[i] = INT_MAX; }
-        for (int t = 0; t < kb; ++t) {
+        for (int u = 0; u < 4; ++u) {
+          const int l = ch * kLanes + lane + 32 * u;
+          cv[u] = l < n_valid ? tile_s[slot * kTileStride + lane + 32 * u] : kEmpty;
+          ci[u] = l < n_valid ? l : INT_MAX;
+          beats |= lex_less(cv[u], ci[u], tv, ti);
+        }
+        if (!__any_sync(0xffffffffu, beats)) continue;
+        float ev[4], nv[4];
+        int ei[4], ni[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          ev[u] = lv[lane + 32 * u];
+          ei[u] = li[lane + 32 * u];
+          nv[u] = kEmpty;
+          ni[u] = INT_MAX;
+        }
+        for (int t2 = 0; t2 < kb; ++t2) {
           float bv = ev[0];
           int bi = ei[0];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (lex_less(ev[i], ei[i], bv, bi)) { bv = ev[i]; bi = ei[i]; }
-            if (lex_less(cv[i], ci[i], bv, bi)) { bv = cv[i]; bi = ci[i]; }
+          for (int u = 0; u < 4; ++u) {
+            if (lex_less(ev[u], ei[u], bv, bi)) { bv = ev[u]; bi = ei[u]; }
+            if (lex_less(cv[u], ci[u], bv, bi)) { bv = cv[u]; bi = ci[u]; }
           }
           warp_lex_min(bv, bi);
           if (bi == INT_MAX) break;  // warp-uniform: nothing left to take
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (t == lane + 32 * i) { nv[i] = bv; ni[i] = bi; }
+          for (int u = 0; u < 4; ++u) {
+            if (t2 == lane + 32 * u) { nv[u] = bv; ni[u] = bi; }
             // lanes are unique: exactly one entry holds the winner
-            if (ei[i] == bi) { ev[i] = kEmpty; ei[i] = INT_MAX; }
-            if (ci[i] == bi) { cv[i] = kEmpty; ci[i] = INT_MAX; }
+            if (ei[u] == bi) { ev[u] = kEmpty; ei[u] = INT_MAX; }
+            if (ci[u] == bi) { cv[u] = kEmpty; ci[u] = INT_MAX; }
           }
         }
-        float kv = nv[0];
-        int ki = ni[0];
+        __syncwarp();   // every lane has read lv[kb - 1]
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ev[i] = nv[i]; ei[i] = ni[i];
-          if (i == (kb - 1) >> 5) { kv = nv[i]; ki = ni[i]; }
+        for (int u = 0; u < 4; ++u) {
+          lv[lane + 32 * u] = nv[u];
+          li[lane + 32 * u] = ni[u];
         }
-        tv = __shfl_sync(0xffffffffu, kv, (kb - 1) & 31);
-        ti = __shfl_sync(0xffffffffu, ki, (kb - 1) & 31);
+        __syncwarp();
       }
     }
   }
-  if (!active) return;
 
   if constexpr (kExact) {
+    __syncthreads();
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int slot = warp * kPerWarp + i;
+      if (qid_s[slot] < 0) continue;
+      const size_t ob = ((size_t)r * maxq + j0 + slot) * kb;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = lane + 32 * i;
-      if (t < kb) {
-        const bool real = ei[i] != INT_MAX;
-        out_d[out_base + t] = real ? ev[i] : kBig;
-        out_i[out_base + t] = real ? ei[i] : 0;
+      for (int u = 0; u < 4; ++u) {
+        const int t2 = lane + 32 * u;
+        if (t2 < kb) {
+          const int e = list_i[slot * kLanes + t2];
+          const bool real = e != INT_MAX;
+          out_d[ob + t2] = real ? list_v[slot * kLanes + t2] : kBig;
+          out_i[ob + t2] = real ? e : 0;
+        }
       }
     }
   } else {
-    // extraction: kb rounds of a warp-wide lexicographic arg-min
-    for (int t = 0; t < kb; ++t) {
-      float bv = v1[0];
-      int bi = i1[0];
+    // the survivors of every slot to shared memory ([32][kDepth * 128]),
+    // then each warp extracts for its 4 slots: kb rounds of a warp-wide
+    // lexicographic arg-min
+    constexpr int kSurv = kDepth * kLanes;
+    float* sv_s = reinterpret_cast<float*>(smem);
+    int* si_s = reinterpret_cast<int*>(sv_s + kSlots * kSurv);
+    __syncthreads();  // every warp is done with the staged terms
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (lex_less(v1[i], i1[i], bv, bi)) { bv = v1[i]; bi = i1[i]; }
-        if constexpr (kSel == kFold2) {
-          if (lex_less(v2[i], i2[i], bv, bi)) { bv = v2[i]; bi = i2[i]; }
+    for (int k = 0; k < 16; ++k) {
+      const int slot = wm * 16 + g + 8 * ((k & 3) >> 1);
+      const int cls = wn * 32 + (k >> 2) * 8 + 2 * t4 + (k & 1);
+      sv_s[slot * kSurv + cls] = v1[k];
+      si_s[slot * kSurv + cls] = (int)(ic[k] & 0xFFFFu) * kLanes + cls;
+      if constexpr (kSel == kFold2) {
+        const uint32_t c2 = ic[k] >> 16;
+        sv_s[slot * kSurv + kLanes + cls] = v2[k];
+        si_s[slot * kSurv + kLanes + cls] = c2 == kNoChunk ? 0 : (int)c2 * kLanes + cls;
+      }
+    }
+    __syncthreads();
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int slot = warp * kPerWarp + i;
+      if (qid_s[slot] < 0) continue;   // warp-uniform
+      const size_t ob = ((size_t)r * maxq + j0 + slot) * kb;
+      constexpr int kPer = kSurv / 32;
+      float v[kPer];
+      int id[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        v[u] = sv_s[slot * kSurv + lane + 32 * u];
+        id[u] = si_s[slot * kSurv + lane + 32 * u];
+      }
+      for (int t2 = 0; t2 < kb; ++t2) {
+        float bv = v[0];
+        int bi = id[0];
+#pragma unroll
+        for (int u = 1; u < kPer; ++u) {
+          if (lex_less(v[u], id[u], bv, bi)) { bv = v[u]; bi = id[u]; }
         }
-      }
-      warp_lex_min(bv, bi);
-      if (lane == 0) {
-        out_d[out_base + t] = bv;
-        out_i[out_base + t] = bi;
-      }
+        warp_lex_min(bv, bi);
+        if (lane == 0) {
+          out_d[ob + t2] = bv;
+          out_i[ob + t2] = bi;
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (v1[i] == bv && i1[i] == bi) v1[i] = kBig;
-        if constexpr (kSel == kFold2) {
-          if (v2[i] == bv && i2[i] == bi) v2[i] = kBig;
+        for (int u = 0; u < kPer; ++u) {
+          if (v[u] == bv && id[u] == bi) v[u] = kBig;
         }
       }
     }
   }
-}
-
-size_t smem_bytes(int dp) {
-  const int cols = dp < kCols ? dp : kCols;
-  const int q_cols = dp > kDMax ? kCols : dp;
-  return ((size_t)kLanes * (cols + 4) + (size_t)kWarps * q_cols) * sizeof(float);
 }
 
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
@@ -459,11 +688,11 @@ int launch_impl(const void* lists, const void* task_seg, const void* cnt,
                 const void* cells, const void* sn, void* out_d, void* out_i,
                 int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
   auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kSel, kSplit, kWide>;
-  const size_t smem = smem_bytes(dp);
+  const size_t smem = smem_bytes<CellT, kPro, kSel, kSplit>(dp, kWide);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(R, (maxq + kWarps - 1) / kWarps);
+  const dim3 grid(R, (maxq + kSlots - 1) / kSlots);
   kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)lists, (const int*)task_seg, (const int*)cnt,
       (const float*)queries, (const float*)cents, (const float*)scales,
@@ -472,15 +701,16 @@ int launch_impl(const void* lists, const void* task_seg, const void* cnt,
   return (int)cudaGetLastError();
 }
 
-// one variant at any width: the query term held whole up to kDMax, in
-// column blocks above
+// one variant at any width: the query terms held whole where the block
+// fits kNarrowSmem, in column blocks beside the cells' past it
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit = false>
 int launch(const void* lists, const void* task_seg, const void* cnt,
            const void* queries, const void* cents, const void* scales,
            const void* cells, const void* sn, void* out_d, void* out_i,
            int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  auto run = dp > kDMax ? &launch_impl<CellT, kPro, kEpi, kSel, kSplit, true>
-                        : &launch_impl<CellT, kPro, kEpi, kSel, kSplit, false>;
+  const bool wide = smem_bytes<CellT, kPro, kSel, kSplit>(dp, false) > (size_t)kNarrowSmem;
+  auto run = wide ? &launch_impl<CellT, kPro, kEpi, kSel, kSplit, true>
+                  : &launch_impl<CellT, kPro, kEpi, kSel, kSplit, false>;
   return run(lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
              R, maxq, seg, d, dp, kb, stream);
 }
@@ -498,8 +728,8 @@ constexpr Launch kBySel[3] = {
 
 // K1c-f32 (exact) and K1d-f32 (fold): f32 cells, l2 or cos_plain: [cosine][sel]
 const Launch* const kF32[2] = {kBySel<float, kPlain, kL2>, kBySel<float, kPlain, kCosPlain>};
-// K1c-bf16 (exact: the f32 query) and K1d-bf16 (fold: the query rounded to
-// bf16): bf16 cells, l2 or cos_plain: [cosine][sel]
+// K1c-bf16 (exact: the f32 query in three terms) and K1d-bf16 (fold: the
+// query in one bf16 term): bf16 cells, l2 or cos_plain: [cosine][sel]
 const Launch kBf16[2][3] = {
     {launch<__nv_bfloat16, kPlain, kL2, kExactSel>,
      launch<__nv_bfloat16, kBf16Query, kL2, kFold1>,
@@ -523,7 +753,12 @@ const Launch* const kI8dec[2][2] = {
     {kBySel<int8_t, kScaled, kCosRenorm, false>, kBySel<int8_t, kScaled, kCosRenorm, true>},
 };
 
-int bad_sel(int sel) { return sel < 0 || sel > 2 ? (int)cudaErrorInvalidValue : 0; }
+// `sel` is 0, 1 or 2; a fold's segment holds fewer than kNoChunk chunks
+int bad_sel(int sel, int seg) {
+  return sel < 0 || sel > 2 || (sel > 0 && seg / kLanes >= (int)kNoChunk)
+             ? (int)cudaErrorInvalidValue
+             : 0;
+}
 
 }  // namespace
 
@@ -537,7 +772,7 @@ extern "C" int annsearch_ivf_scan_k1a(
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
     int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualL2[0][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
@@ -549,7 +784,7 @@ extern "C" int annsearch_ivf_scan_k1b_l2(
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
     int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualL2[1][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
@@ -561,7 +796,7 @@ extern "C" int annsearch_ivf_scan_k1b_cos(
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
     int R, int maxq, int seg, int d, int dp, int kb, int split, int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualCos[split != 0][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
@@ -574,7 +809,7 @@ extern "C" int annsearch_ivf_scan_i8dec(
     const void* queries, const void* scales, const void* cells,
     const void* sn, void* out_d, void* out_i, int R, int maxq, int seg, int d,
     int dp, int kb, int cosine, int split, int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kI8dec[cosine != 0][split != 0][sel](
       lists, task_seg, cnt, queries, nullptr, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
@@ -586,7 +821,7 @@ extern "C" int annsearch_ivf_scan_f32(
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
     int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kF32[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
                                 sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
 }
@@ -597,7 +832,7 @@ extern "C" int annsearch_ivf_scan_bf16(
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
     int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kBf16[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
                                  sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
 }
@@ -608,7 +843,7 @@ extern "C" int annsearch_ivf_scan_sq8(
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
     int sel, void* stream) {
-  if (bad_sel(sel)) return bad_sel(sel);
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kSq8[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
                                 sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
 }

@@ -23,7 +23,8 @@ of a candidate set:
 
 Not ported: ``ANNSEARCH_TREE_SPLIT_RERANK`` and ``rerank_exact_split``
 (bf16 hi/lo tables for the TPU's gathers), the ``packed2`` lane layout
-(f32 rows are scored with FP32 FFMA), the packed ``(dists, ids-as-f32)``
+(f32 rows are scored as six cross terms of a three-way split on the
+tensor cores), the packed ``(dists, ids-as-f32)``
 results (ids come back as int64 tensors), ``ANNSEARCH_NO_PALLAS`` and the
 ``interpret`` plumbing.
 """

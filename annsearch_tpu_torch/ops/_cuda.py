@@ -19,7 +19,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "kernel_resources", "SOURCE_DIR", "BUILD_DIR"]
+__all__ = [
+    "load_library", "build_log", "kernel_resources", "mma_counts", "mma_sync_once",
+    "SOURCE_DIR", "BUILD_DIR",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
@@ -43,7 +46,8 @@ _SIGNATURES = {
     "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + [_P],
-    "annsearch_flat_scan": [_P] * 8 + [_I] * 8 + [_P],
+    "annsearch_flat_scan": [_P] * 10 + [_I] * 8 + [_P],
+    "annsearch_mma_probe": [_P] * 4 + [_I, _P],
 }
 
 
@@ -76,6 +80,13 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _short_name(mangled: str) -> str:
+    """A kernel's name with its template arguments as the compiler mangles
+    them (``flat_scan_kernelILi2ELi3ELb1EE`` is ``<2, 3, true>``)."""
+    m = re.search(r"((?:ivf|flat)_[a-z_]+kernel)(?:(I\w+?E)Ev)?", mangled)
+    return m.group(1) + (m.group(2) or "") if m else mangled
+
+
 def kernel_resources() -> list[tuple[str, str]]:
     """``(kernel, resources)`` per compiled kernel instance of the current
     build, from ``ptxas -v``: the kernel's name with its template arguments
@@ -87,15 +98,62 @@ def kernel_resources() -> list[tuple[str, str]]:
     for line in build_log().splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
-            mangled = line.split("'")[1]
-            m = re.search(r"((?:ivf|flat)_[a-z_]+kernel)(?:(I\w+?E)Ev)?", mangled)
-            name = m.group(1) + (m.group(2) or "") if m else mangled
+            name = _short_name(line.split("'")[1])
         elif "spill" in line:
             spills = line
         elif line.startswith("ptxas info") and "Used" in line and name:
             out.append((name, line.split(":", 1)[1].strip() + "; " + spills))
             name = None
     return out
+
+
+def mma_counts() -> tuple[str, dict[str, tuple[int, int]]]:
+    """Tensor-core instructions of each kernel of the built library:
+    ``("sass", {kernel: (HMMA, IMMA)})`` counted in ``cuobjdump -sass``
+    where the toolkit has it, else ``("ptx", {kernel: (mma.sync with bf16
+    operands, with s8 operands)})`` counted in the PTX that ``nvcc -ptx``
+    makes of each source."""
+    load_library()
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    counts: dict[str, list[int]] = {}
+    if os.path.exists(tool):
+        text = subprocess.run([tool, "-sass", str(_build_dir() / _LIB_NAME)],
+                              capture_output=True, text=True, check=True).stdout
+        head, marks, kind = r"Function : (\S+)", ("HMMA", "IMMA"), "sass"
+    else:
+        text = ""
+        for p in _sources():
+            ptx = _build_dir() / f"{p.stem}.ptx"
+            subprocess.run([_nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx", "-o",
+                            str(ptx), str(p)], capture_output=True, check=True)
+            text += ptx.read_text()
+        head, marks, kind = r"\.entry (\S+?)\(", ("mma.sync.aligned.m16n8k16", "s8.s8.s32"), "ptx"
+    name = None
+    for line in text.splitlines():
+        m = re.search(head, line)
+        if m:
+            name = _short_name(m.group(1))
+            counts.setdefault(name, [0, 0])
+        elif name is not None:
+            for i, mark in enumerate(marks):
+                counts[name][i] += mark in line
+    return kind, {k: (v[0], v[1]) for k, v in counts.items()}
+
+
+def mma_sync_once(a, b, c):
+    """One ``mma.sync.m16n8k16`` bf16 → f32 of the scans (``csrc/mma_probe.cu``)
+    per problem: ``a [P, 16, 16]`` and ``b [P, 16, 8]`` bf16, ``c [P, 16, 8]``
+    f32, CUDA tensors; returns ``a @ b + c`` as the tensor cores sum it."""
+    import torch
+
+    a, bt, c = a.contiguous(), b.transpose(1, 2).contiguous(), c.contiguous()
+    d = torch.empty_like(c)
+    err = load_library().annsearch_mma_probe(
+        a.data_ptr(), bt.data_ptr(), c.data_ptr(), d.data_ptr(), a.shape[0],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mma probe launch failed: cudaError {err}")
+    return d
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,26 +13,32 @@ raises); a CPU tensor goes to ``flat_topk_fused_plain``, the same function
 in tensor operations, which is also what the kernel is held against.
 
 Grade of the dots. The Pallas kernel sums bf16 cross terms of a mantissa
-split on the MXU and packs them into the lane dimension at d ≤ 64. The
-port keeps the grade each ``passes`` promises, not the trick: ``passes=6``
-and ``passes=3`` are FP32 products with f32 sums (FFMA on the card, an
-fp32 ``matmul`` with TF32 off in the plain version), which carries all 24
-mantissa bits; ``passes=1`` rounds both operands to bf16
-(round-to-nearest-even) and sums in f32. The kernel's FFMA loop and the
-plain version's ``matmul`` sum in different orders, so they agree bit for
-bit only where every product and partial sum is exact (inputs on a coarse
-grid); elsewhere distances agree within rounding and near-ties may swap.
+split on the MXU; the port sums the same terms on the tensor cores:
+``passes`` 1, 3 and 6 split both operands into 1, 2 and 3 bf16 terms
+(``utils.dist.mantissa_split``) and sum the cross terms of
+``utils.dist.CROSS`` (one, three and six products) into f32. Three terms
+hold all 24 bits of each operand and the tensor cores keep 24 bits of the
+largest term of each 16-column sum, so ``passes=6`` is f32 grade; two
+terms carry about 16 bits, one is ``bf16_rne``. The split is made once
+per call, here in tensor code, as the JAX package's ``_prep_parts`` makes
+it outside its kernel. The plain version takes ``passes=6`` as one fp32
+matmul (TF32 off), and sums the split's products where the split sets the
+grade (``passes`` 1 and 3: the terms side by side in one f32 matmul). It
+and the kernel sum in different orders, so they agree bit for bit only
+where every product and partial sum is exact (inputs on a coarse grid);
+elsewhere distances agree within rounding and near-ties may swap. No
+lane-packed layout.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.dist import Dist, fp32_matmul, sq_norms
+from ..utils.dist import Dist, cross_packed, fp32_matmul, mantissa_split, sq_norms
 
 __all__ = [
     "flat_topk_fused", "flat_topk_fused_plain", "fused_shapes", "slab_rows",
-    "scan_smem_bytes",
+    "scan_smem_bytes", "split_terms",
 ]
 
 #: finite "masked" value of the scan (ranks after every real score)
@@ -44,6 +50,8 @@ _PLAIN_ROWS = 512
 _SCRATCH_BYTES = 512 * 1024 * 1024
 #: the extraction kernel holds depth·B bins in 256 threads × 16 registers
 _MAX_BINS = 4096
+#: db tiles one scan launch covers (a bin keeps its tile in 16 bits)
+_RUN_TILES = 65_534
 
 
 def _pow2ceil(v: int) -> int:
@@ -63,14 +71,23 @@ def slab_rows(B: int, depth: int = 2) -> int:
     return max(128, _SCRATCH_BYTES // (depth * B * 8) // 128 * 128)
 
 
-def scan_smem_bytes(d: int) -> int:
+def split_terms(passes: int) -> int:
+    """bf16 terms of each operand for ``passes`` (1, 3 or 6): 1, 2 or 3."""
+    return 3 if passes >= 6 else (2 if passes >= 3 else 1)
+
+
+def scan_smem_bytes(d: int, passes: int = 1) -> int:
     """Dynamic shared memory of one scan block at row width ``d``, as
-    ``csrc/flat_scan.cu`` sizes it: two 32 × 36 x chunks and the 128-query
-    tile, whole (row stride ``dp + 4``) where that fits 208 KiB, else two
-    128 × 36 chunks of it."""
-    dp = -(-d // 4) * 4
-    whole = (2 * 32 * 36 + 128 * (dp + 4)) * 4
-    return whole if whole <= 208 * 1024 else (2 * 32 * 36 + 2 * 128 * 36) * 4
+    ``csrc/flat_scan.cu`` sizes it for T terms: a ring of stages of T × 32
+    x rows of 32 bf16 columns (rows of 80 bytes) with their 32 norms, and
+    the 128-query tile's T terms: whole (rows of ``2 dk + 16`` bytes, dk =
+    d rounded up to 16) beside eight stages where that fits 200 KiB, else
+    streamed, T × 128 rows of 80 bytes in each of three stages."""
+    t = split_terms(passes)
+    dk = -(-d // 16) * 16
+    stage = t * 32 * 80 + 128
+    whole = 8 * stage + t * 128 * (2 * dk + 16)
+    return whole if whole <= 200 * 1024 else 3 * stage + 3 * t * 128 * 80
 
 
 def _prepare(q, x, metric, x_sqnorm, n_valid):
@@ -101,13 +118,15 @@ def _finish(cd, ci, k: int, kb: int, metric, n_valid: int):
     return best_d, best_i
 
 
-def _scan_plain(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16: bool):
+def _scan_plain(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms: int):
     """The scan and the extraction in tensor operations:
-    ``(cd [nq, kb] f32, ci [nq, kb] int32)`` before the clamps."""
+    ``(cd [nq, kb] f32, ci [nq, kb] int32)`` before the clamps. The dots
+    sum the cross terms of the ``terms``-way split in f32 (three terms:
+    the f32 operands themselves)."""
     nq, n = q.shape[0], x.shape[0]
     dev = q.device
-    if bf16:
-        q, x = q.to(torch.bfloat16).float(), x.to(torch.bfloat16).float()
+    if terms < 3:
+        q, x = cross_packed(q, x, terms)
     rows = torch.arange(n, device=dev)
     sn = torch.zeros(n, device=dev) if sn is None else sn
     sn = torch.where(rows < n_valid, sn, BIG)
@@ -149,7 +168,16 @@ def _scan_plain(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16:
     return out_d, out_i
 
 
-def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16: bool):
+def _terms_of(v: torch.Tensor, terms: int, dk: int) -> torch.Tensor:
+    """``[terms, rows, dk]`` bf16: the mantissa split of ``v [rows, d]``
+    with zero columns past d (the kernel's operands)."""
+    out = torch.zeros((terms, v.shape[0], dk), dtype=torch.bfloat16, device=v.device)
+    for i, t in enumerate(mantissa_split(v, terms)):
+        out[i, :, : v.shape[1]] = t
+    return out
+
+
+def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms: int):
     """Launch K2 over slabs of queries; result as :func:`_scan_plain`."""
     from ._cuda import load_library
 
@@ -162,19 +190,18 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16: 
         )
     if n >= 2**31 - B:
         raise ValueError(f"flat_topk_fused: n={n} does not fit int32 columns")
-    dp = -(-d // 4) * 4
-    if dp != d:      # the kernel reads rows in 16-byte vectors
-        q = torch.nn.functional.pad(q, (0, dp - d))
-        x = torch.nn.functional.pad(x, (0, dp - d))
-    q, x = q.contiguous(), x.contiguous()
     for name, t in (("q", q), ("x", x), ("x_sqnorm", sn), ("qadd", qadd)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"flat_topk_fused: {name} must be 16-byte aligned "
-                             f"float32 on {q.device}")
+        if t is not None and (t.dtype != torch.float32 or t.device != q.device):
+            raise ValueError(f"flat_topk_fused: {name} must be float32 on {q.device}")
     if sn is not None and sn.shape != (n,):
         raise ValueError(f"flat_topk_fused: x_sqnorm must have shape ({n},)")
+    # the kernel's operands: the bf16 terms in rows of a multiple of 16
+    # columns, and the norms of whole tiles (3e38 at and past n_valid)
+    dk = -(-d // 16) * 16
+    q_t, x_t = _terms_of(q, terms, dk), _terms_of(x, terms, dk)
+    sn_t = torch.full((-(-n // B) * B,), BIG, device=q.device)
+    sn_t[:n_valid] = 0.0 if sn is None else sn[:n_valid]
+    qadd = qadd.contiguous()
     out_d = torch.empty((nq, kb), dtype=torch.float32, device=q.device)
     out_i = torch.empty((nq, kb), dtype=torch.int32, device=q.device)
     width = depth * B
@@ -182,15 +209,21 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, bf16: 
     rows = min(slab, nq)
     bins_v = torch.empty((rows, width), dtype=torch.float32, device=q.device)
     bins_i = torch.empty((rows, width), dtype=torch.int32, device=q.device)
+    # past _RUN_TILES tiles the kernel scans runs of them and merges each
+    # run's bins into the earlier runs' (``csrc/flat_scan.cu``)
+    many = -(-n // B) > _RUN_TILES
+    bins_v2 = torch.empty_like(bins_v) if many else None
+    bins_i2 = torch.empty_like(bins_i) if many else None
     fn = load_library().annsearch_flat_scan
     stream = torch.cuda.current_stream(q.device).cuda_stream
     for s in range(0, nq, slab):
         m = min(slab, nq - s)
         err = fn(
-            q[s : s + m].data_ptr(), x.data_ptr(), 0 if sn is None else sn.data_ptr(),
+            q_t[0, s].data_ptr(), x_t.data_ptr(), sn_t.data_ptr(),
             qadd[s : s + m].data_ptr(), bins_v.data_ptr(), bins_i.data_ptr(),
+            bins_v2.data_ptr() if many else None, bins_i2.data_ptr() if many else None,
             out_d[s : s + m].data_ptr(), out_i[s : s + m].data_ptr(),
-            m, n, n_valid, dp, B, depth, kb, int(bf16), stream,
+            m, nq, n, dk, B, depth, kb, terms, stream,
         )
         if err:
             raise RuntimeError(f"flat_topk_fused launch failed: cudaError {err}")
@@ -202,7 +235,7 @@ def _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db):
     q, x = q.float(), x.float()
     kb, B = fused_shapes(x.shape[0], k, block_db)
     sn, qadd, n_valid = _prepare(q, x, metric, x_sqnorm, n_valid)
-    cd, ci = scan(q, x, sn, qadd, n_valid, B, depth, kb, passes < 3)
+    cd, ci = scan(q, x, sn, qadd, n_valid, B, depth, kb, split_terms(passes))
     return _finish(cd, ci, k, kb, metric, n_valid)
 
 
@@ -232,16 +265,18 @@ def flat_topk_fused(
     at or past ``n_valid`` never win. The JAX function's arguments less
     ``block_q`` (it changes no result) and ``interpret``.
 
-    ``passes`` is the grade of the dots: 3 and 6 are FP32 products with f32
-    sums, 1 rounds both operands to bf16 and sums in f32 (see the module
-    docstring). ``depth`` bins per class, ``block_db`` the most classes.
+    ``passes`` is the grade of the dots: the one, three or six bf16 cross
+    terms of a 1-, 2- or 3-way mantissa split of both operands, summed in
+    f32 (see the module docstring). ``depth`` bins per class, ``block_db``
+    the most classes.
     At most ``kb = min(pow2ceil(max(k, 8)), 128)`` ranks are extracted;
     columns past ``kb`` are (inf, 0), and with fewer than ``kb`` rows the
     tail is the unfilled bins' (about 3e38, clamped id).
 
     CUDA tensors launch the kernel (or raise), in slabs of queries whose
-    bins fit 512 MiB of scratch, one count in ``flat_topk_fused.launches``
-    per slab; CPU tensors run the plain version."""
+    bins fit 512 MiB of scratch (twice that past 65,534 database tiles),
+    one count in ``flat_topk_fused.launches`` per slab; CPU tensors run the
+    plain version."""
     scan = _scan_cuda if q.is_cuda else _scan_plain
     return _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db)
 

@@ -24,11 +24,12 @@ version here:
   query rounded to bf16 (the JAX package's single bf16 pass); the exact
   selection scores the f32 query, where the JAX package splits it into
   hi/lo bf16 terms to carry about 16 of its bits through the MXU: the
-  CUDA cores carry all 24;
+  kernel splits it in three, which hold all 24 (three exact passes);
 * K1d-sq8 / K1c-sq8, ``ivf_cell_scan_sq8_fold`` / ``_exact``: int8 cells
-  and int8 query codes, ``l2`` or ``cos_qnorm`` — ``IvfSq8Index``. Every
-  product and partial sum is an integer below 2²⁴, so the dots, and the
-  ``l2`` distances, equal the JAX package's bit for bit;
+  and int8 query codes, ``l2`` or ``cos_qnorm`` — ``IvfSq8Index``. The
+  kernel sums the integer products in int32 on the tensor cores; every
+  sum is an integer below 2²⁴, so the dots, and the ``l2`` distances,
+  equal the JAX package's bit for bit;
 * K1-fold1: every fold wrapper takes ``fold_depth`` 1 (one survivor per
   stride class, 128 in all) or 2 (the default, 256), the Pallas
   ``fold_depth``. The IVF indexes pass it as a keyword where the JAX
@@ -37,24 +38,32 @@ version here:
   the exact selection (``selection="exact"`` over ``i8dec`` /
   ``i8dec_residual`` cells). No index routes to it, as in the JAX
   package: the exact tier of those modes is the cluster scan;
-* rows of any width: a block holds 8 query rows whole in shared memory up
-  to a padded d of 4,096 (198,656 bytes with the staged cells, of the
-  232,448 a block may use); above it each variant stages its query rows in
-  column blocks of 128 beside the cells' (``csrc/ivf_scan.cu``), so
-  ``fused_eligible`` is the JAX package's rule, with no width limit.
+* rows of any width: a block holds its 32 slots' query terms whole in
+  shared memory while the block fits 110 KB (two blocks an SM: a padded d
+  of about 400 for f32 cells, 1,200 for K1a); past it each variant forms
+  its query terms a column block at a time beside the cells'
+  (``csrc/ivf_scan.cu``), so ``fused_eligible`` is the JAX package's
+  rule, with no width limit.
 
 A wrapper launches its kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors; there is no fallback between the two. The
-JAX package reaches f32 grade on a bf16 MXU with hi/lo mantissa splits
-and the ``packed2`` lane layout; here the dots are FP32 FFMA on the CUDA
-cores.
+kernels take their products on the tensor cores as the Pallas kernel takes
+them on the MXU: bf16 terms of a mantissa split (``mma.sync``, f32 sums),
+int8 × int8 for SQ8 (int32 sums). f32 cells are split in three on both
+sides and summed over six cross terms, where the JAX package keeps two
+terms (about 16 mantissa bits) and the ``packed2`` lane layout: three terms
+hold all 24 bits, and the tensor cores sum each 16-column step to 24 bits
+of its largest term, so f32 rows are scored at f32 grade (the plain
+versions' fp32 matmul; the card's error against f64 is no larger than the
+FFMA loop's it replaced, PERF.md §6).
 
 On the H100 every variant is bound by its multiply-adds, about
-R·maxq·seg·d (1.3e11 at the 1M×128d main path, nprobe 16), done on the
-CUDA cores: each block stages a segment's rows in shared memory once for
-8 query slots, and the selection stays in registers, so the [maxq, seg]
-distance tile never reaches device memory. See the kernel source for the
-layout.
+R·maxq·seg·d (1.3e11 at the 1M×128d main path, nprobe 16), times its
+passes, at the tensor cores' rate: each block stages a segment's rows in
+shared memory once for 32 query slots, converted once into the terms the
+products take, and the selection stays in registers (the fold) or in
+shared memory (the exact lists), so the [maxq, seg] distance tile never
+reaches device memory. See the kernel source for the layout.
 
 ``fused_ivf_scan`` is the host side around the kernels: per task row, the
 segment and its valid-row count; after it, the lane → storage-row remap,
@@ -62,15 +71,16 @@ the gather-map regroup per query and the final top-k, or with ``groups``
 a top-k per group of task lanes (K1-groups: the forests' per-tree merge,
 host tensor code in both packages).
 
-Not ported: the ``packed2`` lane layout (f32 rows are scored with FP32
-FFMA, K1d-f32), the ``interpret`` plumbing and ``ANNSEARCH_NO_PALLAS``.
+Not ported: the ``packed2`` lane layout (f32 rows take six cross terms of
+a three-way split, each its own product), the ``interpret`` plumbing and
+``ANNSEARCH_NO_PALLAS``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.dist import Dist, fp32_matmul
+from ..utils.dist import Dist, fp32_matmul, mantissa_split
 
 __all__ = [
     "fused_eligible",
@@ -156,15 +166,13 @@ def repack_blocks(
 
 
 def _bf16_terms(v: torch.Tensor, q_split: bool) -> torch.Tensor:
-    """The scaled query as the int8-decode kernels score it (f32): rounded
-    to bf16, or with ``q_split`` the sum of the two bf16 terms of the JAX
-    package's ``mantissa_split``: ``hi`` by integer add-then-mask (ties
-    away from zero), ``lo = bf16_rne(v − hi)``. ``hi + lo`` is exact in
-    f32, so one f32 value carries both terms (see ``csrc/ivf_scan.cu``)."""
-    if not q_split:
-        return v.to(torch.bfloat16).float()
-    hi = ((v.view(torch.int32) + 0x8000) & -65536).view(torch.float32)
-    return hi + (v - hi).to(torch.bfloat16).float()
+    """The scaled query as the int8-decode kernels score it (f32): the sum
+    of the one or, with ``q_split``, two bf16 terms of its mantissa split.
+    ``hi + lo`` is exact in f32 and so is its product with an int8 cell, so
+    one f32 value gives the sum of the kernel's two passes up to the order
+    of the f32 sums."""
+    terms = mantissa_split(v, 2 if q_split else 1)
+    return terms[0].float() if len(terms) == 1 else terms[0].float() + terms[1].float()
 
 
 def _query_terms(lists, task_seg, queries_x, cent_x, scales, dp, cosine, q_split):
@@ -644,7 +652,8 @@ ivf_cell_scan_bf16_exact = _dense_wrapper(
     ivf_cell_scan_bf16_plain, True,
     "K1c-bf16: K1c-f32's exact selection over bf16 cells, scored with the "
     "f32 query (the JAX package's hi/lo query split carries about 16 of its "
-    "bits; FP32 FFMA carries all 24)." + _DENSE_ARGS,
+    "bits; the kernel's three exact bf16 terms hold all 24, summed at f32 "
+    "grade)." + _DENSE_ARGS,
 )
 ivf_cell_scan_bf16_fold = _dense_wrapper(
     "ivf_scan_bf16_fold", "annsearch_ivf_scan_bf16", torch.bfloat16,

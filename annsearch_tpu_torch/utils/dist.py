@@ -10,8 +10,10 @@ with the reference's semantics: ``euclidean`` is the *squared* L2 distance,
 euclidean.
 
 Precision is an explicit argument of every matmul. The one value in use
-is ``"highest"``: a float32 product with TF32 off (f32 grade; the CUDA card
-has real fp32 units, so no bf16 mantissa split is needed).
+is ``"highest"``: a float32 product with TF32 off (f32 grade). The fused
+scan kernels take their products on the tensor cores as the JAX package's
+kernels take them on the MXU: bf16 terms of a mantissa split
+(:func:`mantissa_split`), summed over the cross terms of :data:`CROSS`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ __all__ = [
     "normalise",
     "matmul_t",
     "fp32_matmul",
+    "mantissa_split",
+    "CROSS",
+    "cross_packed",
     "pairwise_sq_euclidean",
     "pairwise_cosine",
     "pairwise_dist",
@@ -61,6 +66,43 @@ def fp32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+#: cross terms of the mantissa split summed per term count — (a, b) means
+#: q_part[a] · x_part[b] (the JAX package's ``flat_scan_pallas._CROSS``):
+#: 2-way drops lo·lo (~2⁻³⁰ relative), 3-way keeps the six largest of nine
+CROSS = {
+    1: ((0, 0),),
+    2: ((0, 0), (0, 1), (1, 0)),
+    3: ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1)),
+}
+
+
+def mantissa_split(x: torch.Tensor, parts: int) -> tuple[torch.Tensor, ...]:
+    """Split f32 into ``parts`` bf16 terms, ``x ≈ Σ terms``, as the JAX
+    package's ``mantissa_split``: each head term is the residual rounded to
+    bf16 by integer add-then-mask (``(bits + 0x8000) & 0xFFFF0000``, half-way
+    cases away from zero), the last term the residual rounded to nearest
+    even. One term is ``bf16_rne(x)``; three are exact for normal f32."""
+    terms = []
+    r = x.float()
+    for _ in range(parts - 1):
+        hi = ((r.view(torch.int32) + 0x8000) & -65536).view(torch.float32)
+        terms.append(hi.to(torch.bfloat16))
+        r = r - hi
+    terms.append(r.to(torch.bfloat16))
+    return tuple(terms)
+
+
+def cross_packed(q: torch.Tensor, x: torch.Tensor, parts: int):
+    """``(qp, xp)`` f32 with ``qp · xpᵀ`` the sum of the :data:`CROSS`
+    products of the ``parts``-way splits of ``q [.., d]`` and ``x [.., d]``:
+    the pairs' terms side by side along the last axis, so one matmul sums
+    them (in f32, every product of two bf16 terms exact)."""
+    qs, xs = mantissa_split(q, parts), mantissa_split(x, parts)
+    pairs = CROSS[parts]
+    return (torch.cat([qs[a].float() for a, _ in pairs], dim=-1),
+            torch.cat([xs[b].float() for _, b in pairs], dim=-1))
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:

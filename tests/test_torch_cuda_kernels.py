@@ -2,7 +2,9 @@
 K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8, their fold-1 and wide-row
 instances, K1-exact-i8 and K2) against their plain PyTorch versions, on the
 card, and the IVF, graph, tree, LSH and kMkNN paths on the card against the
-CPU.
+CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
+cores (int8 products in int32 for sq8); the cases cover each variant's term
+count, and rows whose query terms are held whole or formed per column block.
 
 Marked ``cuda``: each test skips where no CUDA device is present. On a
 machine with a card and without JAX, run them with
@@ -10,7 +12,8 @@ machine with a card and without JAX, run them with
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 (``tests/conftest.py`` configures JAX for the rest of the suite). Distances
-agree within 1e-4·(1 + |d|) (the f32 dot sums run in another order) and
+agree within 1e-4·(1 + |d|) (the tensor cores and the plain version's f32
+matmul sum the same products in other orders) and
 ≥ 99.9% of ids agree (orders can swap near-ties); end to end, where
 routing also runs on another device, ≥ 99% of ids. The sq8 kernels agree
 bit for bit: their dots are sums of integers below 2²⁴, and their square
@@ -69,6 +72,7 @@ def _assert_close(kd, ki, pd, pi):
         (dict(d=40), 16),                   # columns padded to 48
         (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
         (dict(R=384, maxq=256, seg=1024), 16),   # main-path shapes
+        (dict(R=16, maxq=40, seg=256, d=1280), 16),   # query terms per column block
     ],
 )
 def test_k1a_matches_plain(dev, shape, kb):
@@ -162,7 +166,8 @@ def _f32_tasks(gen, dev, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300):
         (dict(d=40), 8),                    # columns padded to 48
         (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
         (dict(R=256, maxq=256, seg=1024, d=64), 24),   # the exact tier's shapes
-        (dict(R=64, maxq=64, seg=2048, d=384), 16),    # three column blocks
+        (dict(R=64, maxq=64, seg=2048, d=384), 16),    # twelve column blocks
+        (dict(R=32, maxq=40, seg=256, d=512), 16),     # query terms per column block
     ],
 )
 def test_f32_kernels_match_plain(dev, shape, kb, cosine, exact):
@@ -260,7 +265,8 @@ def _quant_tasks(gen, dev, mode, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300)
         (dict(maxq=36, d=40), 8),           # slots past maxq; columns padded to 48
         (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
         (dict(R=128, maxq=256, seg=1024, d=256), 24),   # the 1M × 256d shapes
-        (dict(R=32, maxq=40, seg=256, d=1000), 16),     # 8 column blocks
+        (dict(R=32, maxq=40, seg=256, d=1000), 16),     # 8 to 16 column blocks
+        (dict(R=16, maxq=40, seg=256, d=1920), 16),     # query terms per column block
     ],
 )
 def test_quantised_kernels_match_plain(dev, shape, kb, cosine, exact, mode):
@@ -362,6 +368,7 @@ def _i8_args(gen, dev, cosine, cents, **shape):
         (dict(maxq=36, d=40), 8),           # slots past maxq; columns padded to 48
         (dict(seg=128, maxq=32), 128),      # one chunk, kb = 128
         (dict(R=384, maxq=256, seg=1024), 16),   # main-path shapes
+        (dict(R=16, maxq=40, seg=256, d=640), 16),   # two terms: per column block
     ],
 )
 def test_i8dec_kernels_match_plain(dev, shape, kb, wrapper, kw, plain_kw, cents):
@@ -500,12 +507,16 @@ def _flat_inputs(gen, dev, nq, n, d, grid, cosine):
     (129, 3001, 30, 8, False, 6, 2, None, 2048),    # d no multiple of 4: padded
     (1000, 50000, 128, 60, True, 6, 2, None, 2048), # kb 64
     (200, 20000, 512, 8, False, 6, 2, None, 2048),  # the query tile streamed
+    (200, 20000, 512, 8, True, 3, 1, None, 2048),   # two terms, streamed
+    (300, 5000, 64, 10, False, 1, 2, None, 2048),   # one term, depth 2
+    (1000, 50000, 128, 16, False, 3, 2, 49000, 2048),
     (4097, 200001, 32, 15, False, 6, 2, 199990, 2048),
 ])
 def test_k2_matches_plain(dev, grid, nq, n, d, k, cosine, passes, depth, n_valid, block_db):
-    """K2 against its plain version: bit for bit on grid inputs; on Gaussian
-    inputs distances within 1e-4·(1 + |d|) (the FFMA loop and the matmul sum
-    in different orders) and ≥ 99.9% of ids (near-ties may swap)."""
+    """K2 against its plain version, each term count (``passes`` 1, 3, 6):
+    bit for bit on grid inputs; on Gaussian inputs distances within
+    1e-4·(1 + |d|) (the tensor cores and the matmul sum the same cross
+    terms in different orders) and ≥ 99.9% of ids (near-ties may swap)."""
     from annsearch_tpu_torch.ops import flat_scan_fused as ff
     from annsearch_tpu_torch.utils.dist import Dist
 
@@ -527,6 +538,56 @@ def test_k2_matches_plain(dev, grid, nq, n, d, k, cosine, passes, depth, n_valid
         assert (ki == pi).float().mean().item() >= 0.999
     if n_valid is not None:
         assert ki.max() < n_valid
+
+
+@pytest.mark.parametrize("depth,n_valid", [(2, None), (1, 2_150_000)])
+def test_k2_runs_of_tiles_match_plain(dev, depth, n_valid):
+    """Past 65,534 database tiles (here B 32, 68,751 tiles) the kernel scans
+    runs of tiles and merges each run's bins into the earlier runs': on grid
+    inputs, full of exact ties, the result is the plain version's bit for
+    bit."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, x = _flat_inputs(gen, dev, 100, 2_200_001, 16, True, False)
+    kw = dict(n_valid=n_valid, passes=6, depth=depth, block_db=32)
+    assert ff.fused_shapes(x.shape[0], 10, 32)[1] == 32
+    kd, ki = ff.flat_topk_fused(q, x, 10, Dist.EUCLIDEAN, **kw)
+    pd, pi = ff.flat_topk_fused_plain(q, x, 10, Dist.EUCLIDEAN, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_mma_sync_keeps_24_bits_of_the_largest_term(dev):
+    """What the scans' f32 grade rests on: one ``mma.sync`` bf16 → f32 sums
+    its 16 exact products and C aligned to the largest term, keeping every
+    term down to 2⁻²³ of it (the f32 result then chopped to 24 bits), so
+    six cross terms of a three-way split sum to f32 grade. On random
+    operands the error stays within the result's last bit plus 17·2⁻²⁵ of
+    the largest term."""
+    from annsearch_tpu_torch.ops._cuda import mma_sync_once
+
+    ks = list(range(1, 24))
+    a = torch.zeros(2 * len(ks), 16, 16, device=dev)
+    b = torch.zeros(2 * len(ks), 16, 8, device=dev)
+    c = torch.zeros(2 * len(ks), 16, 8, device=dev)
+    for p, k in enumerate(ks):
+        a[p, 0, 0], a[p, 0, 1], b[p, 0, 0], b[p, 1, 0] = 1.0, 2.0 ** -k, 1.0, 1.0
+        q = len(ks) + p      # beside C = 1
+        a[q, 0, 0], b[q, 0, 0], c[q, 0, 0] = 2.0 ** -k, 1.0, 1.0
+    d = mma_sync_once(a.bfloat16(), b.bfloat16(), c)[:, 0, 0].double().cpu()
+    want = torch.tensor([1.0 + 2.0 ** -k for k in ks] * 2, dtype=torch.float64)
+    assert torch.equal(d, want)
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(2048, 16, 16, generator=g, device=dev).bfloat16()
+    b = torch.randn(2048, 16, 8, generator=g, device=dev).bfloat16()
+    c = torch.randn(2048, 16, 8, generator=g, device=dev)
+    d = mma_sync_once(a, b, c).double()
+    terms = a.double()[:, :, :, None] * b.double()[:, None, :, :]
+    big = torch.maximum(terms.abs().amax(2), c.double().abs())
+    ulp = (torch.nextafter(d.float(), torch.tensor(float("inf"), device=dev)).double() - d).abs()
+    assert torch.all((d - terms.sum(2) - c.double()).abs() <= ulp + 17 * 2.0 ** -25 * big)
 
 
 def test_k2_slabs_and_refusals(dev):
@@ -620,10 +681,11 @@ def test_i8dec_fold1_matches_plain(dev, wrapper, cents, kw):
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "sq8"])
-@pytest.mark.parametrize("cosine", [False, True], ids=["l2", "cos"])
-def test_dense_fold1_matches_plain(dev, mode, cosine):
+@pytest.mark.parametrize("cosine,d", [(False, 128), (True, 128), (False, 640)],
+                         ids=["l2", "cos", "l2-wide"])
+def test_dense_fold1_matches_plain(dev, mode, cosine, d):
     gen = torch.Generator(device=dev).manual_seed(21)
-    args = _dense_args(gen, dev, mode, R=192, maxq=64, seg=1024)
+    args = _dense_args(gen, dev, mode, R=192, maxq=64, seg=1024, d=d)
     fn = getattr(tsf, f"ivf_cell_scan_{mode}_fold")
     kd, ki = fn(*args, 16, cosine=cosine, fold_depth=1)
     pd, pi = getattr(tsf, f"ivf_cell_scan_{mode}_plain")(*args, 16, cosine, exact=False,
@@ -641,7 +703,8 @@ def test_dense_fold1_matches_plain(dev, mode, cosine):
 ], ids=["residual-l2", "residual-l2-nq_t2", "residual-cos", "residual-cos-nq_t2",
         "i8dec-l2", "i8dec-cos-nq_t2"])
 @pytest.mark.parametrize("shape,kb", [(dict(), 16), (dict(R=384, maxq=256, seg=1024), 16),
-                                      (dict(seg=128, maxq=32), 128)])
+                                      (dict(seg=128, maxq=32), 128),
+                                      (dict(R=16, maxq=40, seg=256, d=1280), 16)])
 def test_i8_exact_matches_plain(dev, cents, cosine, q_split, shape, kb):
     gen = torch.Generator(device=dev).manual_seed(22)
     args = _i8_args(gen, dev, cosine, cents, **shape)
@@ -656,12 +719,12 @@ def test_i8_exact_matches_plain(dev, cents, cosine, q_split, shape, kb):
     assert (kd[2, :, 5:] == np.float32(3e38)).all() and (ki[2, :, 5:] == 0).all()
 
 
-@pytest.mark.parametrize("d", [4224, 8192])
+@pytest.mark.parametrize("d", [640, 4224, 8192])
 @pytest.mark.parametrize("mode,exact", [("f32", True), ("f32", False), ("bf16", False),
                                         ("sq8", True)])
 def test_wide_rows_match_plain(dev, d, mode, exact):
-    """F6: padded rows past 4,096 columns, the query staged in column
-    blocks."""
+    """F6: wide padded rows, the query terms formed per column block (f32
+    from 640 columns, the others past a few thousand)."""
     gen = torch.Generator(device=dev).manual_seed(23)
     args = _dense_args(gen, dev, mode, R=24, maxq=16, seg=256, d=d, nq=40)
     fn = getattr(tsf, f"ivf_cell_scan_{mode}_{'exact' if exact else 'fold'}")

@@ -98,6 +98,50 @@ def test_pairwise_matches_jax_highest(xq, metric):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+#: f32 bit patterns at the split's edges: ±0, ±1, half-way cases at 0x8000
+#: (away from zero), a half-way case that carries into the next binade,
+#: the largest value of a binade, the smallest normal, large values. XLA on
+#: the CPU flushes subnormal results to zero (as the TPU does) where torch
+#: and the card keep them, so no input here has a residual below 2⁻¹²⁶.
+_SPLIT_EDGES = [0x00000000, 0x80000000, 0x3F800000, 0xBF800000, 0x3F808000, 0xBF808000,
+                0x3F7F8000, 0xBF7F8000, 0x3F7FFFFF, 0x3F818000, 0x3F80C000, 0x3F807FFF,
+                0x00800000, 0x80800000, 0x4B7FFFFF, 0x7F7F0000, 0x3EFF8000, 0x3F00C001,
+                0x0D808000, 0x8D818000]
+
+
+def _split_inputs(kind):
+    rng = np.random.default_rng(12)
+    if kind == "edges":
+        return np.array(_SPLIT_EDGES, np.uint32).view(np.float32)
+    if kind == "scaled":
+        return (rng.standard_normal(4096) * 10.0 ** rng.integers(-25, 25, 4096)).astype(
+            np.float32)
+    # finite bit patterns from 2⁻¹⁰⁰ up; the low 16 bits land on 0x8000 now
+    # and then, and half of them are negative
+    bits = rng.integers(0x0D800000, 0x7F000000, 4096, dtype=np.uint32)
+    bits[::7] = (bits[::7] & 0xFFFF0000) | 0x8000
+    bits[1::2] |= 0x80000000
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["edges", "scaled", "bits"])
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_mantissa_split_matches_jax_bit_for_bit(kind, parts):
+    """The port's split (the fused kernels' operands) equals the JAX
+    package's term for term, bit for bit; three terms sum back to x."""
+    v = _split_inputs(kind)
+    want = jdist.mantissa_split(jnp.asarray(v), parts)
+    got = tdist.mantissa_split(torch.as_tensor(v), parts)
+    assert len(got) == parts
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(g.view(torch.int16).numpy().view(np.uint16),
+                                      np.asarray(w).view(np.uint16))
+    if parts == 3:     # three terms are exact
+        total = sum(t.double() for t in got).float().numpy()
+        np.testing.assert_array_equal(total, v)
+
+
 def test_matmul_precision_is_explicit(xq):
     x, q = xq
     got = tdist.matmul_t(torch.as_tensor(q), torch.as_tensor(x), "highest").numpy()

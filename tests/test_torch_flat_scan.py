@@ -105,6 +105,32 @@ def test_grid_odd_widths_bit_for_bit(d):
     np.testing.assert_array_equal(dt, dj)
 
 
+@pytest.mark.parametrize("metric", list(METRICS))
+@pytest.mark.parametrize("passes,depth", [(6, 2), (3, 2), (6, 1)])
+def test_gaussian_inputs_match_jax_by_shared_cross_terms(metric, passes, depth):
+    """Off the grid: at ``passes=3`` the two packages sum the same three
+    bf16 cross terms of the same two-way split, in f32, in other orders; at
+    ``passes=6`` the JAX kernel sums six of a three-way split and the port's
+    plain version takes the fp32 product (the six terms hold all 24 bits,
+    the three dropped are under 2⁻²⁴ of each product). A sum of m products
+    rounds by at most m·2⁻²⁴ of the sum of their magnitudes, here under
+    2⁻¹⁶ of ‖q‖² + ‖x‖² (m ≤ 6·32), so each returned distance (ascending)
+    agrees within 2⁻¹⁵·(‖q‖² + max ‖x‖²), and near-ties may swap ids."""
+    rng = np.random.default_rng(10)
+    q = rng.standard_normal((40, 32)).astype(np.float32)
+    x = rng.standard_normal((900, 32)).astype(np.float32)
+    if metric == "cosine":
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    it, dt, ij, dj = _both(q, x, 10, metric, passes=passes, depth=depth, block_db=128)
+    scale = (q * q).sum(1)[:, None] + (x * x).sum(1).max()
+    assert (np.abs(dt - dj) <= 2.0 ** -15 * scale).all()
+    assert (it == ij).mean() >= 0.98
+    # the grade is the split's: one bf16 pass lies much farther off
+    _, d1, _, _ = _both(q, x, 10, metric, passes=1, depth=depth, block_db=128)
+    assert np.abs(d1 - dj).max() > 8 * np.abs(dt - dj).max()
+
+
 @pytest.fixture(scope="module")
 def clustered():
     x, _ = generate_clustered_data(700, 32, 5, seed=7)
@@ -159,8 +185,9 @@ def test_shapes_and_plain_alias():
     assert fused_shapes(40, 3, 128) == (8, 128)
     assert fused_shapes(700, 65) == (128, 1024)
     assert slab_rows(2048) == 16_384 and slab_rows(128, 1) == 524_288
-    assert scan_smem_bytes(32) == 27_648 and scan_smem_bytes(30) == scan_smem_bytes(32)
-    assert scan_smem_bytes(1024) == 46_080        # the query tile streamed
+    assert scan_smem_bytes(32) == 31_744 and scan_smem_bytes(30) == scan_smem_bytes(32)
+    assert scan_smem_bytes(32, passes=6) == 93_184    # three terms a side
+    assert scan_smem_bytes(1024) == 38_784        # the query tile streamed
     rng = np.random.default_rng(8)
     q, x = torch.tensor(_grid(rng, (5, 8))), torch.tensor(_grid(rng, (200, 8)))
     a = flat_topk_fused(q, x, 4, Dist.EUCLIDEAN, passes=6)

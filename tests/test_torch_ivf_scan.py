@@ -330,6 +330,34 @@ def test_f32_cell_scan_matches_jax_bit_for_bit(seed, d, kb, selection, cosine):
         assert (gi.numpy()[2, :, 5:] == 0).all()
 
 
+@pytest.mark.parametrize("selection", ["exact", "fold"])
+@pytest.mark.parametrize("cosine", [False, True], ids=["l2", "cos_plain"])
+def test_f32_cell_scan_matches_jax_on_gaussian_rows(selection, cosine):
+    """Off the grid: the port scores f32 cells at f32 grade (the kernel's
+    six cross terms of a three-way split; the plain version's fp32
+    product), the JAX kernel splits them in two (hi·hi + hi·lo + lo·hi, and
+    lo·lo in the exact tier: about 16 mantissa bits). Each operand's two
+    terms lie within 2⁻¹⁷ of it, so the dots differ by at most about
+    2⁻¹⁶·‖q‖‖x‖ and each returned distance (ascending) within
+    2⁻¹⁴·(‖q‖² + max sn); near-ties may swap lanes."""
+    rng = np.random.default_rng(9)
+    lists, task_seg, cnt, queries_x, cells, sn = _grid_tasks(9, 64)
+    cells[:-1, :, :64] = rng.standard_normal(cells[:-1, :, :64].shape)
+    queries_x[:-1] = rng.standard_normal(queries_x[:-1].shape)
+    if cosine:
+        cells /= np.maximum(np.linalg.norm(cells, axis=-1, keepdims=True), 1e-30)
+        queries_x /= np.maximum(np.linalg.norm(queries_x, axis=-1, keepdims=True), 1e-30)
+    sn = (cells * cells).sum(-1).astype(np.float32)
+    args = (lists, task_seg, cnt, queries_x, cells, sn)
+    gd, gi = tsf.ivf_cell_scan_f32_plain(*(torch.as_tensor(a) for a in args), 16, cosine,
+                                         exact=selection == "exact")
+    wd, wi = _jax_f32_cell_scan(*args, 16, cosine, selection)
+    scale = (queries_x * queries_x).sum(1)[lists] + sn.max()
+    assert (np.abs(gd.numpy() - wd) <= 2.0 ** -14 * scale[..., None]).all()
+    assert (gi.numpy() == wi).mean() >= 0.98
+    np.testing.assert_array_equal(gd.numpy() == np.float32(3e38), wd == np.float32(3e38))
+
+
 def test_f32_exact_selection_takes_the_lowest_lane_on_ties():
     """Equal distances order by lane; a row's tail past cnt is (3e38, 0)."""
     lists, task_seg, cnt, queries_x, cells, sn = _grid_tasks(7, 16, R=3, seg=128)
