@@ -7,10 +7,12 @@ CUDA kernel written for Hopper (``csrc/``), built at first use into
 
 Layout:
   * ``ops``     — running top-k (exact, bins and fused selectors), the
-    fused flat scan, task-list inversion, the fused IVF scan, the cluster
-    scan, PQ decode, graph pruning and beam search
-  * ``models``  — indexes (exhaustive, IVF, bf16 / SQ8 IVF, IVF-PQ,
-    IVF-OPQ, NNDescent), quantisers and k-means
+    fused flat scan, the quantised flat scans, task-list inversion, the
+    fused IVF scan, the cluster scan, PQ decode, graph pruning, random
+    graph init and beam search
+  * ``models``  — indexes (exhaustive, flat bf16 / SQ8 / PQ / OPQ, IVF,
+    bf16 / SQ8 IVF, IVF-PQ, IVF-OPQ, NNDescent, HNSW, Vamana, trees, LSH,
+    kMkNN), quantisers and k-means
   * ``utils``   — distances, synthetic data, metrics
   * ``interop`` — index state carried over from the JAX package
 """

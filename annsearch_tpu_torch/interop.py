@@ -17,10 +17,15 @@ routers). ``annoy_from_jax_arrays``, ``kd_tree_from_jax_arrays`` and
 rows and trees (sorted order, splitters, and for the ball tree the centres
 and radii), ``lsh_from_jax_arrays`` the LSH index from its projections and
 hash-sorted storage, ``kmknn_from_jax_arrays`` the kMkNN index from its
-centroids, sorted storage and radii. Both packages then query the same
-centroids and cells, trees or tables, or walk the same graph from the same
-routers, so differences between their random streams drop out of a
-comparison.
+centroids, sorted storage and radii. ``hnsw_from_jax_arrays`` builds the
+``HnswIndex`` from the arrays of a JAX HNSW npz (its layers may be padded),
+``vamana_from_jax_arrays`` the ``VamanaIndex`` from its graph and medoid
+(and, if given, the JAX index's router sample), and
+``exhaustive_{bf16,sq8,pq,opq}_from_jax_arrays`` the flat quantised
+indexes from their rows, codes, scales, codebooks and rotation. Both
+packages then query the same centroids and cells, trees, tables or codes,
+or walk the same graph from the same routers, so differences between their
+random streams drop out of a comparison.
 
 Nothing here imports the JAX package: the state arrives as numpy arrays.
 """
@@ -39,6 +44,9 @@ __all__ = [
     "annoy_from_jax_arrays", "kd_tree_from_jax_arrays", "balltree_from_jax_arrays",
     "lsh_from_jax_arrays", "LSH_ARRAYS", "LSH_SCALARS",
     "kmknn_from_jax_arrays", "KMKNN_ARRAYS", "KMKNN_SCALARS",
+    "hnsw_from_jax_arrays", "vamana_from_jax_arrays", "VAMANA_ARRAYS", "VAMANA_SCALARS",
+    "exhaustive_bf16_from_jax_arrays", "exhaustive_sq8_from_jax_arrays",
+    "exhaustive_pq_from_jax_arrays", "exhaustive_opq_from_jax_arrays",
 ]
 
 IVF_ARRAYS = (
@@ -64,6 +72,10 @@ LSH_SCALARS = ("n", "dim", "num_tables", "bits", "seed", "seg_size")
 KMKNN_ARRAYS = ("vectors", "centroids", "seg_offsets", "seg_counts", "original_ids",
                 "radii", "cell_counts", "cluster_ptr", "seg_cluster")
 KMKNN_SCALARS = ("n", "dim", "nlist", "seg_size")
+
+#: state of a VamanaIndex (its npz arrays) and its scalars
+VAMANA_ARRAYS = ("vectors", "sqnorms", "graph", "medoid_arr")
+VAMANA_SCALARS = ("n", "dim", "r_degree")
 
 #: device dtypes of the index arrays (``storage`` keeps its own: int8 or
 #: float32, unless the caller casts it); the rest are float32
@@ -319,4 +331,151 @@ def kmknn_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cud
         arrays["seg_counts"], arrays["seg_cluster"], arrays["cluster_ptr"],
         int(meta["seg_size"]), np.asarray(arrays["radii"], np.float32), arrays["cell_counts"],
     )
+    return obj
+
+
+def _tensor(a, dtype, device):
+    return torch.tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+
+def hnsw_from_jax_arrays(arrays: dict[str, np.ndarray], device="cuda"):
+    """``HnswIndex`` from the arrays of a JAX HNSW npz: ``vectors [n+1,
+    dim]`` (sentinel row last), ``base_graph [n+1, deg]``, ``meta`` = ``[n,
+    dim, m, n_layers, entry_global, cosine]`` and per upper layer ``l{i}_ids``
+    and ``l{i}_graph`` in local id space. The JAX package pads a layer to a
+    power of two with copies of its member 0; such layers are taken as they
+    are."""
+    from .models.hnsw import HnswIndex
+    from .utils.dist import Dist, sq_norms
+
+    _require("HnswIndex", arrays, {}, ("vectors", "base_graph", "meta"), ())
+    dev = torch.device(device)
+    meta = np.asarray(arrays["meta"]).astype(np.int64)
+    obj = HnswIndex.__new__(HnswIndex)
+    obj.device = dev
+    obj.n, obj.dim, obj.m, obj.n_layers, obj.entry_global = (int(v) for v in meta[:5])
+    obj.metric = Dist.COSINE if meta[5] == 1 else Dist.EUCLIDEAN
+    obj.vectors = _tensor(arrays["vectors"], torch.float32, dev)
+    if obj.vectors.shape != (obj.n + 1, obj.dim):
+        raise ValueError(f"vectors must be [n+1, dim] = {(obj.n + 1, obj.dim)}, got "
+                         f"{tuple(obj.vectors.shape)}")
+    obj.sqnorms = sq_norms(obj.vectors)
+    obj.base_graph = _tensor(arrays["base_graph"], torch.int32, dev)
+    obj.layers = []
+    i = 0
+    while f"l{i}_ids" in arrays:
+        gids = _tensor(arrays[f"l{i}_ids"], torch.int32, dev)
+        graph = _tensor(arrays[f"l{i}_graph"], torch.int32, dev)
+        lv_vecs = torch.cat([obj.vectors[gids.long()], torch.zeros((1, obj.dim), device=dev)])
+        obj.layers.append((gids, graph, lv_vecs, sq_norms(lv_vecs)))
+        i += 1
+    obj.build_times = {}
+    return obj
+
+
+def vamana_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda",
+                           router_ids: np.ndarray | None = None):
+    """``VamanaIndex`` from a JAX index's state: ``arrays`` holds
+    :data:`VAMANA_ARRAYS` (``vectors [n+1, dim]`` with the sentinel row,
+    ``graph [n+1, deg]``, ``medoid_arr [1]``), ``meta`` the scalars
+    :data:`VAMANA_SCALARS` and optionally ``metric``. ``router_ids`` (the
+    JAX index's ``_router_ids``) replaces the port's own router draw."""
+    from .models.vamana import VamanaIndex
+    from .utils.dist import parse_ann_dist
+
+    _require("VamanaIndex", arrays, meta, VAMANA_ARRAYS, VAMANA_SCALARS)
+    dev = torch.device(device)
+    obj = VamanaIndex.__new__(VamanaIndex)
+    obj.device = dev
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    for name in VAMANA_SCALARS:
+        setattr(obj, name, int(meta[name]))
+    obj.vectors = _tensor(arrays["vectors"], torch.float32, dev)
+    obj.sqnorms = _tensor(arrays["sqnorms"], torch.float32, dev)
+    obj.graph = _tensor(arrays["graph"], torch.int32, dev)
+    obj.medoid_arr = _tensor(arrays["medoid_arr"], torch.int32, dev).reshape(1)
+    if obj.vectors.shape != (obj.n + 1, obj.dim):
+        raise ValueError(f"vectors must be [n+1, dim] = {(obj.n + 1, obj.dim)}, got "
+                         f"{tuple(obj.vectors.shape)}")
+    obj._router_ids = None if router_ids is None else _tensor(router_ids, torch.int32, dev)
+    obj.build_times = {}
+    return obj
+
+
+def _flat_shell(cls, meta, scalars, device):
+    from .utils.dist import parse_ann_dist
+
+    obj = cls.__new__(cls)
+    obj.device = torch.device(device)
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    for name in scalars:
+        setattr(obj, name, int(meta[name]))
+    obj.vectors = obj.sqnorms = None
+    return obj
+
+
+def exhaustive_bf16_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``ExhaustiveIndexBf16`` from a JAX index's state: ``vectors [n, dim]``
+    as float32 (npz holds no bf16; cast back to bf16 here) and ``sqnorms``;
+    ``meta`` holds ``n``, ``dim`` and optionally ``metric``."""
+    from .models.quantised.flat import ExhaustiveIndexBf16
+
+    _require("ExhaustiveIndexBf16", arrays, meta, ("vectors", "sqnorms"), ("n", "dim"))
+    obj = _flat_shell(ExhaustiveIndexBf16, meta, ("n", "dim"), device)
+    obj.vectors = _tensor(arrays["vectors"], torch.bfloat16, obj.device)
+    obj.sqnorms = _tensor(arrays["sqnorms"], torch.float32, obj.device)
+    return obj
+
+
+def exhaustive_sq8_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``ExhaustiveSq8Index`` from a JAX index's state: ``codes [n, dim]``
+    int8, ``code_sqnorms [n]`` int32 and ``scales [dim]``; ``meta`` holds
+    ``n``, ``dim`` and optionally ``metric``. The quantiser is rebuilt
+    from ``scales``."""
+    from .models.quantised.flat import ExhaustiveSq8Index
+    from .models.quantised.quantisers import ScalarQuantiser
+
+    _require("ExhaustiveSq8Index", arrays, meta, ("codes", "code_sqnorms", "scales"),
+             ("n", "dim"))
+    obj = _flat_shell(ExhaustiveSq8Index, meta, ("n", "dim"), device)
+    obj.codes = _tensor(arrays["codes"], torch.int8, obj.device)
+    obj.code_sqnorms = _tensor(arrays["code_sqnorms"], torch.int32, obj.device)
+    obj.scales = _tensor(arrays["scales"], torch.float32, obj.device)
+    obj.quantiser = ScalarQuantiser(obj.scales)
+    return obj
+
+
+def _pq_state(cls, arrays, meta, device, names):
+    from .models.quantised.quantisers import ProductQuantiser
+
+    _require(cls.__name__, arrays, meta, names, ("n", "dim", "m"))
+    obj = _flat_shell(cls, meta, ("n", "dim", "m"), device)
+    obj.codes = _tensor(arrays["codes"], torch.uint8, obj.device)
+    obj.code_sqnorms = _tensor(arrays["code_sqnorms"], torch.float32, obj.device)
+    obj.codebooks = _tensor(arrays["codebooks"], torch.float32, obj.device)
+    obj.quantiser = ProductQuantiser(obj.codebooks, obj.m, obj.dim)
+    return obj
+
+
+def exhaustive_pq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``ExhaustivePqIndex`` from a JAX index's state: ``codes [n, m]``
+    uint8, ``code_sqnorms [n]`` and ``codebooks [m, 256, dim/m]``; ``meta``
+    holds ``n``, ``dim``, ``m`` and optionally ``metric``."""
+    from .models.quantised.flat import ExhaustivePqIndex
+
+    return _pq_state(ExhaustivePqIndex, arrays, meta, device,
+                     ("codes", "code_sqnorms", "codebooks"))
+
+
+def exhaustive_opq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``ExhaustiveOpqIndex`` from a JAX index's state: as
+    :func:`exhaustive_pq_from_jax_arrays`, with the ``[dim, dim]``
+    ``rotation``."""
+    from .models.quantised.flat import ExhaustiveOpqIndex
+    from .models.quantised.quantisers import OptimisedProductQuantiser
+
+    obj = _pq_state(ExhaustiveOpqIndex, arrays, meta, device,
+                    ("codes", "code_sqnorms", "codebooks", "rotation"))
+    obj.rotation = _tensor(arrays["rotation"], torch.float32, obj.device)
+    obj.opq = OptimisedProductQuantiser(obj.quantiser, obj.rotation)
     return obj

@@ -1,7 +1,8 @@
-"""Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, IVF,
-quantised IVF (bf16, SQ8), IVF-PQ, IVF-OPQ, NNDescent, kMkNN, Annoy,
-ball-tree, kd-tree and LSH rows, and the ``*_gpu`` names, which the JAX
-package keeps as aliases of its one accelerated engine).
+"""Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, flat
+quantised (bf16, SQ8, PQ, OPQ), IVF, quantised IVF (bf16, SQ8), IVF-PQ,
+IVF-OPQ, NNDescent, HNSW, Vamana, kMkNN, Annoy, ball-tree, kd-tree and LSH
+rows, and the ``*_gpu`` names, which the JAX package keeps as aliases of
+its one accelerated engine).
 
 Every row takes the JAX row's parameters in the JAX row's order, ``verbose``
 included (``_query``: batches of 100k queries or more report their
@@ -21,16 +22,36 @@ import torch
 
 from .models.exhaustive import ExhaustiveIndex
 from .models.graph import NNDescentIndex
+from .models.hnsw import HnswIndex
 from .models.ivf import IvfIndex
 from .models.kmknn import KmknnIndex
 from .models.lsh import LSHIndex
+from .models.quantised.flat import (
+    ExhaustiveIndexBf16,
+    ExhaustiveOpqIndex,
+    ExhaustivePqIndex,
+    ExhaustiveSq8Index,
+)
 from .models.quantised.ivf import IvfIndexBf16, IvfOpqIndex, IvfPqIndex, IvfSq8Index
 from .models.trees import AnnoyIndex, BallTreeIndex, KdTreeIndex
+from .models.vamana import VamanaIndex
 
 __all__ = [
     "build_exhaustive_index",
     "query_exhaustive_index",
     "query_exhaustive_self",
+    "build_exhaustive_bf16_index",
+    "query_exhaustive_bf16_index",
+    "query_exhaustive_bf16_self",
+    "build_exhaustive_sq8_index",
+    "query_exhaustive_sq8_index",
+    "query_exhaustive_sq8_self",
+    "build_exhaustive_pq_index",
+    "query_exhaustive_pq_index",
+    "query_exhaustive_pq_index_self",
+    "build_exhaustive_opq_index",
+    "query_exhaustive_opq_index",
+    "query_exhaustive_opq_index_self",
     "build_ivf_index",
     "query_ivf_index",
     "query_ivf_self",
@@ -59,6 +80,12 @@ __all__ = [
     "build_ivf_index_gpu",
     "query_ivf_index_gpu",
     "query_ivf_index_gpu_self",
+    "build_hnsw_index",
+    "query_hnsw_index",
+    "query_hnsw_self",
+    "build_vamana_index",
+    "query_vamana_index",
+    "query_vamana_self",
     "build_kmknn_index",
     "query_kmknn_index",
     "query_kmknn_self",
@@ -116,6 +143,67 @@ def query_exhaustive_index(
 def query_exhaustive_self(
     index: ExhaustiveIndex, k: int, return_dist: bool = False, verbose: bool = False
 ):
+    return _maybe_dist(*index.generate_knn(k), return_dist)
+
+
+# -- flat quantised indexes -----------------------------------------------------
+
+
+def build_exhaustive_bf16_index(
+    mat: Any, dist_metric: str = "euclidean", *, device="cuda"
+) -> ExhaustiveIndexBf16:
+    return ExhaustiveIndexBf16(mat, dist_metric, device=device)
+
+
+def query_exhaustive_bf16_index(query_mat, index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*_query(index, query_mat, verbose, k), return_dist)
+
+
+def query_exhaustive_bf16_self(index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*index.generate_knn(k), return_dist)
+
+
+def build_exhaustive_sq8_index(
+    mat: Any, dist_metric: str = "euclidean", *, device="cuda"
+) -> ExhaustiveSq8Index:
+    return ExhaustiveSq8Index(mat, dist_metric, device=device)
+
+
+def query_exhaustive_sq8_index(query_mat, index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*_query(index, query_mat, verbose, k), return_dist)
+
+
+def query_exhaustive_sq8_self(index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*index.generate_knn(k), return_dist)
+
+
+def build_exhaustive_pq_index(
+    mat: Any, m: int = 16, dist_metric: str = "euclidean", seed: int = 42,
+    verbose: bool = False, *, device="cuda",
+) -> ExhaustivePqIndex:
+    return ExhaustivePqIndex(mat, m=m, metric=dist_metric, seed=seed, device=device)
+
+
+def query_exhaustive_pq_index(query_mat, index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*_query(index, query_mat, verbose, k), return_dist)
+
+
+def query_exhaustive_pq_index_self(index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*index.generate_knn(k), return_dist)
+
+
+def build_exhaustive_opq_index(
+    mat: Any, m: int = 16, dist_metric: str = "euclidean", seed: int = 42,
+    verbose: bool = False, *, device="cuda",
+) -> ExhaustiveOpqIndex:
+    return ExhaustiveOpqIndex(mat, m=m, metric=dist_metric, seed=seed, device=device)
+
+
+def query_exhaustive_opq_index(query_mat, index, k, return_dist=False, verbose=False):
+    return _maybe_dist(*_query(index, query_mat, verbose, k), return_dist)
+
+
+def query_exhaustive_opq_index_self(index, k, return_dist=False, verbose=False):
     return _maybe_dist(*index.generate_knn(k), return_dist)
 
 
@@ -315,6 +403,41 @@ def query_ivf_index_gpu(query_mat, index, k, nprobe=None, return_dist=False, ver
 def query_ivf_index_gpu_self(index, k, nprobe=None, return_dist=False, verbose=False):
     q = index.vectors_original_order()
     return _maybe_dist(*_query(index, q, verbose, k, nprobe=nprobe, approx=True), return_dist)
+
+
+# -- HNSW, Vamana -----------------------------------------------------------------
+
+
+def build_hnsw_index(
+    mat: Any, dist_metric: str = "euclidean", m: int = 16, ef_construction: int = 100,
+    seed: int = 42, verbose: bool = False, *, device="cuda",
+) -> HnswIndex:
+    return HnswIndex(mat, dist_metric, m=m, ef_construction=ef_construction, seed=seed,
+                     verbose=verbose, device=device)
+
+
+def query_hnsw_index(query_mat, index, k, ef_search=None, return_dist=False, verbose=False):
+    return _maybe_dist(*_query(index, query_mat, verbose, k, ef_search=ef_search), return_dist)
+
+
+def query_hnsw_self(index, k, ef_search=None, return_dist=False, verbose=False):
+    return _maybe_dist(*index.generate_knn(k, ef_search=ef_search), return_dist)
+
+
+def build_vamana_index(
+    mat: Any, dist_metric: str = "euclidean", r_degree: int = 32, alpha: float = 1.2,
+    seed: int = 42, verbose: bool = False, *, device="cuda",
+) -> VamanaIndex:
+    return VamanaIndex(mat, dist_metric, r_degree=r_degree, alpha=alpha, seed=seed,
+                       verbose=verbose, device=device)
+
+
+def query_vamana_index(query_mat, index, k, beam=None, return_dist=False, verbose=False):
+    return _maybe_dist(*_query(index, query_mat, verbose, k, beam=beam), return_dist)
+
+
+def query_vamana_self(index, k, beam=None, return_dist=False, verbose=False):
+    return _maybe_dist(*index.generate_knn(k, beam=beam), return_dist)
 
 
 # -- kMkNN, Annoy, ball tree, kd-tree, LSH ---------------------------------------

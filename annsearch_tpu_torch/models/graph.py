@@ -29,11 +29,33 @@ from ..ops.topk import blocked_query_topk, topk_smallest
 from ..utils.dist import Dist, fp32_matmul, sq_norms
 from .base import BaseIndex
 
-__all__ = ["NNDescentIndex", "BRUTE_BUILD_FLOP_BUDGET"]
+__all__ = ["NNDescentIndex", "BRUTE_BUILD_FLOP_BUDGET", "brute_knn_graph"]
 
 #: up to this n²·d the graph is built exactly by the flat scan (the JAX
 #: package's value: every index up to 2.8M rows at 32d)
 BRUTE_BUILD_FLOP_BUDGET = 1_000_000 * 1_000_000 * 256
+
+
+def brute_knn_graph(
+    x: torch.Tensor, sq: torch.Tensor, k: int, metric: Dist,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact kNN graph of the rows ``x [n, d]`` (``sq`` their squared
+    norms) by the fused flat scan at ``"highest"`` precision (kernel K2 at
+    ``passes=6`` on the card), the self column dropped: ``(ids [n, k]
+    int32, dists [n, k])`` ascending, empty slots ``(n, inf)``; ``k < n``."""
+    n = x.shape[0]
+    d, i = blocked_query_topk(
+        x, x, min(k + 1, n), metric,
+        x_sqnorm=sq if metric == Dist.EUCLIDEAN else None,
+        precision="highest", selector="fused",
+    )
+    # the first hit is the row itself at distance about 0; where ties
+    # moved it, any exact self id is masked
+    d = torch.where(i == torch.arange(n, device=x.device)[:, None], float("inf"), d)
+    dists, pos = topk_smallest(d, k)
+    ids = torch.gather(i, 1, pos)
+    ids = torch.where(torch.isinf(dists), n, ids)
+    return ids.int(), dists
 
 
 class NNDescentIndex(BaseIndex):
@@ -120,25 +142,9 @@ class NNDescentIndex(BaseIndex):
         self.router_ids = None
 
     def _brute_knn_graph(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The exact kNN graph by the fused flat scan at ``"highest"``
-        precision, the self column dropped: ``(ids [n, k_build] int32,
-        dists [n, k_build])``, empty slots ``(n, inf)``."""
+        """The exact kNN graph of the stored rows (:func:`brute_knn_graph`)."""
         n = self.n
-        kk = min(self.k_build + 1, n)
-        x = self.vectors[:n]
-        d, i = blocked_query_topk(
-            x, x, kk, self.metric,
-            x_sqnorm=self.sqnorms[:n] if self.metric == Dist.EUCLIDEAN else None,
-            precision="highest", selector="fused",
-        )
-        # the first hit is the row itself at distance about 0; where ties
-        # moved it, any exact self id is masked
-        self_col = i == torch.arange(n, device=self.device)[:, None]
-        d = torch.where(self_col, float("inf"), d)
-        dists, pos = topk_smallest(d, self.k_build)
-        ids = torch.gather(i, 1, pos)
-        ids = torch.where(torch.isinf(dists), n, ids)
-        return ids.int(), dists
+        return brute_knn_graph(self.vectors[:n], self.sqnorms[:n], self.k_build, self.metric)
 
     def _ensure_nav(self) -> None:
         """Build the pruned navigable graph and the router sample on first

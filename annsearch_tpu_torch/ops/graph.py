@@ -3,10 +3,12 @@
 and the batched beam search. The JAX functions reach no Pallas kernel, and
 neither do these.
 
-Ported: ``_row_dedup_inf``, ``_next_pow2``, ``cagra_prune``,
-``_reverse_sample`` (the ``new_in=None`` form), ``add_reverse_edges`` and
-``beam_search`` with ``return_trail``. Not ported: the approximate graph
-build (``random_init_graph``, ``rp_forest_round``, ``kmeans_leaves``,
+Ported: ``_row_dedup_inf``, ``_merge_rows``, ``_next_pow2``,
+``cagra_prune``, ``_reverse_sample`` (the ``new_in=None`` form),
+``add_reverse_edges``, ``random_init_graph`` (split into the draw,
+:func:`random_candidates`, and the scoring, :func:`score_candidates`) and
+``beam_search`` with ``return_trail``. Not ported: the rest of the
+approximate graph build (``rp_forest_round``, ``kmeans_leaves``,
 ``leaf_join_merge``, ``nnd_round_chunked``) and ``diversify_graph``
 (ROADMAP P5); ``nav_hl_split``, ``pack_neighbor_table`` /
 ``maybe_pack_neighbors`` and the bitonic networks (ROADMAP, not to port):
@@ -26,9 +28,17 @@ import torch
 
 from ..utils.dist import Dist, fp32_matmul, sq_norms
 
-__all__ = ["cagra_prune", "add_reverse_edges", "beam_search"]
+__all__ = [
+    "cagra_prune", "add_reverse_edges", "beam_search", "random_init_graph",
+    "random_candidates", "score_candidates",
+]
 
 _INF = float("inf")
+#: bytes of the [rows, C, C] pair masks one step of ``_merge_rows`` builds
+_MERGE_BUDGET = 1 << 28
+#: bytes of the gathered [rows, kk, d] rows and [rows, kk, kk] pair masks
+#: one step of ``score_candidates`` builds
+_SCORE_BUDGET = 1 << 28
 
 
 def _next_pow2(v: int) -> int:
@@ -49,6 +59,24 @@ def _row_dedup_inf(ids: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
     dup_sorted[..., 1:] = sorted_ids[..., 1:] == sorted_ids[..., :-1]
     dup = torch.zeros_like(dup_sorted).scatter_(-1, order, dup_sorted)
     return torch.where(dup, _INF, dists)
+
+
+def _merge_rows(ids_a, d_a, ids_b, d_b, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two candidate row sets ``[n, ka]`` and ``[n, kb]``: duplicate
+    ids keep their first copy, and the ``k`` smallest stay, ascending, ties
+    to the earlier column (as ``lax.top_k`` breaks them). Returns ``(ids
+    [n, k]``, in the dtype of ``ids_a``, ``dists [n, k])``. Rows go through
+    in steps that keep the dedup's pair masks within ``_MERGE_BUDGET``."""
+    C = ids_a.shape[-1] + ids_b.shape[-1]
+    step = max(1, _MERGE_BUDGET // (C * C))
+    out_i, out_d = [], []
+    for r in range(0, ids_a.shape[0], step):
+        ids = torch.cat([ids_a[r : r + step], ids_b[r : r + step].to(ids_a.dtype)], dim=-1)
+        d = _row_dedup_inf(ids, torch.cat([d_a[r : r + step], d_b[r : r + step]], dim=-1))
+        vals, pos = torch.sort(d, dim=-1, stable=True)
+        out_i.append(torch.gather(ids, -1, pos[:, :k]))
+        out_d.append(vals[:, :k])
+    return torch.cat(out_i), torch.cat(out_d)
 
 
 def _pair_dists(nv: torch.Tensor, nsq: torch.Tensor, metric: Dist) -> torch.Tensor:
@@ -222,3 +250,55 @@ def beam_search(
     if return_trail:
         return (*out, torch.cat(trail_d, dim=1), torch.cat(trail_ids, dim=1))
     return out
+
+
+def random_candidates(gen: torch.Generator, n: int, kk: int, device) -> torch.Tensor:
+    """``[n, kk]`` random node ids in ``[0, n)``, drawn on the CPU from
+    ``gen`` and moved to ``device``: the draw of ``random_init_graph`` (the
+    JAX package draws from its key stream, which torch cannot repeat; a
+    test can hand that draw to :func:`score_candidates`)."""
+    return torch.randint(0, n, (n, kk), generator=gen).to(device)
+
+
+def score_candidates(
+    vectors: torch.Tensor,   # [n+1, d] (last row = sentinel zeros)
+    sqnorms: torch.Tensor,   # [n+1]
+    cand: torch.Tensor,      # [n, kk] candidate ids in [0, n)
+    metric: Dist,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's candidates with their true distances, ascending: ``(ids
+    [n, kk] int32, dists [n, kk])``; the row itself and repeated ids are
+    masked and come last as ``(n, inf)``. The dots are one FP32 product
+    with TF32 off, finer than the two-way bf16 split of the JAX package's
+    ``_tile_dists``. Rows go through in steps within ``_SCORE_BUDGET``."""
+    n, kk = cand.shape
+    tile = max(1, _SCORE_BUDGET // (kk * (4 * vectors.shape[1] + kk)))
+    ids_out = torch.empty((n, kk), dtype=torch.int32, device=cand.device)
+    d_out = torch.empty((n, kk), dtype=torch.float32, device=cand.device)
+    for u0 in range(0, n, tile):
+        c = cand[u0 : u0 + tile].long()
+        u = torch.arange(u0, u0 + c.shape[0], device=c.device)
+        with fp32_matmul():   # f32 grade (the JAX package: a two-way split)
+            dots = torch.bmm(vectors[c], vectors[u][:, :, None])[:, :, 0]
+        if metric == Dist.COSINE:
+            d = 1.0 - dots
+        else:
+            d = torch.clamp(sqnorms[u][:, None] + sqnorms[c] - 2.0 * dots, min=0.0)
+        d = _row_dedup_inf(c, torch.where(c == u[:, None], _INF, d))
+        d, pos = torch.sort(d, dim=1, stable=True)
+        ids = torch.gather(c, 1, pos)
+        ids_out[u0 : u0 + tile] = torch.where(torch.isinf(d), n, ids).int()
+        d_out[u0 : u0 + tile] = d
+    return ids_out, d_out
+
+
+def random_init_graph(
+    gen: torch.Generator, vectors: torch.Tensor, sqnorms: torch.Tensor, kk: int, metric: Dist,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A random ``kk``-NN graph with true distances (the JAX package's
+    ``random_init_graph``): :func:`random_candidates` scored by
+    :func:`score_candidates`. ``vectors [n+1, d]`` carries the sentinel
+    row."""
+    n = vectors.shape[0] - 1
+    return score_candidates(
+        vectors, sqnorms, random_candidates(gen, n, kk, vectors.device), metric)

@@ -37,12 +37,39 @@ DEFAULT_DB_CHUNK = 16384
 DEFAULT_QUERY_BLOCK = 1024
 
 
+#: ``topk_smallest`` selects by keyed ``torch.topk`` from rows this wide (and
+#: at least 8k), by a stable sort below: on the H100 the sort is faster up
+#: to rows of 4,096 and the keyed route from 8,192 (``chip_smoke.py`` phase 17)
+KEYED_MIN_WIDTH = 8192
+
+
 def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k smallest along the last axis, ascending, ties to the
-    lower index (a stable sort: ``torch.topk`` promises no tie order).
-    Returns (vals, idx)."""
+    lower index (``lax.top_k``'s order; ``torch.topk`` alone promises no
+    tie order). Returns (vals, idx). f32 rows of ``KEYED_MIN_WIDTH`` or more
+    take :func:`_topk_keyed`, the rest a stable sort; both give the same
+    answer."""
+    if d.dtype == torch.float32 and max(KEYED_MIN_WIDTH, 8 * k) <= d.shape[-1] < 2**31:
+        return _topk_keyed(d, k)
+    return _topk_sorted(d, k)
+
+
+def _topk_sorted(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     vals, idx = torch.sort(d, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _topk_keyed(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.topk`` over one int64 per value: its order-preserving 32-bit
+    key above its column, so every key is distinct and equal values come
+    out by column without a full sort. ``-0.0`` counts as ``0.0``; every
+    NaN takes the largest key, after ``inf``, as the sort places it."""
+    b = (d + 0.0).view(torch.int32)                  # -0.0 + 0.0 = +0.0
+    key = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    key = torch.where(torch.isnan(d), 0x7FFFFFFF, key).long()
+    col = torch.arange(d.shape[-1], device=d.device)
+    _, idx = torch.topk((key << 32) | col, k, dim=-1, largest=False, sorted=True)
+    return torch.gather(d, -1, idx), idx
 
 
 def merge_topk(d_a, i_a, d_b, i_b, k: int):

@@ -77,6 +77,24 @@ to ties. The last K1d-f32 call of each fused run in phases 11 to 13 is held
 against the plain version, and phase 2g also times the cluster scan, the
 route rows wider than 4,096 took before the fused kernels took them.
 
+Phase 15 builds HNSW (m 16, ef_construction 100) through the facade on
+``benchmarks/bench_hnsw_profile.py``'s workload (150k × 32d, 25 clusters,
+15k queries, k 15): the warm build split by stage, then ms and recall@15
+against an f64 scan at ef 50, 100 and 200 through the index's ``query``
+with ``exact_fallback=False``; then
+once on phase 9's 1M × 32d rows with the first 2,000 of phase 10's
+queries at ef 100. Phase 16 drives Vamana (r 32, α 1.2) on the same data
+at the default beam and at 64. The base graphs run K2 at kk 51 / 49: its
+launches are counted over each build, and its last launch of each base
+build is held against the plain version by phase 9's rule. Phase 17 runs
+the flat bf16 (euclidean and cosine), SQ8 (both), PQ (m 16, 64) and OPQ
+(m 16) indexes on phase 6's data, 10,000 queries: build seconds, ms a
+batch, recall@10 on 2,000 against the exact scan, bytes, and SQ8's
+distances against an int64 numpy computation over the same codes
+(equal); beside the bf16 scan it times ``topk_smallest``'s two routes on
+the scan's own tiles and the batch with the keyed route off. Each of
+phases 15–17 prints its seconds.
+
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
 on its path, its error against the plain version, both times and its
@@ -153,6 +171,19 @@ LSH_BITS = (16, 12)
 #: query's probes cover about 65% of the rows; the K1d-f32 check of the
 #: fused route is what can catch a wrong scan there)
 LSH_RECALL_MIN = 0.999
+
+# phases 15, 16: benchmarks/bench_hnsw_profile.py (150k x 32d, 25 clusters,
+# 15k queries, k 15) and phase 9's 1M x 32d lowrank rows with the first
+# 2,000 of phase 10's queries
+H_N, H_D, H_NQ, H_K, H_M, H_EFS, H_BIG_NQ = 150_000, 32, 15_000, 15, 16, (50, 100, 200), 2_000
+V_R, V_ALPHA = 32, 1.2
+#: recall@15 against f64 on the 150k workload: HNSW at ef 100, Vamana at
+#: its default beam (the acceptance floors of this slice)
+HNSW_RECALL_MIN, VAMANA_RECALL_MIN = 0.98, 0.97
+# phase 17: the flat quantised indexes on phase 6's data, its first 10k queries
+FQ_NQ = 10_000
+#: recall@10 floors of phase 17 (against the exact f32 scan)
+FLAT_RECALL_MIN = {("bf16", "euclidean"): 0.95, ("sq8", "euclidean"): 0.80}
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory, bf16 and int8
 #: on the tensor cores
@@ -2333,6 +2364,285 @@ def phase_mma_adder(dev) -> None:
         raise AssertionError("mma.sync keeps fewer than 24 bits of its largest term")
 
 
+# -- phases 15-17: HNSW, Vamana, the flat quantised indexes -----------------------
+
+
+def _k2_last_launch(name, vecs, sq, kk) -> float:
+    """K2's last launch of a base build (``brute_knn_graph``: every row
+    against every row, ``kk`` = build_k + 1, ``passes=6``): its query slab
+    against the plain version, under phase 9's rule (ids swapped only
+    within twice the plain's f64 error). Returns the largest error."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    n = vecs.shape[0]
+    slab = ff.slab_rows(ff.fused_shapes(n, kk)[1])
+    q = vecs[(n - 1) // slab * slab:]
+    kw = dict(x_sqnorm=sq, passes=6)
+    return _k2_agree(f"{name}: K2's last launch ({q.shape[0]} queries x {n} rows, kk {kk})",
+                     ff.flat_topk_fused(q, vecs, kk, Dist.EUCLIDEAN, **kw),
+                     ff.flat_topk_fused_plain(q, vecs, kk, Dist.EUCLIDEAN, **kw), False,
+                     _k2_truth(q, vecs, sq, True))
+
+
+def _graph_build(name, build, warm=True):
+    """A build (verbose: each stage ends in a synchronise), after a first
+    one where ``warm``, with K2's launches counted from 0 around it.
+    Returns (index, launches)."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+
+    if warm:
+        build(False)
+    ff.flat_topk_fused.launches = 0
+    build_s, index = _timed(lambda: build(True))
+    launches = ff.flat_topk_fused.launches
+    split = ", ".join(f"{k} {v:.3f}" for k, v in index.build_times.items())
+    print(f"  {name}: build {build_s:.3f} s{' warm' if warm else ''} ({split}); K2 "
+          f"launches {launches}", flush=True)
+    if launches == 0:
+        raise AssertionError(f"{name}: the build never launched K2")
+    return index, launches
+
+
+def _graph_runs(name, query, settings, q, truth, n, floors) -> None:
+    """ms per batch (median of 3) and recall@k against f64 at each setting
+    of ``query(q, setting)``; ``floors`` {setting: least recall}."""
+    import annsearch_tpu_torch as at
+
+    for s in settings:
+        ms, (ids, d) = _wall_ms(lambda: query(q, s))
+        _check_ids(f"{name} {s}", ids, d, q.shape[0], truth.shape[1], n)
+        recall = at.calculate_recall(truth, ids, truth.shape[1])
+        print(f"  {name} at {s}: {ms:.1f} ms a batch of {q.shape[0]} (median of 3) = "
+              f"{q.shape[0] / ms * 1e3:.0f} QPS, recall@{truth.shape[1]} against f64 "
+              f"{recall:.6f}", flush=True)
+        if s in floors and recall < floors[s]:
+            raise AssertionError(f"{name} at {s}: recall {recall:.6f} < {floors[s]}")
+
+
+def _graph_data(dev):
+    """Phase 15's workload (``benchmarks/bench_hnsw_profile.py``): 150k × 32d,
+    25 Gaussian clusters, 15k queries, and their f64 top-15."""
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x_np, _ = generate_clustered_data(H_N, H_D, 25, seed=SEED)
+    q_np = subsample_with_noise(x_np, H_NQ, seed=SEED)
+    x, q = torch.as_tensor(x_np, device=dev), torch.as_tensor(q_np, device=dev)
+    return x, q, _f64_truth(x, q, H_K)
+
+
+def phase_hnsw(dev, small, x_big, q_big, t_big) -> dict:
+    """Phase 15: HNSW (m 16, ef_construction 100) on 150k × 32d clusters and
+    on phase 9's 1M × 32d lowrank rows; K2's base graph and its last
+    launch held against the plain version. Returns K2's entry on the
+    150k build (its first full slab)."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    t_phase = time.time()
+    x, q, truth = small
+    index, launches = _graph_build(
+        "hnsw 150k", lambda v: at.build_hnsw_index(x, m=H_M, seed=SEED, verbose=v, device=dev))
+    print(f"  hnsw 150k: {index.n_layers} levels, layers {[len(g[0]) for g in index.layers]}, "
+          f"base degree {index.base_graph.shape[1]}, {index.memory_usage_bytes():,} bytes",
+          flush=True)
+    _graph_runs("hnsw 150k ef", lambda qq, ef: index.query(
+        qq, H_K, ef_search=ef, exact_fallback=False), H_EFS, q, truth, H_N,
+        {100: HNSW_RECALL_MIN})
+    vecs, sq = index.vectors[:H_N], index.sqnorms[:H_N]
+    kk = min(max(2 * H_M, 100 // 2), H_N - 1) + 1
+    _k2_last_launch("hnsw 150k", vecs, sq, kk)
+    entry = _k2_entry("flat_topk_fused (HNSW base graph, 150k x 32d, kk 51)",
+                      vecs[:16384], vecs, sq, kk, Dist.EUCLIDEAN, launches)
+    del index
+
+    big, _ = _graph_build(
+        "hnsw 1M lowrank", lambda v: at.build_hnsw_index(x_big, m=H_M, seed=SEED, verbose=v,
+                                                         device=dev), warm=False)
+    _graph_runs("hnsw 1M lowrank ef", lambda qq, ef: big.query(
+        qq, H_K, ef_search=ef, exact_fallback=False), (100,), q_big, t_big, G_N, {})
+    xs, sn = big.vectors[:G_N], big.sqnorms[:G_N]
+    _k2_last_launch("hnsw 1M lowrank", xs, sn, kk)
+    k2_ms = _cuda_ms(lambda: ff.flat_topk_fused(xs[:16384], xs, kk, Dist.EUCLIDEAN,
+                                                x_sqnorm=sn, passes=6), reps=3)
+    print(f"  hnsw 1M lowrank: K2 a full launch (16384 queries x {G_N} rows, kk {kk}, kb "
+          f"{ff.fused_shapes(G_N, kk)[0]}) {k2_ms:.3f} ms = "
+          f"{2.0 * 16384 * G_N * H_D / k2_ms / 1e9:.2f} TFLOP/s", flush=True)
+    del big, xs, sn
+    print(f"  phase 15 took {time.time() - t_phase:.1f} s", flush=True)
+    return entry
+
+
+def phase_vamana(dev, small, x_big, q_big, t_big) -> dict:
+    """Phase 16: Vamana (r 32, α 1.2) on phase 15's two data sets, at the
+    default beam and at 64; K2's base pool held as in phase 15. Returns
+    K2's entry on the 150k build."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    t_phase = time.time()
+    x, q, truth = small
+    index, launches = _graph_build(
+        "vamana 150k", lambda v: at.build_vamana_index(x, r_degree=V_R, alpha=V_ALPHA,
+                                                       seed=SEED, verbose=v, device=dev))
+    print(f"  vamana 150k: degree {index.graph.shape[1]}, medoid {index.medoid}, "
+          f"{index.memory_usage_bytes():,} bytes", flush=True)
+    _graph_runs("vamana 150k beam", lambda qq, b: index.query(
+        qq, H_K, beam=b, exact_fallback=False), (None, 64), q, truth, H_N,
+        {None: VAMANA_RECALL_MIN})
+    vecs, sq = index.vectors[:H_N], index.sqnorms[:H_N]
+    kk = max(48, V_R) + 1
+    _k2_last_launch("vamana 150k", vecs, sq, kk)
+    entry = _k2_entry("flat_topk_fused (Vamana base pool, 150k x 32d, kk 49)",
+                      vecs[:16384], vecs, sq, kk, Dist.EUCLIDEAN, launches)
+    del index
+
+    big, _ = _graph_build(
+        "vamana 1M lowrank", lambda v: at.build_vamana_index(
+            x_big, r_degree=V_R, alpha=V_ALPHA, seed=SEED, verbose=v, device=dev), warm=False)
+    _graph_runs("vamana 1M lowrank beam", lambda qq, b: big.query(
+        qq, H_K, beam=b, exact_fallback=False), (None, 64), q_big, t_big, G_N, {})
+    _k2_last_launch("vamana 1M lowrank", big.vectors[:G_N], big.sqnorms[:G_N], kk)
+    del big
+    print(f"  phase 16 took {time.time() - t_phase:.1f} s", flush=True)
+    return entry
+
+
+def phase_flat_quantised(dev, x, q) -> None:
+    """Phase 17: the flat bf16, SQ8, PQ and OPQ indexes on phase 6's 1M ×
+    256d data, its first 10,000 queries; recall@10 on 2,000 against the
+    exact f32 scan, and SQ8's distances against an int64 numpy computation
+    over the same codes (equal)."""
+    import annsearch_tpu_torch as at
+
+    t_phase = time.time()
+    q = q[:FQ_NQ]
+    truth = {m: at.build_exhaustive_index(x, m, device=dev).query(q[:NQ_GT], K)[0]
+             for m in ("euclidean", "cosine")}
+    runs = (("bf16", "euclidean", None), ("bf16", "cosine", None), ("sq8", "euclidean", None),
+            ("sq8", "cosine", None), ("pq", "euclidean", 16), ("pq", "euclidean", 64),
+            ("opq", "euclidean", 16))
+    for kind, metric, m in runs:
+        build = getattr(at, f"build_exhaustive_{kind}_index")
+        query = getattr(at, f"query_exhaustive_{kind}_index")
+        name = f"flat {kind}{'' if m is None else f' m {m}'} {metric}"
+        args = (x, metric) if m is None else (x, m, metric, SEED)
+        build_s, index = _timed(lambda: build(*args, device=dev))
+        ms, (ids, d) = _wall_ms(lambda: query(q, index, K, True))
+        _check_ids(name, ids, d, FQ_NQ, K, Q_N)
+        rec = at.calculate_recall(truth[metric], ids[:NQ_GT], K)
+        print(f"  {name}: build {build_s:.2f} s, {ms:.1f} ms a batch of {FQ_NQ} (median of "
+              f"3), recall@10 {rec:.4f}, {index.memory_usage_bytes():,} bytes", flush=True)
+        floor = FLAT_RECALL_MIN.get((kind, metric))
+        if floor is not None and rec < floor:
+            raise AssertionError(f"{name}: recall@10 {rec:.4f} < {floor}")
+        if kind == "bf16" and bool((d == d.bfloat16().float()).all()):
+            raise AssertionError(f"{name}: the distances are bf16 values, not f32 sums")
+        if (kind, metric) == ("bf16", "euclidean"):
+            _flat_products(index, q)
+            _chunk_selection(index, q, query, ms)
+        if kind == "sq8":
+            _sq8_int64_check(name, index, q, ids, d, metric)
+        del index, ids, d
+    print(f"  phase 17 took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _flat_products(index, q) -> None:
+    """Diagnostic beside phase 17's bf16 scan: its FP32 products alone (one
+    query block against every chunk of rows, no selection), to split the
+    batch's time between the products and the rest of the scan."""
+    from annsearch_tpu_torch.models.quantised import flat
+    from annsearch_tpu_torch.utils.dist import fp32_matmul
+
+    qb = flat.QUERY_BUDGET // (24 * flat._DB_CHUNK)
+    q16 = q[:qb].bfloat16().float()
+
+    def run():
+        with fp32_matmul():
+            for c in range(0, index.n, flat._DB_CHUNK):
+                q16 @ index.vectors[c : c + flat._DB_CHUNK].float().T
+
+    ms = _cuda_ms(run, reps=3)
+    blocks = -(-q.shape[0] // qb)
+    print(f"  diagnostic: the FP32 products of one block of {q16.shape[0]} queries against "
+          f"{index.n} rows {ms:.1f} ms ({2.0 * q16.shape[0] * index.n * index.dim / ms / 1e9:.1f}"
+          f" TFLOP/s); the batch runs {blocks} blocks", flush=True)
+
+
+def _chunk_selection(index, q, query, batch_ms) -> None:
+    """Diagnostic beside phase 17's bf16 scan: ``topk_smallest``'s two
+    routes (a stable sort; ``torch.topk`` over int64 value-and-column keys)
+    and a bare f32 ``torch.topk`` (no tie order) on the scan's own
+    distances of one query block against one chunk, at k 10 and at narrower
+    widths; the two exact routes must agree. Then the whole batch again with
+    the keyed route off, beside ``batch_ms``."""
+    from annsearch_tpu_torch.models.quantised import flat
+    from annsearch_tpu_torch.ops import topk
+    from annsearch_tpu_torch.utils.dist import fp32_matmul
+
+    qb = flat.QUERY_BUDGET // (24 * flat._DB_CHUNK)
+    qq = q[:qb]
+    with fp32_matmul():
+        dots = qq.bfloat16().float() @ index.vectors[: flat._DB_CHUNK].float().T
+    d = torch.clamp((qq * qq).sum(1)[:, None] + index.sqnorms[None, : flat._DB_CHUNK]
+                    - 2.0 * dots, min=0.0)
+    for width in (flat._DB_CHUNK, 8192, 4096, 2048, 1024, 160, 2 * K):
+        t = d[:, :width].contiguous()
+        ks, kk = topk._topk_sorted(t, K), topk._topk_keyed(t, K)
+        if not (torch.equal(ks[0], kk[0]) and torch.equal(ks[1], kk[1])):
+            raise AssertionError(f"topk_smallest's two routes differ at width {width}")
+        ms_s = _cuda_ms(lambda: topk._topk_sorted(t, K), reps=5)
+        ms_k = _cuda_ms(lambda: topk._topk_keyed(t, K), reps=5)
+        ms_l = _cuda_ms(lambda: torch.topk(t, K, dim=-1, largest=False), reps=5)
+        print(f"  diagnostic: top-{K} of [{qb} x {width}] f32: stable sort {ms_s:.3f} ms, "
+              f"keyed torch.topk {ms_k:.3f} ms, bare f32 torch.topk {ms_l:.3f} ms "
+              f"(routes equal)", flush=True)
+    was = topk.KEYED_MIN_WIDTH
+    topk.KEYED_MIN_WIDTH = 2**31
+    try:
+        sort_ms, _ = _wall_ms(lambda: query(q, index, K, True))
+    finally:
+        topk.KEYED_MIN_WIDTH = was
+    print(f"  diagnostic: the bf16 batch with the keyed selection {batch_ms:.1f} ms, with "
+          f"the stable sort {sort_ms:.1f} ms (median of 3)", flush=True)
+
+
+def _sq8_int64_check(name, index, q, ids, d, metric, rows=256, scan_rows=64) -> None:
+    """The SQ8 distances of the first ``rows`` queries to the ids returned,
+    against an int64 numpy computation over the same codes (cosine: its
+    IEEE f32 steps): equal; and on the first ``scan_rows`` of them no code
+    outside the returned set is nearer than the 10th (an int64 scan on the
+    host over a stride sample of 16,384 rows)."""
+    qc = index.quantiser.encode(index._prep_queries(q[:rows])).cpu().numpy().astype(np.int64)
+    codes = index.codes.cpu().numpy().astype(np.int64)
+    i = ids[:rows].cpu().numpy()
+    dots = np.einsum("qd,qkd->qk", qc, codes[i])
+    qs, cs = (qc * qc).sum(1)[:, None], (codes * codes).sum(1)
+    if metric == "cosine":
+        den = np.sqrt(qs.astype(np.float32)) * np.sqrt(cs[i].astype(np.float32))
+        ref = np.where(den > 0, np.float32(1) - dots.astype(np.float32) / den, np.float32(1))
+    else:
+        ref = (qs + cs[i] - 2 * dots).astype(np.float32)
+    got = d[:rows].cpu().numpy()
+    equal = bool(np.array_equal(got, ref))
+    sample = np.arange(0, codes.shape[0], max(1, codes.shape[0] // 16_384))
+    qs, got, i = qs[:scan_rows], got[:scan_rows], i[:scan_rows]
+    sd = qc[:scan_rows] @ codes[sample].T
+    if metric == "cosine":
+        den = np.sqrt(qs.astype(np.float32)) * np.sqrt(cs[sample].astype(np.float32))[None]
+        full = np.where(den > 0, np.float32(1) - sd.astype(np.float32) / den, np.float32(1))
+    else:
+        full = (qs + cs[sample][None] - 2 * sd).astype(np.float32)
+    returned = (sample[None, :, None] == i[:, None, :]).any(-1)
+    nearer = int(((full < got[:, -1:]) & ~returned).sum())
+    print(f"  {name}: distances of {rows} queries against int64 numpy over the same codes "
+          f"equal: {equal}; sampled rows nearer than the 10th and not returned: "
+          f"{nearer}", flush=True)
+    if not equal or nearer > 0:
+        raise AssertionError(f"{name}: not the integer-space distances")
+
+
 def _check_mma_counts(found) -> None:
     """Phase 1: every scan instance (K2's ``flat_scan_kernel``, each K1
     ``ivf_scan_kernel``) holds tensor-core instructions: HMMA (bf16), or
@@ -2418,7 +2728,16 @@ def main() -> int:
     lsh = phase_lsh(dev, graph_x, graph_q)
     phase("14: kMkNN, 1M x 32d, nlist 1,000, 10,000 queries")
     phase_kmknn(dev, graph_x, graph_q)
+    small = _graph_data(dev)
+    x_big = torch.as_tensor(graph_x, device=dev)
+    q_big = torch.as_tensor(graph_q[:H_BIG_NQ], device=dev)
+    t_big = _f64_truth(x_big, q_big, H_K)
     del graph_x, graph_q
+    phase("15: HNSW, 150k x 32d (m 16) and 1M x 32d lowrank (K2 base graphs)")
+    k2_hnsw = phase_hnsw(dev, small, x_big, q_big, t_big)
+    phase("16: Vamana, r 32, alpha 1.2, on phase 15's data (K2 base pools)")
+    k2_vamana = phase_vamana(dev, small, x_big, q_big, t_big)
+    del small, x_big, q_big, t_big
     phase("9b: the flat index, 100k x 128d self-query, k 10, three selectors")
     k2_flat = phase_flat_index(dev)
 
@@ -2460,6 +2779,8 @@ def main() -> int:
 
     phase("6b: cosine IvfIndexBf16 and IvfSq8Index, nprobe 16")
     phase_quantised_cosine(dev, x, q)
+    phase("17: flat bf16, SQ8, PQ and OPQ indexes, 1M x 256d, 10,000 queries")
+    phase_flat_quantised(dev, x, q)
     del x, q
 
     phase("k-means cluster sums")
@@ -2469,7 +2790,7 @@ def main() -> int:
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1a, k1a_fold1, exact, fold, *quant, *i8dec, *wide, forest,
-                                  ball, lsh, k2, k2_flat]}), flush=True)
+                                  ball, lsh, k2, k2_flat, k2_hnsw, k2_vamana]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (K1a, K1b-l2, K1b-cos, K1d-i8dec, K1c-f32,
 K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8, their fold-1 and wide-row
 instances, K1-exact-i8 and K2) against their plain PyTorch versions, on the
-card, and the IVF, graph, tree, LSH and kMkNN paths on the card against the
-CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
+card, and the IVF, graph, HNSW, Vamana, tree, LSH, kMkNN and flat
+quantised paths on the card against the CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
 cores (int8 products in int32 for sq8); the cases cover each variant's term
 count, and rows whose query terms are held whole or formed per column block.
 
@@ -800,3 +800,134 @@ def test_lsh_and_kmknn_on_the_card_match_the_cpu(dev, tmp_path):
     kth = td[:, -1:]
     assert torch.all(gd <= kth + 1e-4 * (1 + kth))
     assert (gi == ti).float().mean().item() >= 0.999
+
+
+# -- HNSW, Vamana (K2 builds) and the flat quantised scans on the card -------------
+
+
+@pytest.mark.parametrize("kk", [51, 65])
+def test_k2_at_hnsw_widths_matches_plain(dev, kk):
+    """K2 at the base graph's widths on HNSW's workload (150,000 × 32d, 25
+    clusters, seed 42; ``benchmarks/bench_hnsw_profile.py``) and its slab,
+    the first 16,384 rows against all: kk 51 (build_k 50 at m 16, kb 64)
+    and 65 (m 32, kb 128; ``blocked_query_topk`` sends that width to the
+    bins selector, the JAX rule, but the kernel takes it). Clustered rows
+    hold many near-ties, so a rank agrees where both give the same id or
+    where the f64 distances of the two ids lie within twice the plain
+    version's own largest f64 error (``chip_smoke.py``'s rule); distances
+    within 1e-4·(1 + |d|) beyond the two versions' f64 errors, the kernel's
+    error at most twice the plain's."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.data import generate_clustered_data
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    x_np, _ = generate_clustered_data(150_000, 32, 25, seed=42)
+    x = torch.as_tensor(x_np, device=dev)
+    sn = (x * x).sum(1)
+    q = x[:16384]
+    kd, ki = ff.flat_topk_fused(q, x, kk, Dist.EUCLIDEAN, x_sqnorm=sn, passes=6)
+    pd, pi = ff.flat_topk_fused_plain(q, x, kk, Dist.EUCLIDEAN, x_sqnorm=sn, passes=6)
+    torch.cuda.synchronize()
+    assert kd.shape == (16384, kk)
+    finite = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), finite)
+
+    def f64(ids):
+        ids = ids.clamp(0, x.shape[0] - 1)
+        q64 = q.double()
+        dot = (q64[:, None] * x[ids].double()).sum(2)
+        return (q64 * q64).sum(1)[:, None] + sn[ids].double() - 2.0 * dot
+
+    tk, tp = f64(ki), f64(pi)
+    err_k = (kd.double() - tk).abs()[finite].max().item()
+    err_p = (pd.double() - tp).abs()[finite].max().item()
+    assert err_k <= 2.0 * err_p, (err_k, err_p)
+    same = (ki == pi) | ((tk - tp).abs() <= 2.0 * err_p)
+    assert same[finite].float().mean().item() >= 0.999
+    tol = 1e-4 * (1.0 + pd.abs()[finite]) + err_k + err_p
+    assert torch.all((kd - pd).abs()[finite] <= tol)
+
+
+@pytest.mark.parametrize("kind", ["hnsw", "vamana"])
+def test_graph_builds_on_the_card_match_the_cpu(dev, kind):
+    """An HNSW or Vamana build of 20,000 rows (past EXACT_LAYER_MAX: the base
+    graph by K2) on the card against the CPU's (K2's plain version): the
+    same layers, and recall within 0.01 of each other."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 32, 12, seed=4)
+    x = x * np.float32(0.125)
+    q = subsample_with_noise(x, 400, seed=4)
+    build = at.build_hnsw_index if kind == "hnsw" else at.build_vamana_index
+    before = ff.flat_topk_fused.launches
+    gpu = build(x, seed=0, device=dev)
+    assert ff.flat_topk_fused.launches > before
+    cpu = build(x, seed=0, device="cpu")
+    truth, _ = at.build_exhaustive_index(x, device="cpu").query(q, 10)
+    gi, _ = gpu.query(q, 10, exact_fallback=False)
+    ci, _ = cpu.query(q, 10, exact_fallback=False)
+    assert abs(at.calculate_recall(truth, gi.cpu(), 10)
+               - at.calculate_recall(truth, ci, 10)) <= 0.01
+    if kind == "hnsw":
+        assert [len(a[0]) for a in gpu.layers] == [len(b[0]) for b in cpu.layers]
+    else:
+        assert gpu.medoid == cpu.medoid
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_flat_sq8_on_the_card_is_integer_space(dev, metric):
+    """ExhaustiveSq8Index on the card: distances equal an int64 numpy
+    computation over the same codes (cosine: its IEEE f32 steps), bit for
+    bit; and the scan on those codes on the CPU, bit for bit."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 256, 20, seed=3)
+    q = subsample_with_noise(x, 300, seed=3)
+    gpu = at.build_exhaustive_sq8_index(x, metric, device=dev)
+    gi, gd = gpu.query(q, 10)
+    qc = gpu.quantiser.encode(gpu._prep_queries(q)).cpu().numpy().astype(np.int64)
+    c = gpu.codes.cpu().numpy().astype(np.int64)
+    ids = gi.cpu().numpy()
+    dots = np.take_along_axis(qc @ c.T, ids, 1)
+    qs, cs = (qc * qc).sum(1)[:, None], (c * c).sum(1)[ids]
+    if metric == "cosine":
+        den = np.sqrt(qs.astype(np.float32)) * np.sqrt(cs.astype(np.float32))
+        ref = np.where(den > 0, np.float32(1) - dots.astype(np.float32) / den, np.float32(1))
+    else:
+        ref = (qs + cs - 2 * dots).astype(np.float32)
+    np.testing.assert_array_equal(gd.cpu().numpy(), ref)
+    # the scan on the same codes on both devices (under cosine each device
+    # normalises rows and queries with its own sums, so its codes may differ)
+    from annsearch_tpu_torch.ops.quantised import chunked_topk_sq8
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    qi = torch.as_tensor(qc.astype(np.int8))
+    codes, sqn = gpu.codes.cpu(), gpu.code_sqnorms.cpu()
+    cd, ci = chunked_topk_sq8(qi, codes, sqn, 10, Dist(metric))
+    kd, ki = chunked_topk_sq8(qi.to(dev), gpu.codes, gpu.code_sqnorms, 10, Dist(metric))
+    assert torch.equal(ki.cpu(), ci) and torch.equal(kd.cpu(), cd)
+    assert torch.equal(ki, gi) and torch.equal(kd, gd)
+
+
+def test_flat_bf16_on_the_card_returns_f32_sums(dev):
+    """ExhaustiveIndexBf16 on the card sums its bf16 products in f32: the
+    distances are f32, most of them not bf16 values, and within 1e-5 of the
+    terms of the CPU's."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 256, 20, seed=2)
+    q = subsample_with_noise(x, 300, seed=2)
+    gi, gd = at.query_exhaustive_bf16_index(
+        q, at.build_exhaustive_bf16_index(x, device=dev), 10, True)
+    ci, cd = at.query_exhaustive_bf16_index(
+        q, at.build_exhaustive_bf16_index(x, device="cpu"), 10, True)
+    assert gd.dtype == torch.float32
+    assert (gd != gd.bfloat16().float()).float().mean().item() > 0.9
+    assert (gi.cpu() == ci).float().mean().item() >= 0.999
+    terms = float((torch.as_tensor(q) ** 2).sum(1).max() + (torch.as_tensor(x) ** 2).sum(1).max())
+    same = gi.cpu() == ci
+    assert torch.all((gd.cpu() - cd).abs()[same] <= 1e-5 * (cd.abs()[same] + terms))

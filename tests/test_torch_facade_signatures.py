@@ -2,9 +2,10 @@
 lists share takes the JAX row's parameters, in its order and with its
 defaults (``verbose`` included), and whatever the port adds is
 keyword-only, so that a positional call means the same in both packages.
-The 15 tree, LSH and kMkNN rows are present, ``_query``'s progress report
-is the reference's, and every ``NotImplementedError`` of the port names a
-ROADMAP tag."""
+The 15 tree, LSH and kMkNN rows and the 18 HNSW, Vamana and flat
+quantised rows are present, every build row defaults to the card,
+``_query``'s progress report is the reference's, and every
+``NotImplementedError`` of the port names a ROADMAP tag."""
 
 import inspect
 import re
@@ -27,6 +28,13 @@ ROWS_P4 = [
     "build_kd_tree_index", "query_kd_tree_index", "query_kd_tree_self",
     "build_lsh_index", "query_lsh_index", "query_lsh_self",
 ]
+ROWS_P1_P2 = [
+    "build_hnsw_index", "query_hnsw_index", "query_hnsw_self",
+    "build_vamana_index", "query_vamana_index", "query_vamana_self",
+] + [f"{verb}_exhaustive_{kind}_{tail}" for kind in ("bf16", "sq8") for verb, tail in
+     (("build", "index"), ("query", "index"), ("query", "self"))] + [
+    f"{verb}_exhaustive_{kind}_{tail}" for kind in ("pq", "opq") for verb, tail in
+    (("build", "index"), ("query", "index"), ("query", "index_self"))]
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
 
@@ -39,6 +47,19 @@ def test_the_port_has_the_tree_lsh_and_kmknn_rows():
     assert set(ROWS_P4) <= set(tlib.__all__) and set(ROWS_P4) <= set(ja.__all__)
     assert set(ROWS_P4) <= set(ta.__all__)
     assert len(SHARED) >= 46
+
+
+def test_the_port_has_the_hnsw_vamana_and_flat_quantised_rows():
+    assert len(ROWS_P1_P2) == 18 and set(ROWS_P1_P2) <= set(jlib.__all__)
+    assert set(ROWS_P1_P2) <= set(tlib.__all__) and set(ROWS_P1_P2) <= set(ta.__all__)
+    assert len(SHARED) >= 64
+
+
+@pytest.mark.parametrize("name", [n for n in tlib.__all__ if n.startswith("build_")])
+def test_every_build_row_defaults_to_the_card(name):
+    params = inspect.signature(getattr(tlib, name)).parameters
+    assert params["device"].default == "cuda"
+    assert params["device"].kind == inspect.Parameter.KEYWORD_ONLY
 
 
 @pytest.mark.parametrize("name", SHARED)

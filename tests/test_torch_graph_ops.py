@@ -219,3 +219,80 @@ def test_beam_search_early_exit_and_sentinels(walk):
     with pytest.raises(ValueError, match="beam"):
         beam_search(torch.tensor([[0.1, 0.0]]), v, sq, ring, torch.tensor([[2]]), 9, 8, 20,
                     Dist.EUCLIDEAN)
+
+
+# -- _merge_rows and random_init_graph (the Vamana build's pool) --------------
+
+
+@pytest.mark.parametrize("widths", [(20, 12), (48, 32), (96, 48)])
+def test_merge_rows_equals_jax(widths):
+    """Duplicates keep their first copy and the k smallest stay, ties to the
+    earlier column: equal to the JAX function, on tie-heavy rows (both
+    dedup paths: at most 128 and wider)."""
+    from annsearch_tpu_torch.ops.graph import _merge_rows
+
+    ka, kb = widths
+    rng = np.random.default_rng(ka)
+    ids_a = rng.integers(0, 60, (40, ka)).astype(np.int32)
+    ids_b = rng.integers(0, 60, (40, kb)).astype(np.int32)
+    d_a = np.sort(rng.integers(0, 9, (40, ka)) / 4, axis=1).astype(np.float32)
+    d_b = (rng.integers(0, 9, (40, kb)) / 4).astype(np.float32)
+    d_a[:, -3:] = np.inf
+    k = (ka + kb) // 2
+    ji, jd = jgraph._merge_rows(jnp.asarray(ids_a), jnp.asarray(d_a), jnp.asarray(ids_b),
+                                jnp.asarray(d_b), k)
+    ti, td = _merge_rows(_t(ids_a), _t(d_a), _t(ids_b), _t(d_b), k)
+    assert ti.dtype == torch.int32 and ti.shape == (40, k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_random_init_graph_scores_the_jax_draw(metric):
+    """The port's scoring of the JAX package's own candidate draw (re-drawn
+    here by ``jax.random.randint``) against the JAX ``random_init_graph``:
+    the same id sets, self and repeated ids last as ``(n, inf)``. The port's
+    distances (one FP32 product) lie within 1e-5·(1 + |d|) of f64; the JAX
+    package sums a two-way bf16 split, about 16 bits of each operand, whose
+    own error against f64 is ten times that here (‖x‖² up to 15), so the
+    two agree within 1e-5·(1 + |d|) beyond the JAX distance's own f64
+    error."""
+    import jax
+
+    from annsearch_tpu_torch.ops.graph import random_candidates, score_candidates
+
+    tm, jm = METRICS[metric]
+    x = _clustered_data()
+    j = JNNDescent(x[:10], metric, k=4, seed=0)      # for the metric's row prep
+    rows = np.asarray(j._prep_queries(x)) if metric == "cosine" else x
+    vecs = np.concatenate([rows, np.zeros((1, rows.shape[1]), np.float32)])
+    sq = (vecs.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    n, kk = vecs.shape[0] - 1, 24
+    key = jax.random.key(7)
+    ji, jd = (np.asarray(a) for a in jgraph.random_init_graph(
+        key, jnp.asarray(vecs), jnp.asarray(sq), kk, jm))
+    cand = np.asarray(jax.random.randint(key, (-(-n // 1024) * 1024, kk), 0, n))[:n]
+    ti, td = score_candidates(_t(vecs), _t(sq), _t(cand), tm)
+    ti, td = ti.numpy(), td.numpy()
+    assert ti.dtype == np.int32 and ti.shape == (n, kk)
+    np.testing.assert_array_equal(np.isinf(td), np.isinf(jd))
+    np.testing.assert_array_equal(np.sort(ti, axis=1), np.sort(ji, axis=1))
+    assert (ti == ji).mean() > 0.999
+    fin = np.isfinite(jd)
+    x64 = vecs.astype(np.float64)
+    u = np.repeat(np.arange(n)[:, None], kk, 1)
+
+    def f64(ids):
+        a, b = x64[u], x64[np.minimum(ids, n)]
+        if metric == "cosine":
+            return 1.0 - (a * b).sum(-1)
+        return ((a - b) ** 2).sum(-1)
+
+    tol = 1e-5 * (1.0 + np.abs(jd[fin]))
+    assert np.all(np.abs(td[fin] - f64(ti)[fin]) <= tol)
+    assert np.all(np.abs(td[fin] - jd[fin]) <= tol + np.abs(jd - f64(ji))[fin])
+    assert (ti[~fin] == n).all() and np.isinf(td).any()
+    # the draw: from a CPU generator, in range, one seed one graph
+    c1 = random_candidates(torch.Generator().manual_seed(3), n, kk, "cpu")
+    c2 = random_candidates(torch.Generator().manual_seed(3), n, kk, "cpu")
+    assert torch.equal(c1, c2) and c1.shape == (n, kk) and 0 <= c1.min() and c1.max() < n

@@ -187,3 +187,46 @@ def test_gpu_facade_rows(flat):
     assert at.calculate_recall(ex.query(q, 10)[0], ids, 10) > 0.9
     si, _ = at.query_ivf_index_gpu_self(ivf, 3, nprobe=3)
     assert (si[:, 0] == torch.arange(1500)).float().mean() > 0.99
+
+
+def _tie_heavy(rows, width, seed, specials):
+    """Grid values with many exact ties; with ``specials``, ``-0.0``, ``0.0``,
+    ``inf`` and NaN of both signs sprinkled in."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(-8, 9, (rows, width)).astype(np.float32) / 4
+    if specials:
+        pick = rng.integers(0, 6, (rows, width))
+        vals = np.array([-0.0, 0.0, np.inf, np.nan, -np.nan, 1.0], np.float32)
+        d = np.where(rng.random((rows, width)) < 0.3, vals[pick], d).astype(np.float32)
+    return d
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("width,k", [(20, 10), (80, 10), (1024, 10), (4096, 64), (300, 300), (8192, 10)])
+def test_topk_smallest_routes_agree(width, k, specials):
+    """``topk_smallest``'s keyed ``torch.topk`` and its stable sort give the
+    same values and ids, bit for bit (ties by column, ``-0.0`` as ``0.0``,
+    NaN after ``inf``)."""
+    from annsearch_tpu_torch.ops import topk
+
+    d = torch.as_tensor(_tie_heavy(64, width, width + k, specials))
+    sv, si = topk._topk_sorted(d, k)
+    kv, ki = topk._topk_keyed(d, k)
+    assert torch.equal(si, ki)
+    np.testing.assert_array_equal(sv.numpy().view(np.int32), kv.numpy().view(np.int32))
+    tv, ti = topk.topk_smallest(d, k)
+    assert torch.equal(ti, si) and torch.equal(tv.isnan(), sv.isnan())
+
+
+@pytest.mark.parametrize("width,k", [(20, 10), (1024, 10), (4096, 64)])
+def test_topk_smallest_equals_lax_top_k(width, k):
+    """Both routes order ties as ``lax.top_k`` does (the lower index first)."""
+    import jax
+
+    from annsearch_tpu_torch.ops.topk import topk_smallest
+
+    d = _tie_heavy(64, width, 7 * width, False)
+    jv, ji = jax.lax.top_k(-jnp.asarray(d), k)
+    tv, ti = topk_smallest(torch.as_tensor(d), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), -np.asarray(jv))
