@@ -20,6 +20,10 @@
 //   K1d-sq8   int8 cells and int8 query codes (carried as integer-valued
 //             f32), l2 or cos_qnorm, fold (IvfSq8Index, approx);
 //   K1c-sq8   the same, exact selection (IvfSq8Index, the default tier);
+//   K1a-bf16  K1a's residual prologue and l2 epilogue over bf16 cells, two
+//             bf16 query terms, any selection (RaBitQ's fused
+//             estimator: the cells are +-1 sign rows scaled by
+//             |x - c| / |R u|_1, the scales ones; models/binary/rabitq.py);
 //   K1-fold1  any fold variant above with fold depth 1 (one survivor per
 //             stride class: 128, not 256), _scan_body's fold_depth=1;
 //   K1-exact-i8  the int8-decode prologues (K1a, K1b, K1d-i8dec) with the
@@ -31,7 +35,8 @@
 //
 // What it computes, for task row r (segment s = task_seg[r], n = cnt[r]
 // valid rows) and each query slot j < maxq (query id qid = lists[r, j]):
-//   K1a, K1b-l2: v = (q[qid] - cent[s]) * scales, qadd = |q[qid] - cent[s]|^2
+//   K1a, K1b-l2, K1a-bf16: v = (q[qid] - cent[s]) * scales,
+//                qadd = |q[qid] - cent[s]|^2
 //   K1b-cos:     v = q[qid] * scales, qadd = q[qid] . cent[s]
 //   K1d-i8dec:   v = q[qid] * scales, qadd = |q|^2 (l2) or 0
 //   else: v = q[qid]; qadd = |q|^2 (l2), unused (cos_plain), or q_sq =
@@ -42,6 +47,8 @@
 //           int8 decode cells: x as bf16 (exact), v as one bf16 term
 //             (bf16_rne) or two (q_split: hi by add-then-mask, lo =
 //             bf16_rne(v - hi)): one or two passes, as the Pallas kernel;
+//             K1a-bf16 takes bf16 cells as they are under the same
+//             prologue (the Pallas body casts any cell type to bf16);
 //           bf16 cells: v as one term (K1d-bf16, bf16_rne) or as three
 //             (K1c-bf16: exact, the f32 query's 24 bits): 1 or 3 passes;
 //           f32 cells: both sides as three terms, the six largest cross
@@ -747,6 +754,14 @@ const Launch* const kResidualL2[2] = {kBySel<int8_t, kResidual, kL2, false>,
 // K1b-cos: int8 residual cells, cos_renorm: [split][sel]
 const Launch* const kResidualCos[2] = {kBySel<int8_t, kScaledCent, kCosRenorm, false>,
                                        kBySel<int8_t, kScaledCent, kCosRenorm, true>};
+// K1a-bf16: bf16 residual cells, l2, two query terms (RaBitQ's estimator
+// takes fused_ivf_scan's q_split=True; one term is refused): [sel]. The
+// staged row of a bf16 step holds 64 columns (kCols), so d 128 and 256 take two
+// and four steps a chunk (64 KB of shared memory at fold depth 2, the
+// survivors' share; 58 / 67 KB exact at d 128 / 256); the query terms stay
+// whole up to a padded d of 1,464 (fold) or 952 (exact) under
+// kNarrowSmem, past which the kWide instances take them
+const Launch* const kResidualBf16 = kBySel<__nv_bfloat16, kResidual, kL2, true>;
 // K1d-i8dec: int8 decode cells, l2 or cos_renorm: [cosine][split][sel]
 const Launch* const kI8dec[2][2] = {
     {kBySel<int8_t, kScaled, kL2, false>, kBySel<int8_t, kScaled, kL2, true>},
@@ -798,6 +813,19 @@ extern "C" int annsearch_ivf_scan_k1b_cos(
     int R, int maxq, int seg, int d, int dp, int kb, int split, int sel, void* stream) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualCos[split != 0][sel](
+      lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
+      R, maxq, seg, d, dp, kb, stream);
+}
+
+// K1a-bf16: bf16 residual cells, l2, two bf16 query terms (RaBitQ's
+// estimator rows)
+extern "C" int annsearch_ivf_scan_k1a_bf16(
+    const void* lists, const void* task_seg, const void* cnt,
+    const void* queries, const void* cents, const void* scales,
+    const void* cells, const void* sn, void* out_d, void* out_i,
+    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
+  if (bad_sel(sel, seg)) return bad_sel(sel, seg);
+  return kResidualBf16[sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
       R, maxq, seg, d, dp, kb, stream);
 }

@@ -22,7 +22,14 @@ centroids, sorted storage and radii. ``hnsw_from_jax_arrays`` builds the
 ``vamana_from_jax_arrays`` the ``VamanaIndex`` from its graph and medoid
 (and, if given, the JAX index's router sample), and
 ``exhaustive_{bf16,sq8,pq,opq}_from_jax_arrays`` the flat quantised
-indexes from their rows, codes, scales, codebooks and rotation. Both
+indexes from their rows, codes, scales, codebooks and rotation.
+``exhaustive_binary_from_jax_arrays`` and ``ivf_binary_from_jax_arrays``
+build the binary indexes from their binariser (projections, mean, mode),
+packed codes (the JAX package's uint32 words, held here as int32 bit
+patterns) and IVF layout, ``exhaustive_rabitq_from_jax_arrays`` and
+``ivf_rabitq_from_jax_arrays`` the RaBitQ indexes from their rotation,
+codes, ``‖x − c‖`` and ``aux_corr``; each with its vector store (the
+device rows, or an mmap store re-opened by its path). Both
 packages then query the same centroids and cells, trees, tables or codes,
 or walk the same graph from the same routers, so differences between their
 random streams drop out of a comparison.
@@ -47,6 +54,9 @@ __all__ = [
     "hnsw_from_jax_arrays", "vamana_from_jax_arrays", "VAMANA_ARRAYS", "VAMANA_SCALARS",
     "exhaustive_bf16_from_jax_arrays", "exhaustive_sq8_from_jax_arrays",
     "exhaustive_pq_from_jax_arrays", "exhaustive_opq_from_jax_arrays",
+    "exhaustive_binary_from_jax_arrays", "ivf_binary_from_jax_arrays",
+    "exhaustive_rabitq_from_jax_arrays", "ivf_rabitq_from_jax_arrays",
+    "IVF_BINARY_SCALARS", "RABITQ_ARRAYS",
 ]
 
 IVF_ARRAYS = (
@@ -76,6 +86,13 @@ KMKNN_SCALARS = ("n", "dim", "nlist", "seg_size")
 #: state of a VamanaIndex (its npz arrays) and its scalars
 VAMANA_ARRAYS = ("vectors", "sqnorms", "graph", "medoid_arr")
 VAMANA_SCALARS = ("n", "dim", "r_degree")
+
+#: the state of an IVF binary index past the IVF layout (the binariser's
+#: ``bin_proj`` / ``bin_mean`` and the device store's ``store_vectors`` are
+#: optional arrays; ``fast_scan`` and ``store_path`` default to True and "")
+IVF_BINARY_SCALARS = IVF_SCALARS + ("n_bits",)
+#: the arrays of a RaBitQ index (``store_vectors`` optional)
+RABITQ_ARRAYS = IVF_ARRAYS + ("aux_corr", "rotation")
 
 #: device dtypes of the index arrays (``storage`` keeps its own: int8 or
 #: float32, unless the caller casts it); the rest are float32
@@ -479,3 +496,115 @@ def exhaustive_opq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, de
     obj.rotation = _tensor(arrays["rotation"], torch.float32, obj.device)
     obj.opq = OptimisedProductQuantiser(obj.quantiser, obj.rotation)
     return obj
+
+
+def _words(a) -> np.ndarray:
+    """Packed code words as int32 bit patterns (the JAX package's uint32
+    words viewed, or the port's int32 as they are)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    if a.dtype != np.int32:
+        raise ValueError(f"packed codes must be uint32 or int32 words, got {a.dtype}")
+    return a
+
+
+def _binary_extras(obj, arrays, meta, device) -> None:
+    """``fast_scan``, ``store_path`` and the vector store: the device rows
+    where ``store_vectors`` is given, else the mmap store at ``store_path``,
+    else none."""
+    from .models.binary.vec_store import DeviceVectorStore, MmapVectorStore
+
+    obj.fast_scan = bool(meta.get("fast_scan", True))
+    obj.store_path = str(meta.get("store_path") or "")
+    if arrays.get("store_vectors") is not None:
+        obj.store = DeviceVectorStore(_tensor(arrays["store_vectors"], torch.float32, obj.device))
+    elif obj.store_path:
+        obj.store = MmapVectorStore.open(obj.store_path, obj.device)
+    else:
+        obj.store = None
+
+
+def _binariser(arrays, meta, device):
+    from .models.binary.binariser import Binariser
+
+    return Binariser.from_state(meta["n_bits"], meta["bin_mode"], arrays.get("bin_proj"),
+                                arrays.get("bin_mean"), device)
+
+
+def exhaustive_binary_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``ExhaustiveIndexBinary`` from a JAX index's state: ``codes [n, w]``
+    (uint32 words) and, where the mode and store have them, ``bin_proj [dim,
+    n_bits]``, ``bin_mean [dim]`` and ``store_vectors [n, dim]``; ``meta``
+    holds ``n``, ``dim``, ``n_bits``, ``bin_mode`` and
+    optionally ``metric``, ``fast_scan`` and ``store_path``."""
+    from .models.binary.flat import ExhaustiveIndexBinary
+
+    _require("ExhaustiveIndexBinary", arrays, meta, ("codes",),
+             ("n", "dim", "n_bits", "bin_mode"))
+    obj = _flat_shell(ExhaustiveIndexBinary, meta, ("n", "dim", "n_bits"), device)
+    obj.bin_mode = str(meta["bin_mode"])
+    obj.codes = torch.tensor(_words(arrays["codes"]), device=obj.device)
+    obj.binariser = _binariser(arrays, meta, obj.device)
+    _binary_extras(obj, arrays, meta, device)
+    obj._aliases()
+    return obj
+
+
+def _ivf_words_state(cls, arrays, meta, names, scalars, device):
+    arrays = dict(arrays)
+    if arrays.get("storage") is not None:
+        arrays["storage"] = _words(arrays["storage"])
+    obj = _ivf_state(cls, arrays, meta, names, scalars, np.int32, device)
+    _binary_extras(obj, arrays, meta, device)
+    return obj
+
+
+def ivf_binary_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``IvfIndexBinary`` from a JAX index's state: ``arrays`` holds
+    :data:`IVF_ARRAYS` (``storage`` the uint32 code words) and, where
+    present, ``bin_proj``, ``bin_mean`` and ``store_vectors``; ``meta`` the
+    scalars
+    :data:`IVF_BINARY_SCALARS`, ``bin_mode`` and optionally ``metric``,
+    ``fast_scan`` and ``store_path``."""
+    from .models.binary.ivf import IvfIndexBinary
+
+    _require("IvfIndexBinary", arrays, meta, (), ("bin_mode",))
+    obj = _ivf_words_state(IvfIndexBinary, arrays, meta, IVF_ARRAYS, IVF_BINARY_SCALARS,
+                           device)
+    obj.bin_mode = str(meta["bin_mode"])
+    obj.binariser = _binariser(arrays, meta, obj.device)
+    obj._aliases()
+    return obj
+
+
+def _rabitq_state(cls, arrays, meta, device):
+    from .models.binary.rabitq import RaBitQEncoder
+    from .models.binary.vec_store import DeviceVectorStore
+
+    obj = _ivf_words_state(cls, arrays, meta, RABITQ_ARRAYS, IVF_SCALARS, device)
+    obj.encoder = RaBitQEncoder(obj.rotation, obj.dim)
+    obj.store_vectors = (
+        obj.store.vectors if isinstance(obj.store, DeviceVectorStore) else None
+    )
+    return obj
+
+
+def exhaustive_rabitq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``ExhaustiveIndexRaBitQ`` from a JAX index's state: ``arrays`` holds
+    :data:`RABITQ_ARRAYS` (``storage`` the uint32 sign words,
+    ``store_sqnorms`` ``‖x − c‖``, ``aux_corr`` ``‖R·u‖₁``, ``rotation [dim,
+    dim]``) and optionally ``store_vectors``; ``meta`` the scalars
+    :data:`IVF_SCALARS` and optionally ``metric``, ``fast_scan`` and
+    ``store_path``."""
+    from .models.binary.rabitq import ExhaustiveIndexRaBitQ
+
+    return _rabitq_state(ExhaustiveIndexRaBitQ, arrays, meta, device)
+
+
+def ivf_rabitq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device="cuda"):
+    """``IvfIndexRaBitQ`` from a JAX index's state: as
+    :func:`exhaustive_rabitq_from_jax_arrays`."""
+    from .models.binary.rabitq import IvfIndexRaBitQ
+
+    return _rabitq_state(IvfIndexRaBitQ, arrays, meta, device)

@@ -1,8 +1,9 @@
-"""Public API facade (port of ``annsearch_tpu.lib``: the exhaustive, flat
-quantised (bf16, SQ8, PQ, OPQ), IVF, quantised IVF (bf16, SQ8), IVF-PQ,
-IVF-OPQ, NNDescent, HNSW, Vamana, kMkNN, Annoy, ball-tree, kd-tree and LSH
-rows, and the ``*_gpu`` names, which the JAX package keeps as aliases of
-its one accelerated engine).
+"""Public API facade (port of ``annsearch_tpu.lib``, all of its rows, in
+its ``__all__`` order: the exhaustive, flat quantised (bf16, SQ8, PQ,
+OPQ), IVF, quantised IVF (bf16, SQ8), IVF-PQ, IVF-OPQ, binary (flat and
+IVF), RaBitQ (flat and IVF), NNDescent, HNSW, Vamana, kMkNN, Annoy,
+ball-tree, kd-tree and LSH rows, and the ``*_gpu`` names, which the JAX
+package keeps as aliases of its one accelerated engine).
 
 Every row takes the JAX row's parameters in the JAX row's order, ``verbose``
 included (``_query``: batches of 100k queries or more report their
@@ -20,6 +21,12 @@ from typing import Any
 
 import torch
 
+from .models.binary import (
+    ExhaustiveIndexBinary,
+    ExhaustiveIndexRaBitQ,
+    IvfIndexBinary,
+    IvfIndexRaBitQ,
+)
 from .models.exhaustive import ExhaustiveIndex
 from .models.graph import NNDescentIndex
 from .models.hnsw import HnswIndex
@@ -40,6 +47,9 @@ __all__ = [
     "build_exhaustive_index",
     "query_exhaustive_index",
     "query_exhaustive_self",
+    "build_ivf_index",
+    "query_ivf_index",
+    "query_ivf_self",
     "build_exhaustive_bf16_index",
     "query_exhaustive_bf16_index",
     "query_exhaustive_bf16_self",
@@ -52,9 +62,6 @@ __all__ = [
     "build_exhaustive_opq_index",
     "query_exhaustive_opq_index",
     "query_exhaustive_opq_index_self",
-    "build_ivf_index",
-    "query_ivf_index",
-    "query_ivf_self",
     "build_ivf_bf16_index",
     "query_ivf_bf16_index",
     "query_ivf_bf16_self",
@@ -67,6 +74,18 @@ __all__ = [
     "build_ivf_opq_index",
     "query_ivf_opq_index",
     "query_ivf_opq_index_self",
+    "build_exhaustive_index_binary",
+    "query_exhaustive_index_binary",
+    "query_exhaustive_index_binary_self",
+    "build_ivf_index_binary",
+    "query_ivf_index_binary",
+    "query_ivf_index_binary_self",
+    "build_exhaustive_index_rabitq",
+    "query_exhaustive_index_rabitq",
+    "query_exhaustive_index_rabitq_self",
+    "build_ivf_index_rabitq",
+    "query_ivf_index_rabitq",
+    "query_ivf_index_rabitq_self",
     "build_nndescent_index",
     "query_nndescent_index",
     "query_nndescent_self",
@@ -334,6 +353,133 @@ def query_ivf_opq_index(
 
 def query_ivf_opq_index_self(index, k: int, nprobe=None, return_dist=False, verbose=False):
     return _maybe_dist(*index.generate_knn(k, nprobe=nprobe), return_dist)
+
+
+
+# -- binary indexes ---------------------------------------------------------------
+
+
+def build_exhaustive_index_binary(
+    mat: Any, dist_metric: str = "euclidean", n_bits=None,
+    binarisation: str = "simhash", seed: int = 42, store=True,
+    verbose: bool = False, *, device="cuda",
+) -> ExhaustiveIndexBinary:
+    return ExhaustiveIndexBinary(
+        mat, dist_metric, n_bits=n_bits, binarisation=binarisation, seed=seed,
+        store=store, device=device,
+    )
+
+
+def query_exhaustive_index_binary(
+    query_mat, index, k, rerank=None, rerank_factor=20, return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *_query(index, query_mat, verbose, k, rerank=rerank, rerank_factor=rerank_factor),
+        return_dist,
+    )
+
+
+def query_exhaustive_index_binary_self(
+    index, k, rerank=None, rerank_factor=20, return_dist=False, verbose=False
+):
+    return _maybe_dist(
+        *index.generate_knn(k, rerank=rerank, rerank_factor=rerank_factor), return_dist
+    )
+
+
+def build_ivf_index_binary(
+    mat: Any, dist_metric: str = "euclidean", nlist=None, n_bits=None,
+    binarisation: str = "simhash", max_iters=None, seed: int = 42,
+    store=True, verbose: bool = False, *, device="cuda",
+) -> IvfIndexBinary:
+    return IvfIndexBinary(
+        mat, dist_metric, nlist=nlist, n_bits=n_bits, binarisation=binarisation,
+        max_iters=30 if max_iters is None else max_iters, seed=seed, store=store,
+        verbose=verbose, device=device,
+    )
+
+
+def query_ivf_index_binary(
+    query_mat, index, k, nprobe=None, rerank=None, rerank_factor=20,
+    return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *_query(index, query_mat, verbose, k, nprobe=nprobe, rerank=rerank,
+                rerank_factor=rerank_factor),
+        return_dist,
+    )
+
+
+def query_ivf_index_binary_self(
+    index, k, nprobe=None, rerank=None, rerank_factor=20, return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *index.generate_knn(k, nprobe=nprobe, rerank=rerank, rerank_factor=rerank_factor),
+        return_dist,
+    )
+
+
+# -- RaBitQ indexes ---------------------------------------------------------------
+
+
+def build_exhaustive_index_rabitq(
+    mat: Any, dist_metric: str = "euclidean", nlist=None, max_iters=None,
+    seed: int = 42, store=True, verbose: bool = False, *, device="cuda",
+) -> ExhaustiveIndexRaBitQ:
+    return ExhaustiveIndexRaBitQ(
+        mat, dist_metric, nlist=nlist, max_iters=30 if max_iters is None else max_iters,
+        seed=seed, store=store, verbose=verbose, device=device,
+    )
+
+
+def query_exhaustive_index_rabitq(
+    query_mat, index, k, nprobe=None, rerank=None, rerank_factor=10,
+    return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *_query(index, query_mat, verbose, k, nprobe=nprobe, rerank=rerank,
+                rerank_factor=rerank_factor),
+        return_dist,
+    )
+
+
+def query_exhaustive_index_rabitq_self(
+    index, k, nprobe=None, rerank=None, rerank_factor=10, return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *index.generate_knn(k, nprobe=nprobe, rerank=rerank, rerank_factor=rerank_factor),
+        return_dist,
+    )
+
+
+def build_ivf_index_rabitq(
+    mat: Any, dist_metric: str = "euclidean", nlist=None, max_iters=None,
+    seed: int = 42, store=True, verbose: bool = False, *, device="cuda",
+) -> IvfIndexRaBitQ:
+    return IvfIndexRaBitQ(
+        mat, dist_metric, nlist=nlist, max_iters=30 if max_iters is None else max_iters,
+        seed=seed, store=store, verbose=verbose, device=device,
+    )
+
+
+def query_ivf_index_rabitq(
+    query_mat, index, k, nprobe=None, rerank=None, rerank_factor=10,
+    return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *_query(index, query_mat, verbose, k, nprobe=nprobe, rerank=rerank,
+                rerank_factor=rerank_factor),
+        return_dist,
+    )
+
+
+def query_ivf_index_rabitq_self(
+    index, k, nprobe=None, rerank=None, rerank_factor=10, return_dist=False, verbose=False,
+):
+    return _maybe_dist(
+        *index.generate_knn(k, nprobe=nprobe, rerank=rerank, rerank_factor=rerank_factor),
+        return_dist,
+    )
 
 
 # -- graph indexes --------------------------------------------------------------

@@ -205,7 +205,8 @@ class BaseIndex:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         meta = {"cls": type(self).__name__, "metric": self.metric.value}
         for name in self._state_scalars:
-            meta[name] = int(getattr(self, name))
+            v = getattr(self, name)
+            meta[name] = v if isinstance(v, str) else int(v)   # strings: modes, paths
         arrays = self._save_arrays()
         arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
         np.savez(path, **arrays)

@@ -235,6 +235,11 @@ class IvfBase(BaseIndex):
         """The segment centroids in the scan's scoring space."""
         return self.seg_centroids
 
+    def _aux(self) -> torch.Tensor | None:
+        """A per-row array the cluster scan reads beside the storage
+        (RaBitQ: ``‖R·u‖₁``), or None."""
+        return None
+
     def _segment_rows(self) -> tuple[np.ndarray, np.ndarray]:
         """``(rows, seg)``: every stored row's sorted position and its
         segment, segment by segment."""
@@ -397,10 +402,16 @@ class IvfBase(BaseIndex):
             )
         return ids, d
 
-    def _scan(self, q: torch.Tensor, k: int, nprobe: int, approx: bool,
-              q_split: bool | None = None, fold_depth: int = 2):
+    def _scan(self, q: torch.Tensor, k: int, nprobe: int, approx: bool = False,
+              q_split: bool | None = None, fold_depth: int = 2, mode: str | None = None,
+              q_eff: torch.Tensor | None = None):
         """Route → task lists → scan. Returns (dists [nq, k],
-        sorted-storage positions [nq, k])."""
+        sorted-storage positions [nq, k]). ``mode`` scans the storage in
+        another mode than the index's (the binary index's ``binary_asym``
+        tier) and ``q_eff`` gives the scoring-space queries; either sends
+        the batch to the cluster scan, as in the JAX package."""
+        if mode is not None or q_eff is not None:
+            return self._scan_cluster(q, k, nprobe, mode, q_eff)
         fused = fused_eligible(self.mode, self.seg_size, int(self.storage.shape[1]), k)
         if approx and fused:
             # q_split None is one bf16 query pass: the int8 codes' own
@@ -415,13 +426,18 @@ class IvfBase(BaseIndex):
         cells, sn = self._fused_blocks()
         return cells, sn, self.seg_offsets, self.seg_counts, self._scan_seg_centroids()
 
+    def _segment_probes(self, nprobe: int) -> int:
+        """``nprobe`` scaled to segments, so that the probed share of the
+        database matches cell semantics."""
+        nseg = int(self.seg_offsets.shape[0])
+        return min(nseg, max(nprobe, -(-nprobe * nseg) // max(self.nlist, 1)))
+
     def _scan_approx(self, q, k, nprobe, q_split, fold_depth=2):
         # route straight to segments: a split cell's segments are duplicate
-        # routing rows, probed together; nprobe scales to segments so the
-        # probed fraction of the database matches cell semantics
+        # routing rows, probed together
         nq = q.shape[0]
         nseg = int(self.seg_offsets.shape[0])
-        nprobe_seg = min(nseg, max(nprobe, -(-nprobe * nseg) // max(self.nlist, 1)))
+        nprobe_seg = self._segment_probes(nprobe)
         maxq, R = device_probe_shapes(nq, nprobe_seg, nseg, 1)
         kb = max(8, 1 << (max(k, 1) - 1).bit_length())
         probes = route_to_cells(q, self.seg_centroids, nprobe_seg, self.metric)
@@ -432,12 +448,13 @@ class IvfBase(BaseIndex):
             fold_depth=fold_depth,
         )
 
-    def _scan_cluster(self, q, k, nprobe):
+    def _scan_cluster(self, q, k, nprobe, mode=None, q_eff=None):
         """Route to clusters, expand to (query, segment) tasks and run the
-        cluster scan. With no split cell the expansion is the identity and
-        the lists are built on the device; split cells would cost the dense
-        expansion its sentinel slots as real scan rows, so their lists are
-        built on the host from the real pairs."""
+        cluster scan (in ``mode``, default the index's, over ``q_eff``,
+        default ``_encode_queries(q)``). With no split cell the expansion
+        is the identity and the lists are built on the device; split cells
+        would cost the dense expansion its sentinel slots as real scan rows,
+        so their lists are built on the host from the real pairs."""
         nq = q.shape[0]
         nseg = int(self.seg_offsets.shape[0])
         probes = route_to_cells(q, self.centroids, nprobe, self.metric)
@@ -454,9 +471,11 @@ class IvfBase(BaseIndex):
                 for a in build_probe_lists_from_pairs(qs, segs, nseg, nq)
             )
         return ivf_cluster_scan(
-            self._encode_queries(q), *lists, self.storage, self.store_sqnorms,
-            self.seg_offsets, self.seg_counts, self._scan_seg_centroids(), k,
-            self.metric, self.seg_size, self.mode, codebooks=self._codebooks(),
+            self._encode_queries(q) if q_eff is None else q_eff, *lists, self.storage,
+            self.store_sqnorms, self.seg_offsets, self.seg_counts,
+            self._scan_seg_centroids(), k, self.metric, self.seg_size,
+            self.mode if mode is None else mode, codebooks=self._codebooks(),
+            aux=self._aux(),
         )
 
     def _scan_exact(self, q, k, nprobe):

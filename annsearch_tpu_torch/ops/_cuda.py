@@ -41,6 +41,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "annsearch_ivf_scan_k1a": [_P] * 10 + [_I] * 7 + [_P],
     "annsearch_ivf_scan_k1b_l2": [_P] * 10 + [_I] * 7 + [_P],
+    "annsearch_ivf_scan_k1a_bf16": [_P] * 10 + [_I] * 7 + [_P],
     "annsearch_ivf_scan_k1b_cos": [_P] * 10 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_i8dec": [_P] * 9 + [_I] * 9 + [_P],
     "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + [_P],

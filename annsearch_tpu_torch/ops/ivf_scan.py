@@ -28,8 +28,17 @@ Choices of the port, where the JAX package's depend on its hardware:
   result depends on that row alone, so the answer does not depend on the
   batch.
 
-The binary modes (``hamming``, ``binary_asym``, ``rabitq``) come with the
-binary index family.
+The binary modes score packed codes (int32 words, ``ops.binary``)
+unpacked to ±1 per step: ``hamming`` (±1 query codes: ``(nbits − dot)/2``,
+exact), ``binary_asym`` (``−dot`` of the bf16-rounded projected query) and
+``rabitq`` (the RaBitQ estimator of the rotated, zero-padded query against
+the segment's rotated centroid, ``aux`` the rows' ``‖R·u‖₁``). Their
+products take the JAX package's DEFAULT precision, one bf16 operand pass
+with f32 sums, here as f32 products of the bf16-rounded values (exact).
+Hamming distances are small integers that tie at nearly every rank, so
+the binary modes select each cell's top-k tie-exactly (``topk_smallest``,
+``lax.top_k``'s order) and return the JAX package's ids; the other modes
+keep ``torch.topk``.
 """
 
 from __future__ import annotations
@@ -38,8 +47,10 @@ import numpy as np
 import torch
 
 from ..utils.dist import Dist, fp32_matmul, sq_norms
+from .binary import unpack_pm1
 from .ivf_scan_fused import regroup_topk
 from .quantised import pq_decode_tile
+from .topk import topk_smallest
 
 __all__ = ["ivf_cluster_scan", "build_probe_lists_from_pairs"]
 
@@ -149,6 +160,7 @@ def ivf_cluster_scan(
     codebooks: torch.Tensor | None = None,  # [m, 256, ds] (pq modes) or [d] scales (i8dec modes)
     step_bytes: int = _STEP_BYTES,
     k_cell: int | None = None,
+    aux: torch.Tensor | None = None,        # [n_pad] rabitq: the rows' ‖R·u‖₁
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan the task rows; ``(best_d, best_i) [nq, k]`` ascending, ``best_i``
     positions in the sorted storage, padded with (+inf, 0) where a query has
@@ -156,27 +168,37 @@ def ivf_cluster_scan(
     ``cap`` trailing pad rows. Each (query, task) pair keeps its exact top
     ``min(k_cell, cap)``: ``k_cell`` defaults to ``k``; LSH keeps its
     caller's k per cell under a wider final k, since a row appears at most
-    once per cell."""
-    if mode in _BINARY_MODES:
-        raise NotImplementedError(
-            f"cluster scan mode {mode!r} comes with the binary index family "
-            "(ROADMAP P3)"
-        )
-    if mode not in _MODES:
+    once per cell. The binary modes take ``storage`` as int32 words
+    (``hamming``: ``queries`` too; ``binary_asym`` / ``rabitq``: f32
+    queries of ``w·32`` columns), ``sqnorms`` ``‖x − c‖`` for ``rabitq``."""
+    if mode not in _MODES + _BINARY_MODES:
         raise ValueError(f"unknown cluster scan mode {mode!r}")
+    if mode in _BINARY_MODES and (storage.dtype != torch.int32
+                                  or (mode == "hamming" and queries.dtype != torch.int32)):
+        raise ValueError(f"cluster scan mode {mode!r} takes int32 words (the bit patterns "
+                         "of uint32 codes)")
+    if mode == "rabitq" and aux is None:
+        raise ValueError("cluster scan mode 'rabitq' takes aux, the rows' ‖R·u‖₁")
     nq, dq = queries.shape
     nlist = offsets.shape[0]
     dev = queries.device
     kc = min(k_cell if k_cell is not None else k, cap)
     ncl, maxq = probe_lists.shape
-    residual = mode.endswith("_residual")
+    residual = mode.endswith("_residual") or mode == "rabitq"
     cosine = metric == Dist.COSINE
+    binary = mode in _BINARY_MODES
+    nbits = storage.shape[1] * 32 if binary else 0
 
-    qf = queries.float()
+    # hamming queries are words: kept as they are (a float cast would lose
+    # their bits); the sentinel row's zero words are a query of all −1
+    qf = queries if mode == "hamming" else queries.float()
     # sq8: integer dots and norms, exact in f32 while they stay below 2²⁴
     # (d ≤ 1023 at |code| ≤ 128), in f64 above
     acc = torch.float64 if mode == "sq8" and dq * (1 << 14) >= (1 << 24) else torch.float32
-    q_sq = (qf.double() ** 2).sum(dim=-1).float() if mode == "sq8" else sq_norms(qf)
+    if binary:
+        q_sq = qf.new_zeros(nq, dtype=torch.float32)
+    else:
+        q_sq = (qf.double() ** 2).sum(dim=-1).float() if mode == "sq8" else sq_norms(qf)
     queries_x = torch.cat([qf, qf.new_zeros((1, dq))])
     q_sq = torch.cat([q_sq, q_sq.new_zeros(1)])
     offsets_x = torch.cat([offsets.long(), torch.zeros(1, dtype=torch.long, device=dev)])
@@ -189,7 +211,7 @@ def ivf_cluster_scan(
 
     flat_d = torch.empty((ncl * maxq, kc), device=dev)
     flat_i = torch.empty((ncl * maxq, kc), dtype=torch.long, device=dev)
-    S = _step_rows(step_bytes, maxq, cap, max(dq, storage.shape[1]))
+    S = _step_rows(step_bytes, maxq, cap, max(dq, storage.shape[1], nbits))
     for r0 in range(0, ncl, S):
         c = cid[r0 : r0 + S]                          # [s]
         q_ids = qid[r0 : r0 + S]                      # [s, maxq]
@@ -220,6 +242,30 @@ def ivf_cluster_scan(
                 d = torch.clamp(
                     q_sq[q_ids][:, :, None] + sn[:, None, :] - 2.0 * _dots(qg, dec), min=0.0
                 )
+        elif binary:
+            # pad bits are 0 on both sides: over w·32 lanes the ±1 identity
+            # is the exact Hamming distance, and a projected query's zero
+            # pad columns add nothing
+            x_pm = unpack_pm1(cells.reshape(-1, cells.shape[-1]), nbits, torch.float32)
+            x_pm = x_pm.reshape(cells.shape[0], cap, nbits)
+            if mode == "hamming":
+                q_pm = unpack_pm1(qg.reshape(-1, dq), nbits, torch.float32)
+                d = (nbits - _dots(q_pm.reshape(qg.shape[0], maxq, nbits), x_pm)) * 0.5
+            elif mode == "binary_asym":
+                d = -_dots(qg.to(torch.bfloat16).float(), x_pm)
+            else:  # rabitq: the unbiased estimator (its reference's, non-squared)
+                rqr = qg - centroids_x[c][:, None, :]
+                q_dist = torch.sqrt((rqr * rqr).sum(dim=-1))                  # [s, maxq]
+                qru = rqr / torch.clamp(q_dist, min=1e-12)[:, :, None]
+                inner = _dots(qru.to(torch.bfloat16).float(), x_pm)
+                corr = aux[rows][:, None, :]                                  # [s, 1, cap]
+                est = torch.where(
+                    corr > 1e-6,
+                    torch.clamp(inner / torch.clamp(corr, min=1e-12), -1.0, 1.0),
+                    0.0,
+                )
+                snr, qd = sn[:, None, :], q_dist[:, :, None]
+                d = torch.sqrt(torch.clamp(snr ** 2 + qd ** 2 - 2.0 * snr * qd * est, min=0.0))
         elif mode == "sq8":
             dots = _dots(qg.to(acc), cells.to(acc)).float()
             if cosine:
@@ -236,10 +282,13 @@ def ivf_cluster_scan(
                 d = torch.clamp(q_sq[q_ids][:, :, None] + sn[:, None, :] - 2.0 * dots, min=0.0)
 
         d = torch.where(lane[None, None, :] < counts_x[c][:, None, None], d, float("inf"))
-        top = torch.topk(d.reshape(-1, cap), kc, dim=-1, largest=False, sorted=True)
-        out = slice(r0 * maxq, r0 * maxq + top.values.shape[0])
-        flat_d[out] = top.values
-        flat_i[out] = starts.repeat_interleave(maxq)[:, None] + top.indices
+        if binary:
+            vals, idx = topk_smallest(d.reshape(-1, cap), kc)
+        else:
+            vals, idx = torch.topk(d.reshape(-1, cap), kc, dim=-1, largest=False, sorted=True)
+        out = slice(r0 * maxq, r0 * maxq + vals.shape[0])
+        flat_d[out] = vals
+        flat_i[out] = starts.repeat_interleave(maxq)[:, None] + idx
 
     return regroup_topk(flat_d, flat_i, gather_map, k)
 

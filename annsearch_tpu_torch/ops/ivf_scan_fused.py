@@ -34,6 +34,12 @@ version here:
   stride class, 128 in all) or 2 (the default, 256), the Pallas
   ``fold_depth``. The IVF indexes pass it as a keyword where the JAX
   package reads ``ANNSEARCH_IVF_FOLD1``;
+* K1a-bf16, ``ivf_cell_scan_bf16_residual``: K1a's residual prologue and
+  ``l2`` epilogue over bf16 cells, two bf16 query terms (``q_split``; one
+  term over bf16 cells is refused, as no index asks for it), the fold at either depth or the exact selection — RaBitQ's fused
+  estimator, whose cells are ±1 sign rows scaled by ``‖x−c‖ / ‖R·u‖₁`` in
+  bf16 (the Pallas body casts any cell type to bf16; the int8 launchers
+  take int8 cells only);
 * K1-exact-i8, ``ivf_cell_scan_i8_exact``: the int8-decode prologues with
   the exact selection (``selection="exact"`` over ``i8dec`` /
   ``i8dec_residual`` cells). No index routes to it, as in the JAX
@@ -91,6 +97,7 @@ __all__ = [
     "ivf_cell_scan_cos",
     "ivf_cell_scan_i8dec",
     "ivf_cell_scan_i8_exact",
+    "ivf_cell_scan_bf16_residual",
     "ivf_cell_scan_plain",
     "ivf_cell_scan_f32_exact",
     "ivf_cell_scan_f32_fold",
@@ -254,7 +261,10 @@ def ivf_cell_scan_plain(
     rows to bound memory: K1a as it stands, K1b-l2 with ``q_split``,
     K1b-cos with ``cosine`` (``cos_renorm``), K1d-i8dec with ``cent_x``
     None; the fold at ``fold_depth``, or with ``exact`` K1-exact-i8's exact
-    selection. Arguments and result as :func:`ivf_cell_scan`."""
+    selection; with bf16 ``cells``, K1a-bf16 (a bf16 term × a bf16 cell is
+    exact in f32 too; the two terms' sum times a bf16 cell rounds once,
+    2⁻²⁴ of the product, where the kernel takes two exact products).
+    Arguments and result as :func:`ivf_cell_scan`."""
     R, maxq = lists.shape
     seg, dp = cells.shape[1], cells.shape[2]
     out_d = torch.empty((R, maxq, kb), device=lists.device)
@@ -265,8 +275,9 @@ def ivf_cell_scan_plain(
         s = task_seg[rs].long()
         qadd, qk = _query_terms(lists[rs], task_seg[rs], queries_x, cent_x, scales,
                                 dp, cosine, q_split)
-        # bf16 query term × int8 cells: every product is exact in f32, and
-        # the sums are f32 (fp32 batched matmul with TF32 off)
+        # bf16 query terms × int8 (or bf16) cells: exact products in f32 (but
+        # the two-term sum times a bf16 cell, rounded once), f32 sums (fp32
+        # batched matmul with TF32 off)
         with fp32_matmul():
             dots = torch.bmm(qk, cells[s].float().transpose(1, 2))
         if cosine:  # cos_renorm: IEEE square root and quotient, as the kernel
@@ -404,14 +415,15 @@ def _sel(fold_depth: int) -> int:
 
 
 def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
-                  cells, sn, kb, flags=()):
+                  cells, sn, kb, flags=(), cell_dtype=torch.int8):
     """Validate and launch one int8-decode variant (``cent_x`` None: the
-    entry takes no centroids); ``flags`` are its trailing int arguments."""
+    entry takes no centroids); ``flags`` are its trailing int arguments,
+    ``cell_dtype`` the type its entry takes (bf16 for K1a-bf16)."""
     from ._cuda import load_library
 
     specs = [("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
              ("cnt", cnt, torch.int32, 1), ("queries_x", queries_x, torch.float32, 2),
-             ("scales", scales, torch.float32, 1), ("cells", cells, torch.int8, 3),
+             ("scales", scales, torch.float32, 1), ("cells", cells, cell_dtype, 3),
              ("sn", sn, torch.float32, 2)]
     if cent_x is not None:
         specs.append(("cent_x", cent_x, torch.float32, 2))
@@ -567,6 +579,32 @@ def ivf_cell_scan_i8_exact(
 ivf_cell_scan_i8_exact.launches = 0
 
 
+def ivf_cell_scan_bf16_residual(
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+    fold_depth: int = 2, exact: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1a-bf16: K1a's prologue (``qr = q − c``, ``qadd = ‖qr‖²``, ``qk =
+    qr·scales`` as two bf16 terms, K1b-l2's ``q_split``) and ``l2``
+    epilogue over bf16 ``cells [nseg+1, seg, dp]``; the fold at
+    ``fold_depth``, or with ``exact`` the exact selection. RaBitQ's
+    estimator takes it with unit scales over its scaled ±1 rows. Other
+    arguments and the result as :func:`ivf_cell_scan`."""
+    if not lists.is_cuda:
+        return ivf_cell_scan_plain(
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+            q_split=True, fold_depth=fold_depth, exact=exact,
+        )
+    out = _launch_i8dec("ivf_cell_scan_bf16_residual", "annsearch_ivf_scan_k1a_bf16", lists,
+                        task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+                        (0 if exact else _sel(fold_depth),),
+                        cell_dtype=torch.bfloat16)
+    ivf_cell_scan_bf16_residual.launches += 1
+    return out
+
+
+ivf_cell_scan_bf16_residual.launches = 0
+
+
 def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
                   cells, sn, kb, cosine, sel):
     from ._cuda import load_library
@@ -684,7 +722,7 @@ def fused_ivf_scan(
     cluster_ids: torch.Tensor,   # [R] segment ids (pad = nseg)
     probe_lists: torch.Tensor,   # [R, maxq] query ids (pad = nq)
     gather_map: torch.Tensor,    # [nq, T] flat scan lanes (pad = -1)
-    cells: torch.Tensor,         # [nseg+1, seg, dp] int8 or f32
+    cells: torch.Tensor,         # [nseg+1, seg, dp] int8, bf16 or f32
     sn: torch.Tensor,            # [nseg+1, seg] f32
     seg_offsets: torch.Tensor,   # [nseg] (maps lanes back to sorted rows)
     seg_counts: torch.Tensor,    # [nseg]
@@ -703,7 +741,9 @@ def fused_ivf_scan(
     ``[nq, k]`` ascending, ``best_i`` positions in the sorted storage.
     ``queries`` are the scoring-space queries: for mode ``sq8`` the int8
     query codes. ``q_split`` defaults to one bf16 query pass, what
-    ``IvfBase`` resolves its ``None`` to for the int8-decode modes.
+    ``IvfBase`` resolves its ``None`` to for the int8-decode modes. Mode
+    ``i8dec_residual`` over bf16 cells is K1a-bf16 (``l2`` and
+    ``q_split=True`` only).
     ``groups > 1`` is the forests' per-tree merge (see
     :func:`regroup_topk`): the result is then ``[nq, groups·k]``,
     group-major."""
@@ -741,7 +781,16 @@ def fused_ivf_scan(
     else:
         sc = scales.float().contiguous()
         cent_x = None if mode == "i8dec" else torch.cat([seg_centroids.float(), zero_row])
-        if exact:
+        if cells.dtype == torch.bfloat16:
+            if mode != "i8dec_residual" or cosine or not q_split:
+                raise ValueError(
+                    f"bf16 cells under mode {mode!r}, {metric}, q_split={q_split}: the "
+                    "bf16-cell residual scan (K1a-bf16) takes mode 'i8dec_residual' with "
+                    "the l2 epilogue and two query terms"
+                )
+            cd, ci = ivf_cell_scan_bf16_residual(*task, cent_x, sc, cells, sn, kb,
+                                                 fold_depth=fold_depth, exact=exact)
+        elif exact:
             cd, ci = ivf_cell_scan_i8_exact(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
                                             q_split=q_split)
         elif mode == "i8dec":

@@ -1,15 +1,16 @@
-"""Exact reranking of gathered candidates (port of the part of
-``annsearch_tpu.ops.rerank`` that the tree and LSH indexes take).
+"""Exact reranking of gathered candidates (port of
+``annsearch_tpu.ops.rerank``).
 
 A cheap stage proposes candidates (the leaves of a forest, the leaves of
-a ball tree, random rows for LSH's empty-bucket fallback), their f32 rows
-are gathered, and one batched FP32 product (TF32 off: the JAX package's
-HIGHEST) scores them exactly before a deduplicated top-k.
+a ball tree, random rows for LSH's empty-bucket fallback, the Hamming or
+RaBitQ scan of a binary index), their f32 rows are gathered, and one
+batched FP32 product (TF32 off: the JAX package's HIGHEST) scores them
+exactly before a deduplicated top-k. ``rerank_from_store`` gathers from a
+device-resident tensor or a store object (``models.binary.vec_store``) in
+query blocks.
 
 Not ported: ``rerank_exact_split`` (bf16 hi/lo tables that cheapen the
-TPU's gathers; off the TPU the JAX package takes ``rerank_exact`` too) and
-``rerank_from_store``, which comes with the binary index family (ROADMAP
-P3).
+TPU's gathers; off the TPU the JAX package takes ``rerank_exact`` too).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from ..utils.dist import Dist, fp32_matmul, sq_norms
 
-__all__ = ["rerank_exact"]
+__all__ = ["rerank_exact", "rerank_from_store"]
 
 
 def _dedup_select(
@@ -61,3 +62,32 @@ def rerank_exact(
         d = torch.clamp(sq_norms(q)[:, None] + sq_norms(cand_vecs) - 2.0 * dots, min=0.0)
     d = torch.where(valid, d, float("inf"))
     return _dedup_select(cand_ids.long(), d, k)
+
+
+def rerank_from_store(
+    q: torch.Tensor,        # [nq, d] (normalised if cosine)
+    cand_d: torch.Tensor,   # [nq, kc] scan distances (inf = invalid slot)
+    cand_i: torch.Tensor,   # [nq, kc] row positions into ``store``
+    store,                  # [n, d] f32 device-resident rows, or a store with .gather / .n
+    k: int,
+    metric: Dist,
+    qb: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact rerank from a store: per block of ``qb`` queries, gather the
+    candidates' rows (ids clamped into the store; a store object's
+    ``gather`` returns them on the queries' device) and
+    :func:`rerank_exact` them, the slots whose scan distance is not finite
+    masked. Returns ``(dists [nq, k'], ids [nq, k'])``, ``k' = min(k,
+    kc)``, ids the clamped positions."""
+    if torch.is_tensor(store):
+        n, gather = store.shape[0], store.__getitem__
+    else:
+        n, gather = store.n, store.gather
+    ds, is_ = [], []
+    for s in range(0, q.shape[0], qb):
+        ii = torch.clamp(cand_i[s : s + qb].long(), 0, n - 1)
+        d, i = rerank_exact(q[s : s + qb], gather(ii), ii,
+                            torch.isfinite(cand_d[s : s + qb]), k, metric)
+        ds.append(d)
+        is_.append(i)
+    return torch.cat(ds), torch.cat(is_)

@@ -95,6 +95,22 @@ distances against an int64 numpy computation over the same codes
 the scan's own tiles and the batch with the keyed route off. Each of
 phases 15–17 prints its seconds.
 
+Phase 18 runs the binary family on phase 3's data, 10,000 of its queries
+at k 10 (``benchmarks/bench_rabitq_1m.py``'s configuration): IvfIndexRaBitQ
+(nlist 1024) at nprobe:rerank_factor 64:10, 64:20 and 128:20 with the exact
+rerank, its estimator alone at nprobe 64 and one cosine point (kernel
+K1a-bf16: its launches counted over one batch, its last launch held against
+its plain version); the same index over an mmap store in a temporary
+directory (the native gather asserted; ids and distances equal to the
+device store's on 2,000 queries); ExhaustiveIndexRaBitQ (500 cells, probe
+100) at rerank factor 10; IvfIndexBinary (SimHash, 256 bits, nlist 1024,
+nprobe 64): the Hamming tier through K1d-bf16 on ±1 cells (its distances
+equal int64 numpy popcounts on 100 queries, the kernel bit for bit with
+its plain version), the exact rerank at factor 20 and the asymmetric tier
+through the cluster scan, and one cosine point; ExhaustiveIndexBinary's
+Hamming tier and exact rerank. Recall@10 on the first 2,000 queries
+against phase 3's exact scan, each above its floor.
+
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
 on its path, its error against the plain version, both times and its
@@ -105,6 +121,7 @@ refuses to run without one.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -184,6 +201,30 @@ HNSW_RECALL_MIN, VAMANA_RECALL_MIN = 0.98, 0.97
 FQ_NQ = 10_000
 #: recall@10 floors of phase 17 (against the exact f32 scan)
 FLAT_RECALL_MIN = {("bf16", "euclidean"): 0.95, ("sq8", "euclidean"): 0.80}
+
+# phase 18: the binary family on phase 3's data (benchmarks/bench_rabitq_1m.py's
+# configuration: nlist 1024, k 10, rerank "exact"), its first 10,000 queries
+B_NQ, B_NLIST, B_NBITS, B_NPROBE = 10_000, 1024, 256, 64
+RABITQ_POINTS = ((64, 10), (64, 20), (128, 20))    # (nprobe, rerank_factor)
+#: recall@10 floors of phase 18 against the exact scan of the first 2,000
+#: queries (cosine: 1,000), each a little under the card's first reading
+#: (NVIDIA H100 80GB HBM3, 700 W), in the comment beside it. A 1-bit code
+#: ranks the 10k rows of one of these Gaussian clusters poorly: recall rises
+#: with the rerank factor, not with nprobe past 64
+B_RECALL_MIN = {
+    ("rabitq", 64, 10): 0.78,            # 0.8023
+    ("rabitq", 64, 20): 0.88,            # 0.9056
+    ("rabitq", 128, 20): 0.88,           # 0.9056
+    ("rabitq", "estimator"): 0.32,       # 0.3474
+    ("rabitq", "cosine"): 0.76,          # 0.7837
+    ("flat-rabitq", "exact"): 0.77,      # 0.7994
+    ("binary", "hamming"): 0.11,         # 0.1323
+    ("binary", "exact"): 0.31,           # 0.3339
+    ("binary", "asymmetric"): 0.13,      # 0.1530
+    ("binary", "cosine"): 0.32,          # 0.3434
+    ("flat-binary", "hamming"): 0.11,    # 0.1305
+    ("flat-binary", "exact"): 0.30,      # 0.3281
+}
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): device memory, bf16 and int8
 #: on the tensor cores
@@ -539,8 +580,9 @@ def _bound(args, kb, cell_bytes, peak, seg_bytes=0) -> tuple[float, str, float]:
     query slots × valid rows × d multiply-adds) over ``peak``, and the
     bytes (each input read once: task lists, queries, the valid rows of
     each scanned segment with their norms, ``seg_bytes`` more per scanned
-    segment; the outputs written once) over the memory rate. Returns (ms,
-    what bounds it, multiply-adds)."""
+    segment; the outputs of the real query slots written once, those of
+    the pad slots being read by no gather map) over the memory rate.
+    Returns (ms, what bounds it, multiply-adds)."""
     lists, task_seg, cnt, queries_x = args[:4]
     nq, d = queries_x.shape[0] - 1, queries_x.shape[1]
     real = (lists < nq).sum(dim=1).double()
@@ -552,7 +594,7 @@ def _bound(args, kb, cell_bytes, peak, seg_bytes=0) -> tuple[float, str, float]:
     nbytes = (lists.numel() * 4 + task_seg.numel() * 8 + queries_x.numel() * 4
               + float(seg_rows.sum()) * (d * cell_bytes + 4)
               + int((seg_rows > 0).sum()) * seg_bytes
-              + lists.numel() * kb * 8)
+              + float(real.sum()) * kb * 8)
     t_ops, t_bytes = 2 * macs / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     print(f"  bound: {macs:.4e} multiply-adds of this run's data → {t_ops:.4f} ms at "
           f"{peak / 1e12:.0f} TFLOP/s; {nbytes / 1e9:.4f} GB → {t_bytes:.4f} ms",
@@ -586,7 +628,9 @@ def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exa
     cells = next(t for t in a[4:] if torch.is_tensor(t) and t.ndim == 3)
     cosine = bool(kw.get("cosine") if cosine is None else cosine)
     truth = None
-    if cells.dtype in (torch.float32, torch.bfloat16):
+    # the f64 truth of the dense-cell calls (cells follow the queries;
+    # K1a-bf16's residual prologue is held to its plain version alone)
+    if cells is a[4] and cells.dtype in (torch.float32, torch.bfloat16):
         truth = _k1_truth(a, not cosine, bf16_query=wrapper.__name__ == "ivf_scan_bf16_fold")
     err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, cosine),
                  exact=exact, truth=truth)
@@ -1254,7 +1298,8 @@ def phase_quantised_cosine(dev, x, q) -> None:
 
 
 FUSED_WRAPPERS = ("ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos",
-                  "ivf_cell_scan_i8dec", "ivf_cell_scan_i8_exact") + tuple(
+                  "ivf_cell_scan_i8dec", "ivf_cell_scan_i8_exact",
+                  "ivf_cell_scan_bf16_residual") + tuple(
     f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold"))
 
 
@@ -2643,6 +2688,218 @@ def _sq8_int64_check(name, index, q, ids, d, metric, rows=256, scan_rows=64) -> 
         raise AssertionError(f"{name}: not the integer-space distances")
 
 
+# -- phase 18: the binary family -----------------------------------------------
+
+
+def _popcounts(index, q, ids) -> np.ndarray:
+    """int64 Hamming distances of ``q``'s codes to the codes of the rows
+    ``ids`` (original ids) of an IVF binary index, by numpy popcounts."""
+    inv = torch.empty_like(index.original_ids)
+    inv[index.original_ids] = torch.arange(index.n, device=inv.device)
+    qc = index.binariser.encode(index._prep_queries(q)).cpu().numpy().view(np.uint32)
+    xc = index.storage[inv[ids]].cpu().numpy().view(np.uint32)
+    return np.unpackbits(np.bitwise_xor(qc[:, None, :], xc).view(np.uint8),
+                         axis=-1).sum(-1).astype(np.int64)
+
+
+def _exact_distances_check(name, x, q, ids, d) -> None:
+    """An exact rerank's distances against an f32 recomputation from the
+    rows, within the f32 rounding of ``‖q‖² + ‖x‖² − 2q·x``."""
+    xs = x[ids[:256]]
+    ref = ((q[:256, None, :] - xs) ** 2).sum(-1)
+    tol = 1e-5 * ((q[:256] ** 2).sum(-1)[:, None] + (xs ** 2).sum(-1)) + 1e-5
+    worst = ((d[:256] - ref).abs() / tol).max().item()
+    print(f"  {name}: exact distances vs an f32 recomputation, worst |err|/tol {worst:.3f}",
+          flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"{name}: the reranked distances are not exact")
+
+
+def _one_run(wrapper, fn):
+    """``fn()`` once with ``wrapper``'s launches counted from 0 (the count
+    read right after): (result, launches), every other fused wrapper
+    checked silent."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    for n in FUSED_WRAPPERS:
+        getattr(tsf, n).launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {n: getattr(tsf, n).launches for n in FUSED_WRAPPERS}
+    _expect_launches(f"one run of {wrapper}", {n: c for n, c in counts.items() if c}, wrapper)
+    return out, counts.get(wrapper, 0)
+
+
+def _b_floor(key, rec) -> None:
+    floor = B_RECALL_MIN[key]
+    if rec < floor:
+        raise AssertionError(f"phase 18 {key}: recall@10 {rec:.4f} < {floor}")
+
+
+def phase_binary(dev, x, q, ti) -> list[dict]:
+    """Phase 18: IvfIndexRaBitQ (K1a-bf16), ExhaustiveIndexRaBitQ,
+    IvfIndexBinary (K1d-bf16 on ±1 cells), ExhaustiveIndexBinary and the
+    mmap store on phase 3's 1M × 128d data, 10,000 of its queries at k 10;
+    recall@10 on the first 2,000 against ``ti``. Every exact rerank passes
+    ``exact_fallback=False``: 10,000 queries over 1M × 128d lie under the
+    small-regime budget, whose one exact scan would answer instead."""
+    import tempfile
+
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    t_phase = time.time()
+    q = q[:B_NQ]
+    n = x.shape[0]
+    qc = q[:COS_NQ_GT]
+    ti_cos, _ = at.build_exhaustive_index(x, "cosine", device=dev).query(qc, K)
+    entries = []
+
+    # IvfIndexRaBitQ: the fused estimator (K1a-bf16), then the exact rerank
+    build_s, rq = _timed(lambda: at.build_ivf_index_rabitq(x, nlist=B_NLIST, seed=SEED,
+                                                           device=dev))
+    print(f"  IvfIndexRaBitQ: build {build_s:.2f} s, index {rq.memory_usage_bytes():,} bytes "
+          f"({rq.memory_usage_bytes() - rq.store.memory_usage_bytes():,} without the store), "
+          f"nseg {rq.seg_offsets.shape[0]}, seg {rq.seg_size}, fused {rq._fused_est_ok(200)}",
+          flush=True)
+    for npb, rf in RABITQ_POINTS:
+        run = lambda: rq.query(q, K, nprobe=npb, rerank="exact", rerank_factor=rf,  # noqa: E731
+                                exact_fallback=False)
+        with _Capture("ivf_cell_scan_bf16_residual") as cap:
+            (ids, d), launches = _one_run("ivf_cell_scan_bf16_residual", run)
+        ms, _ = _wall_ms(run)
+        _check_ids(f"rabitq np{npb} rf{rf}", ids, d, B_NQ, K, n)
+        _exact_distances_check(f"rabitq np{npb} rf{rf}", x, q, ids, d)
+        rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+        print(f"  IvfIndexRaBitQ nprobe {npb} rf {rf} (exact rerank): {ms:.1f} ms a batch of "
+              f"{B_NQ} (median of 3) = {B_NQ / ms * 1e3:.0f} QPS, recall@10 {rec:.4f}, "
+              f"K1a-bf16 launches {launches}", flush=True)
+        _b_floor(("rabitq", npb, rf), rec)
+        if (npb, rf) == RABITQ_POINTS[0]:
+            # the estimator's cells are bf16 (2 B a column), two bf16 query
+            # terms; each scanned segment's rotated centroid is read too
+            entry = _kernel_entry("ivf_scan_k1a_bf16 (rabitq)", tsf.ivf_cell_scan_bf16_residual,
+                                  functools.partial(tsf.ivf_cell_scan_plain, q_split=True),
+                                  cap.args["ivf_cell_scan_bf16_residual"],
+                                  2, BF16_FLOP_S / 2, rq.encoder.n_words * 32 * 4)
+            entry["launches"] = launches
+            entries.append(entry)
+    run = lambda: rq.query(q, K, nprobe=B_NPROBE)  # noqa: E731
+    (ids, d), launches = _one_run("ivf_cell_scan_bf16_residual", run)
+    ms, _ = _wall_ms(run)
+    _check_ids("rabitq estimator", ids, d, B_NQ, K, n)
+    rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+    print(f"  IvfIndexRaBitQ nprobe {B_NPROBE}, the estimator alone: {ms:.1f} ms, recall@10 "
+          f"{rec:.4f}, K1a-bf16 launches {launches}", flush=True)
+    _b_floor(("rabitq", "estimator"), rec)
+
+    # the mmap store: the same build writing its rows to disk; the native
+    # gather must run and answer as the device store does
+    qm = q[:NQ_GT]
+    ref_ids, ref_d = rq.query(qm, K, nprobe=B_NPROBE, rerank="exact", rerank_factor=10,
+                              exact_fallback=False)
+    del rq
+    with tempfile.TemporaryDirectory() as tmp:
+        build_s, rm = _timed(lambda: at.build_ivf_index_rabitq(
+            x, nlist=B_NLIST, seed=SEED, store=os.path.join(tmp, "rows"), device=dev))
+        ms, (ids, d) = _wall_ms(lambda: rm.query(qm, K, nprobe=B_NPROBE, rerank="exact",
+                                                 rerank_factor=10, exact_fallback=False))
+        route = rm.store.route
+        equal = bool(torch.equal(ids, ref_ids) and torch.equal(d, ref_d))
+        print(f"  IvfIndexRaBitQ with the mmap store: build {build_s:.2f} s, gather route "
+              f"{route}, {ms:.1f} ms for {NQ_GT} queries; ids and distances equal to the "
+              f"device store's: {equal}", flush=True)
+        rm.store.close()
+        del rm
+    if route != "native" or not equal:
+        raise AssertionError("the mmap store did not gather natively, or answered apart")
+
+    build_s, rc = _timed(lambda: at.build_ivf_index_rabitq(x, "cosine", nlist=B_NLIST,
+                                                           seed=SEED, device=dev))
+    ms, (ids, d) = _wall_ms(lambda: rc.query(q, K, nprobe=B_NPROBE, rerank="exact",
+                                             rerank_factor=10, exact_fallback=False))
+    _check_ids("rabitq cosine", ids, d, B_NQ, K, n)
+    rec = at.calculate_recall(ti_cos, ids[:COS_NQ_GT], K)
+    print(f"  IvfIndexRaBitQ cosine: build {build_s:.2f} s, nprobe {B_NPROBE} rf 10 {ms:.1f} "
+          f"ms, recall@10 {rec:.4f} (on {COS_NQ_GT})", flush=True)
+    _b_floor(("rabitq", "cosine"), rec)
+    del rc
+
+    build_s, re_ = _timed(lambda: at.build_exhaustive_index_rabitq(x, seed=SEED, device=dev))
+    ms, (ids, d) = _wall_ms(lambda: re_.query(q, K, rerank="exact", rerank_factor=10,
+                                              exact_fallback=False))
+    _check_ids("flat rabitq", ids, d, B_NQ, K, n)
+    rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+    print(f"  ExhaustiveIndexRaBitQ ({re_.nlist} cells, probe {re_.default_nprobe()}): build "
+          f"{build_s:.2f} s, rf 10 {ms:.1f} ms, recall@10 {rec:.4f}", flush=True)
+    _b_floor(("flat-rabitq", "exact"), rec)
+    del re_
+
+    # IvfIndexBinary, SimHash 256 bits: the Hamming tier (K1d-bf16 on ±1
+    # cells), the exact rerank (a pool of 200: the cluster scan), asymmetric
+    build_s, rb = _timed(lambda: at.build_ivf_index_binary(x, nlist=B_NLIST, n_bits=B_NBITS,
+                                                           seed=SEED, device=dev))
+    print(f"  IvfIndexBinary: build {build_s:.2f} s, index {rb.memory_usage_bytes():,} bytes, "
+          f"seg {rb.seg_size}", flush=True)
+    run = lambda: rb.query(q, K, nprobe=B_NPROBE)  # noqa: E731
+    with _Capture("ivf_cell_scan_bf16_fold") as cap:
+        (ids, d), launches = _one_run("ivf_cell_scan_bf16_fold", run)
+    ms, _ = _wall_ms(run)
+    ham = _popcounts(rb, q[:100], ids[:100])
+    equal = bool((d[:100].cpu().numpy() == ham).all())
+    rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+    print(f"  IvfIndexBinary Hamming tier, nprobe {B_NPROBE}: {ms:.1f} ms, recall@10 "
+          f"{rec:.4f}, K1d-bf16 launches {launches}; distances equal int64 popcounts on 100 "
+          f"queries: {equal}", flush=True)
+    if not equal or (d != d.round()).any():
+        raise AssertionError("the Hamming tier's distances are not the codes' popcounts")
+    _b_floor(("binary", "hamming"), rec)
+    entry = _kernel_entry("ivf_scan_bf16_fold (hamming)", tsf.ivf_cell_scan_bf16_fold,
+                          lambda *a, **kw: tsf.ivf_cell_scan_bf16_plain(*a, exact=False, **kw),
+                          cap.args["ivf_cell_scan_bf16_fold"], 2, BF16_FLOP_S, exact=True)
+    entry["launches"] = launches
+    entries.append(entry)
+    for name, kw, key in (("exact rerank rf 20",
+                           dict(rerank="exact", rerank_factor=20, exact_fallback=False), "exact"),
+                          ("asymmetric", dict(rerank="asymmetric"), "asymmetric")):
+        run = lambda: rb.query(q, K, nprobe=B_NPROBE, **kw)  # noqa: E731
+        (ids, d), _ = _one_run(None, run)      # the cluster scan: no fused launch
+        ms, _ = _wall_ms(run)
+        rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+        if key == "exact":
+            _check_ids("binary exact", ids, d, B_NQ, K, n)
+            _exact_distances_check("binary exact", x, q, ids, d)
+        print(f"  IvfIndexBinary {name} (the cluster scan): {ms:.1f} ms, recall@10 {rec:.4f}",
+              flush=True)
+        _b_floor(("binary", key), rec)
+    del rb
+    build_s, rbc = _timed(lambda: at.build_ivf_index_binary(x, "cosine", nlist=B_NLIST,
+                                                            n_bits=B_NBITS, seed=SEED,
+                                                            device=dev))
+    ms, (ids, d) = _wall_ms(lambda: rbc.query(q, K, nprobe=B_NPROBE, rerank="exact",
+                                              exact_fallback=False))
+    rec = at.calculate_recall(ti_cos, ids[:COS_NQ_GT], K)
+    print(f"  IvfIndexBinary cosine: build {build_s:.2f} s, exact rerank rf 20 {ms:.1f} ms, "
+          f"recall@10 {rec:.4f} (on {COS_NQ_GT})", flush=True)
+    _b_floor(("binary", "cosine"), rec)
+    del rbc
+
+    build_s, fb = _timed(lambda: at.build_exhaustive_index_binary(x, n_bits=B_NBITS, seed=SEED,
+                                                                  device=dev))
+    for name, kw, key in (("Hamming tier", {}, "hamming"),
+                          ("exact rerank rf 20", dict(rerank="exact"), "exact")):
+        ms, (ids, d) = _wall_ms(lambda: fb.query(q, K, exact_fallback=False, **kw))
+        _check_ids(f"flat binary {key}", ids, d, B_NQ, K, n)
+        rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+        print(f"  ExhaustiveIndexBinary {name}: {ms:.1f} ms, recall@10 {rec:.4f}", flush=True)
+        _b_floor(("flat-binary", key), rec)
+    print(f"  ExhaustiveIndexBinary build {build_s:.2f} s, index {fb.memory_usage_bytes():,} "
+          f"bytes", flush=True)
+    del fb
+    print(f"  phase 18 took {time.time() - t_phase:.1f} s", flush=True)
+    return entries
+
+
 def _check_mma_counts(found) -> None:
     """Phase 1: every scan instance (K2's ``flat_scan_kernel``, each K1
     ``ivf_scan_kernel``) holds tensor-core instructions: HMMA (bf16), or
@@ -2658,7 +2915,7 @@ def _check_mma_counts(found) -> None:
            if (s8 if k.startswith("ivf_scan_kernelIaLi1E") else bf16) == 0]
     print(f"  {len(scans)} scan instances, {len(bad)} without tensor-core instructions",
           flush=True)
-    if len(scans) < 96 or bad:     # 84 K1 and 12 K2 instances
+    if len(scans) < 102 or bad:     # 90 K1 and 12 K2 instances
         raise AssertionError(f"scan instances without tensor-core instructions: {bad} "
                              f"({len(scans)} instances found)")
 
@@ -2765,6 +3022,8 @@ def main() -> int:
 
     phase("8: IVF-PQ m 64 and m 16 (pq_residual, cluster scan), 10k queries")
     phase_pq_residual(dev, x, q, ti, pq_recall)
+    phase("18: the binary family: RaBitQ, IVF and flat binary, the mmap store; 1M x 128d")
+    binary = phase_binary(dev, x, q, ti)
     del x, q
 
     phase("6: IvfIndex, IvfIndexBf16, IvfSq8Index 1M x 256d, nlist 1024")
@@ -2790,7 +3049,8 @@ def main() -> int:
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1a, k1a_fold1, exact, fold, *quant, *i8dec, *wide, forest,
-                                  ball, lsh, k2, k2_flat, k2_hnsw, k2_vamana]}), flush=True)
+                                  ball, lsh, k2, k2_flat, k2_hnsw, k2_vamana, *binary]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -152,12 +152,52 @@ def test_cluster_scan_pads_past_the_candidates(carried):
 
 
 def test_cluster_scan_refuses_the_binary_modes():
-    z = torch.zeros((1, 8))
+    """The binary modes refuse what they cannot take: float storage or
+    hamming queries (the words are int32 bit patterns; a float cast would
+    lose bits) and rabitq without ``aux``; an unknown mode is refused."""
+    z, w = torch.zeros((1, 8)), torch.zeros((1, 8), dtype=torch.int32)
     for mode in ("hamming", "binary_asym", "rabitq"):
-        with pytest.raises(NotImplementedError, match="binary index family"):
-            t_scan(z, z, z, z, z, z, z, z, z, 1, Dist.EUCLIDEAN, 8, mode)
+        with pytest.raises(ValueError, match="int32 words"):
+            t_scan(w, z, z, z, z, z, z, z, z, 1, Dist.EUCLIDEAN, 8, mode, aux=z[0])
+    with pytest.raises(ValueError, match="int32 words"):
+        t_scan(z, z, z, z, w, z, z, z, z, 1, Dist.EUCLIDEAN, 8, "hamming")
+    with pytest.raises(ValueError, match="aux"):
+        t_scan(z, z, z, z, w, z, z, z, z, 1, Dist.EUCLIDEAN, 8, "rabitq")
     with pytest.raises(ValueError, match="unknown"):
         t_scan(z, z, z, z, z, z, z, z, z, 1, Dist.EUCLIDEAN, 8, "f16")
+
+
+@pytest.mark.parametrize("mode", ["hamming", "binary_asym", "rabitq"])
+def test_cluster_scan_binary_modes_match_jax(mode):
+    """On packed words (int32 bit patterns of the JAX package's uint32
+    words) each binary mode gives the JAX scan's ids and distances
+    (integers for ``hamming``; the f32 sums of the others within 1e-4·(1 +
+    |d|))."""
+    rng = np.random.default_rng(9)
+    n, cap, w, nq = 300, 128, 2, 12
+    words = rng.integers(0, 2**32, (n + cap, w), dtype=np.uint64).astype(np.uint32)
+    offs = np.array([0, 100, 200], np.int32)
+    counts = np.array([100, 100, 100], np.int32)
+    cents = rng.standard_normal((3, 64)).astype(np.float32)
+    sn = np.abs(rng.standard_normal(n + cap)).astype(np.float32)
+    aux = np.abs(rng.standard_normal(n + cap)).astype(np.float32) * 6
+    fq = np.repeat(np.arange(nq), 2)
+    fc = rng.integers(0, 3, 2 * nq)
+    lists = j_lists(fq, fc, 3, nq)
+    queries = {"hamming": rng.integers(0, 2**32, (nq, w), dtype=np.uint64).astype(np.uint32),
+               "binary_asym": rng.standard_normal((nq, 64)).astype(np.float32),
+               "rabitq": rng.standard_normal((nq, 64)).astype(np.float32)}
+    qv = queries[mode]
+    wd, wi = j_scan(jnp.asarray(qv), *(jnp.asarray(a) for a in lists), jnp.asarray(words),
+                    jnp.asarray(sn), jnp.asarray(offs), jnp.asarray(counts),
+                    jnp.asarray(cents), 7, JDist.EUCLIDEAN, cap, mode, aux=jnp.asarray(aux))
+    qt = torch.tensor(qv.view(np.int32) if mode == "hamming" else qv)
+    gd, gi = t_scan(qt, *(_t(a) for a in lists), torch.tensor(words.view(np.int32)),
+                    torch.tensor(sn), torch.tensor(offs), torch.tensor(counts),
+                    torch.tensor(cents), 7, Dist.EUCLIDEAN, cap, mode, aux=torch.tensor(aux))
+    wd = np.asarray(wd)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    assert np.all(np.abs(gd.numpy() - wd) <= 1e-4 * (1.0 + np.abs(wd)))
 
 
 def test_cluster_scan_k_cell_matches_jax(carried):

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (K1a, K1b-l2, K1b-cos, K1d-i8dec, K1c-f32,
 K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8, their fold-1 and wide-row
-instances, K1-exact-i8 and K2) against their plain PyTorch versions, on the
-card, and the IVF, graph, HNSW, Vamana, tree, LSH, kMkNN and flat
-quantised paths on the card against the CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
+instances, K1-exact-i8, K1a-bf16 and K2) against their plain PyTorch
+versions, on the card, and the IVF, graph, HNSW, Vamana, tree, LSH, kMkNN,
+flat quantised and binary paths on the card against the CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
 cores (int8 products in int32 for sq8); the cases cover each variant's term
 count, and rows whose query terms are held whole or formed per column block.
 
@@ -404,7 +404,8 @@ def test_i8dec_kernels_reject_what_they_cannot_take(dev):
         tsf.ivf_cell_scan_i8dec(*no_cent[:4], no_cent[4][:-1].contiguous(), *no_cent[5:], 16)
 
 
-FUSED = ["ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos", "ivf_cell_scan_i8dec"] + [
+FUSED = ["ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos", "ivf_cell_scan_i8dec",
+         "ivf_cell_scan_bf16_residual"] + [
     f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold")]
 
 
@@ -931,3 +932,156 @@ def test_flat_bf16_on_the_card_returns_f32_sums(dev):
     terms = float((torch.as_tensor(q) ** 2).sum(1).max() + (torch.as_tensor(x) ** 2).sum(1).max())
     same = gi.cpu() == ci
     assert torch.all((gd.cpu() - cd).abs()[same] <= 1e-5 * (cd.abs()[same] + terms))
+
+
+# -- the binary family: K1a-bf16 (RaBitQ) and K1d-bf16 on ±1 cells (Hamming) ----------
+
+
+def _rabitq_tasks(gen, dev, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300):
+    """K1a's task inputs over RaBitQ's estimator cells: ±1 rows scaled by a
+    per-row multiplier (some 0: rows on their centroid) in bf16, sn the
+    squared distances to the centroid, unit scales."""
+    lists, task_seg, cnt, queries, cents, _, _, _ = _tasks(gen, dev, R, maxq, seg, d, nseg, nq)
+    sign = torch.randint(0, 2, (nseg + 1, seg, d), generator=gen, device=dev) * 2.0 - 1.0
+    dist = torch.rand((nseg + 1, seg), generator=gen, device=dev) * 3.0
+    corr = torch.rand((nseg + 1, seg), generator=gen, device=dev) * 8.0 + 2.0
+    corr[:, ::37] = 0.0
+    mult = torch.where(corr > 1e-6, dist / corr.clamp_min(1e-12), 0.0)
+    cells = (sign * mult[:, :, None]).to(torch.bfloat16)
+    cells[-1] = 0
+    sn = dist ** 2
+    sn[-1] = 0
+    return [lists, task_seg, cnt, queries, cents, torch.ones(d, device=dev), cells, sn]
+
+
+@pytest.mark.parametrize("sel", ["exact", "fold1", "fold2"])
+@pytest.mark.parametrize(
+    "shape,kb",
+    [
+        (dict(), 16),
+        (dict(maxq=36, d=64), 8),            # slots past maxq; RaBitQ at d 64
+        (dict(seg=128, maxq=32), 128),       # one chunk, kb = 128
+        (dict(R=256, maxq=128, seg=1024, d=128), 16),   # phase 18's widths
+        (dict(R=64, maxq=64, seg=512, d=256), 16),      # d 256: four steps a chunk
+        (dict(R=16, maxq=40, seg=256, d=1536), 16),     # query terms per column block
+    ],
+)
+def test_k1a_bf16_matches_plain(dev, shape, kb, sel):
+    """Two query terms (RaBitQ's q_split=True), the only count it takes."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    args = _rabitq_tasks(gen, dev, **shape)
+    kw = dict(exact=sel == "exact", fold_depth=2 if sel == "fold2" else 1)
+    before = tsf.ivf_cell_scan_bf16_residual.launches
+    kd, ki = tsf.ivf_cell_scan_bf16_residual(*args, kb, **kw)
+    assert tsf.ivf_cell_scan_bf16_residual.launches == before + 1
+    pd, pi = tsf.ivf_cell_scan_plain(*args, kb, q_split=True, exact=kw["exact"],
+                                     fold_depth=kw["fold_depth"])
+    _assert_close(kd, ki, pd, pi)
+    cnt = args[2]
+    assert (kd[cnt == 0] == np.float32(3e38)).all() and (ki[cnt == 0] == 0).all()
+    assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+def test_k1a_bf16_rejects_what_it_cannot_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    args = _rabitq_tasks(gen, dev, R=8)
+    bad = list(args)
+    bad[6] = args[6].to(torch.int8)
+    with pytest.raises(ValueError, match="cells"):
+        tsf.ivf_cell_scan_bf16_residual(*bad, 16)
+    with pytest.raises(ValueError, match="kb"):
+        tsf.ivf_cell_scan_bf16_residual(*args, 129)
+
+
+@pytest.mark.parametrize("n_bits", [64, 256, 200])
+def test_k1d_bf16_on_pm1_cells_is_four_times_hamming(dev, n_bits):
+    """The Hamming tier's kernel: over ±1 bf16 cells with sn = n_bits and ±1
+    queries, every distance is 4·hamming exactly, equal to the plain
+    version and to an int64 popcount of the codes."""
+    from annsearch_tpu_torch.ops.binary import pack_bits, unpack_pm1
+
+    gen = torch.Generator(device=dev).manual_seed(n_bits)
+    R, maxq, seg, nseg, nq = 64, 64, 512, 10, 300
+    bits = torch.randint(0, 2, ((nseg + 1) * seg, n_bits), generator=gen, device=dev).bool()
+    codes = pack_bits(bits)
+    pm = unpack_pm1(codes, n_bits).reshape(nseg + 1, seg, n_bits)
+    dp = -(-n_bits // 16) * 16
+    cells = torch.nn.functional.pad(pm, (0, dp - n_bits)).contiguous()
+    cells[-1] = 0
+    sn = torch.full((nseg + 1, seg), float(n_bits), device=dev)
+    qbits = torch.randint(0, 2, (nq, n_bits), generator=gen, device=dev).bool()
+    q_codes = pack_bits(qbits)
+    queries = torch.cat([unpack_pm1(q_codes, n_bits, torch.float32),
+                         torch.zeros(1, n_bits, device=dev)])
+    lists = torch.randint(0, nq, (R, maxq), generator=gen, device=dev).int()
+    task_seg = torch.randint(0, nseg, (R,), generator=gen, device=dev).int()
+    cnt = torch.full((R,), seg, dtype=torch.int32, device=dev)
+    cnt[3::7] = 100
+    kd, ki = tsf.ivf_cell_scan_bf16_fold(lists, task_seg, cnt, queries, cells, sn, 16)
+    pd, pi = tsf.ivf_cell_scan_bf16_plain(lists, task_seg, cnt, queries, cells, sn, 16,
+                                          False, exact=False)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    real = kd < 1e38
+    assert torch.equal(kd[real], kd[real].round())
+    rows = task_seg.long()[:, None, None] * seg + ki.long()
+    qc = q_codes.cpu().numpy().view(np.uint32)[lists.long().cpu().numpy()]    # [R, maxq, w]
+    xc = codes.cpu().numpy().view(np.uint32)[rows.cpu().numpy()]             # [R, maxq, kb, w]
+    ham = np.unpackbits(np.bitwise_xor(qc[:, :, None, :], xc).view(np.uint8),
+                        axis=-1).sum(-1).astype(np.int64)
+    np.testing.assert_array_equal(kd.cpu().numpy()[real.cpu().numpy()],
+                                  4 * ham[real.cpu().numpy()])
+
+
+@pytest.mark.parametrize("kind", ["ivf_binary", "rabitq"])
+def test_binary_indexes_on_the_card_match_the_cpu(dev, kind):
+    """IvfIndexBinary's Hamming tier (K1d-bf16) and IvfIndexRaBitQ's fused
+    estimator (K1a-bf16) on the card against the same index state on the
+    CPU: the path's kernel launches, ids on ≥ 99%, Hamming distances equal;
+    squared estimates within 2⁻¹¹·(1 + d_k²), d_k the row's k-th; the exact
+    rerank's ids on ≥ 99%. The returned estimates are
+    ``_rescore_estimator``'s, which rounds the unit query residual, rotated
+    on each device by its own f32 product, to one bf16 term: a component
+    that rounds apart (at most 2 a slot here) moves d² by about
+    2·sn·qd·2⁻⁸·|qu_i|/‖R·u‖₁. On an H100 the largest |gd² − cd²| / (1 +
+    d_k²) on this data is 1.5e-4, a third of the limit; the distances
+    themselves are no fit for a 1e-4·(1 + |d|) test, as a square root near
+    0 magnifies the same gap (0.07 of 1 + |d| on this data)."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch import interop
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 128, 20, seed=4)
+    q = subsample_with_noise(x, 500, seed=4)
+    if kind == "ivf_binary":
+        gpu = at.build_ivf_index_binary(x, nlist=64, n_bits=256, device=dev)
+        wrapper, load, extra = "ivf_cell_scan_bf16_fold", interop.ivf_binary_from_jax_arrays, {
+            "n_bits": gpu.n_bits, "bin_mode": gpu.bin_mode}
+    else:
+        gpu = at.build_exhaustive_index_rabitq(x, device=dev)
+        wrapper, load, extra = "ivf_cell_scan_bf16_residual", (
+            interop.exhaustive_rabitq_from_jax_arrays), {}
+    arrays = {k: v for k, v in gpu._save_arrays().items()}
+    meta = {n: getattr(gpu, n) for n in ("n", "dim", "nlist", "seg_size")}
+    meta.update(extra, metric=gpu.metric.value, fast_scan=True)
+    cpu = load(arrays, meta, device="cpu")
+    fn = getattr(tsf, wrapper)
+    before = fn.launches
+    gi, gd = gpu.query(q, 10, nprobe=8)
+    assert fn.launches > before
+    ci, cd = cpu.query(q, 10, nprobe=8)
+    same = gi.cpu() == ci
+    assert same.float().mean().item() >= 0.99
+    if kind == "ivf_binary":
+        assert torch.equal(gd.cpu()[same], cd[same])
+    else:
+        gap = ((gd.cpu().double() ** 2 - cd.double() ** 2).abs()
+               / (1.0 + cd[:, -1:].double() ** 2))[same]
+        in_d = ((gd.cpu() - cd).abs() / (1.0 + cd.abs()))[same]
+        print(f"rabitq: largest |gd² − cd²| / (1 + d_k²) {gap.max().item():.4e} "
+              f"(limit {2.0 ** -11:.4e}); largest |gd − cd| / (1 + |cd|) "
+              f"{in_d.max().item():.4e}")
+        assert gap.max().item() <= 2.0 ** -11
+    gi, gd = gpu.query(q, 10, nprobe=8, rerank="exact", exact_fallback=False)
+    ci, cd = cpu.query(q, 10, nprobe=8, rerank="exact", exact_fallback=False)
+    assert (gi.cpu() == ci).float().mean().item() >= 0.99

@@ -2,8 +2,10 @@
 lists share takes the JAX row's parameters, in its order and with its
 defaults (``verbose`` included), and whatever the port adds is
 keyword-only, so that a positional call means the same in both packages.
-The 15 tree, LSH and kMkNN rows and the 18 HNSW, Vamana and flat
-quantised rows are present, every build row defaults to the card,
+The 15 tree, LSH and kMkNN rows, the 18 HNSW, Vamana and flat
+quantised rows and the 12 binary and RaBitQ rows are present (the port's
+``__all__`` is the JAX package's, in its order), every build row defaults
+to the card,
 ``_query``'s progress report is the reference's, and every
 ``NotImplementedError`` of the port names a ROADMAP tag."""
 
@@ -53,6 +55,19 @@ def test_the_port_has_the_hnsw_vamana_and_flat_quantised_rows():
     assert len(ROWS_P1_P2) == 18 and set(ROWS_P1_P2) <= set(jlib.__all__)
     assert set(ROWS_P1_P2) <= set(tlib.__all__) and set(ROWS_P1_P2) <= set(ta.__all__)
     assert len(SHARED) >= 64
+
+
+ROWS_P3 = [f"{verb}_{kind}_index_{fam}{tail}" for fam in ("binary", "rabitq")
+           for kind in ("exhaustive", "ivf")
+           for verb, tail in (("build", ""), ("query", ""), ("query", "_self"))]
+
+
+def test_the_facade_is_the_jax_packages():
+    """All 76 rows, the 12 binary and RaBitQ rows among them, in the JAX
+    package's order."""
+    assert len(ROWS_P3) == 12 and set(ROWS_P3) <= set(jlib.__all__)
+    assert tlib.__all__ == jlib.__all__ and len(tlib.__all__) == 76
+    assert set(ROWS_P3) <= set(ta.__all__)
 
 
 @pytest.mark.parametrize("name", [n for n in tlib.__all__ if n.startswith("build_")])
