@@ -8,12 +8,15 @@ CUDA kernel written for Hopper (``csrc/``), built at first use into
 Layout:
   * ``ops``     — running top-k (exact, bins and fused selectors), the
     fused flat scan, the quantised flat scans, task-list inversion, the
-    fused IVF scan, the cluster scan, PQ decode, graph pruning, random
-    graph init and beam search
-  * ``models``  — indexes (exhaustive, flat bf16 / SQ8 / PQ / OPQ, IVF,
-    bf16 / SQ8 IVF, IVF-PQ, IVF-OPQ, NNDescent, HNSW, Vamana, trees, LSH,
-    kMkNN), quantisers and k-means
-  * ``utils``   — distances, synthetic data, metrics
+    fused IVF scan, the cluster scan, PQ decode, the binary scans, the
+    approximate graph build (partition joins, NN-descent rounds), graph
+    pruning and beam search
+  * ``models``  — indexes (exhaustive, streaming exhaustive, flat bf16 /
+    SQ8 / PQ / OPQ, IVF, bf16 / SQ8 IVF, IVF-PQ, IVF-OPQ, binary and
+    RaBitQ, NNDescent, HNSW, Vamana, trees, LSH, kMkNN), quantisers and
+    k-means
+  * ``utils``   — distances, synthetic data (host and device), metrics,
+    validation, profiling
   * ``interop`` — index state carried over from the JAX package
 """
 
@@ -21,5 +24,6 @@ from .lib import *  # noqa: F401,F403
 from .lib import __all__ as _lib_all
 from .utils import Dist, parse_ann_dist  # noqa: F401
 from .utils.metrics import calculate_recall  # noqa: F401
+from .utils.validation import validate_index  # noqa: F401
 
-__all__ = list(_lib_all) + ["Dist", "parse_ann_dist", "calculate_recall"]
+__all__ = list(_lib_all) + ["Dist", "parse_ann_dist", "validate_index", "calculate_recall"]

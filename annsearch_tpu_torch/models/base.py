@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any
 
 import numpy as np
@@ -85,6 +86,26 @@ def as_f32_matrix(mat: Any, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.float32).contiguous()
 
 
+class _Marks:
+    """Build stage timings: with ``verbose`` each stage ends in a device
+    synchronise, is printed and kept in ``times``; otherwise nothing."""
+
+    def __init__(self, what: str, verbose: bool, device: torch.device):
+        self.what, self.verbose, self.device = what, verbose, device
+        self.times: dict[str, float] = {}
+        self.t0 = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        if not self.verbose:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.times[label] = t - self.t0
+        print(f"{self.what} build: {label} {t - self.t0:.3f}s", flush=True)
+        self.t0 = t
+
+
 class BaseIndex:
     """Stores vectors on ``device`` and prepares metric-specific state."""
 
@@ -112,6 +133,12 @@ class BaseIndex:
 
     def query(self, query_mat: Any, k: int, **kw):
         raise NotImplementedError
+
+    def vectors_original_order(self) -> torch.Tensor:
+        """The stored rows in original order on the index's device: row i is
+        the row ``query`` returns as id i (indexes that reorder or pad their
+        storage override this)."""
+        return self.vectors
 
     def _prep_queries(self, query_mat: Any) -> torch.Tensor:
         q = as_f32_matrix(query_mat, self.device)
@@ -210,6 +237,22 @@ class BaseIndex:
         arrays = self._save_arrays()
         arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
         np.savez(path, **arrays)
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "BaseIndex":
+        """Load an index saved by either package's ``save`` (npz) whose state
+        is its ``_state_arrays`` and ``_state_scalars``, the JAX package's
+        generic ``BaseIndex.load``. A loaded index keeps no f64 copy."""
+        arrays, meta = cls._read_npz(path, cls.__name__)
+        obj = cls.__new__(cls)
+        obj.device = torch.device(device)
+        obj.metric = parse_ann_dist(meta["metric"])
+        for name in cls._state_scalars:
+            setattr(obj, name, meta[name])
+        for name in cls._state_arrays:
+            a = arrays.get(name)
+            setattr(obj, name, None if a is None else torch.as_tensor(a, device=obj.device))
+        return obj
 
     @staticmethod
     def _read_npz(path: str, cls_name: str):

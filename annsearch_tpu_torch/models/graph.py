@@ -1,19 +1,21 @@
-"""Graph index: an exact kNN graph and a CAGRA-style beam-search query (port
-of ``annsearch_tpu.models.graph.NNDescentIndex``, the part below its brute
-build budget).
+"""Graph index: NN-descent construction and a CAGRA-style beam-search query
+(port of ``annsearch_tpu.models.graph``).
 
 One index serves two uses:
 
   * ``knn_ids`` / ``knn_dists``: the kNN graph (``generate_knn(mode="graph")``),
     built exactly by the fused flat scan (kernel K2 on the card, its plain
-    version on the CPU) whenever ``n²·d ≤ BRUTE_BUILD_FLOP_BUDGET``;
+    version on the CPU) whenever ``n²·d ≤ BRUTE_BUILD_FLOP_BUDGET``, and
+    above it by :func:`approx_knn_graph`: a random graph, k-means partition
+    joins, one random-projection pass, then rate-adaptive NN-descent rounds
+    (``ops/graph.py``; tensor operations, no kernel of their own);
   * ``nav_graph``: the detour-pruned graph with sampled reverse edges that
     ``query`` walks by beam search from routed entry points. It is built on
     the first query.
 
-Not ported yet (ROADMAP P5): the approximate build above the
-budget (``approx_knn_graph``), ``refine_rounds`` and ``diversify_prob``;
-each raises ``NotImplementedError``.
+The build's random draws come from one generator on the index's device,
+seeded with ``seed``: torch cannot repeat the JAX package's key streams, so
+the approximate graphs of the two packages agree by recall, not by id.
 """
 
 from __future__ import annotations
@@ -24,16 +26,134 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.graph import add_reverse_edges, beam_search, cagra_prune
+from ..ops.graph import (
+    NND_INPLACE_MIN_N,
+    NND_R_NEW,
+    NND_R_OLD,
+    add_reverse_edges,
+    beam_search,
+    cagra_prune,
+    diversify_graph,
+    kmeans_leaves,
+    leaf_join_merge,
+    nnd_cand_width,
+    nnd_draws,
+    nnd_round_chunked,
+    random_init_graph,
+    rp_forest_round,
+)
 from ..ops.topk import blocked_query_topk, topk_smallest
 from ..utils.dist import Dist, fp32_matmul, sq_norms
-from .base import BaseIndex
+from .base import BaseIndex, _Marks
+from .kmeans import train_centroids
 
-__all__ = ["NNDescentIndex", "BRUTE_BUILD_FLOP_BUDGET", "brute_knn_graph"]
+__all__ = ["NNDescentIndex", "approx_knn_graph", "BRUTE_BUILD_FLOP_BUDGET",
+           "brute_knn_graph"]
 
 #: up to this n²·d the graph is built exactly by the flat scan (the JAX
-#: package's value: every index up to 2.8M rows at 32d)
+#: package's value: every index up to 2.8M rows at 32d). The graph indexes
+#: read it at build time, so patching it here forces NNDescent, HNSW and
+#: Vamana onto the approximate build
 BRUTE_BUILD_FLOP_BUDGET = 1_000_000 * 1_000_000 * 256
+
+#: bytes a tile of an NN-descent round gathers and scores: per candidate
+#: its f32 row (4·d), its id and the keyed pre-select's key (int64 each),
+#: its distance and masks (about 16 more)
+_NND_BUDGET = 1 << 30
+
+
+def _nnd_tile(width: int, dim: int) -> int:
+    """Rows per tile of an NN-descent round of ``width`` candidates a row:
+    the largest power of two within ``_NND_BUDGET``, from 64 to 16,384 (a
+    power of two divides the in-place rounds' row chunks)."""
+    rows = _NND_BUDGET // (width * (4 * dim + 32))
+    return 1 << max(6, min(14, rows.bit_length() - 1))
+
+
+def _round_chunks(n: int, full: bool) -> int:
+    """Row chunk of an NN-descent round: the whole graph below
+    ``NND_INPLACE_MIN_N`` (Jacobi chunks change no result, and a tile
+    bounds the memory), and the JAX package's chunks from it, where the
+    in-place merge makes the chunk part of the result."""
+    if n < NND_INPLACE_MIN_N:
+        return n
+    return 32_768 if full else 262_144
+
+
+def approx_knn_graph(
+    gen: torch.Generator,
+    vecs: torch.Tensor,         # [n+1, d] (sentinel last row)
+    sq: torch.Tensor,           # [n+1]
+    kk: int,
+    metric: Dist,
+    *,
+    n_trees: int = 4,
+    max_rounds: int = 40,
+    delta: float = 0.001,
+    seed: int = 42,
+    verbose: bool = False,
+    mark: _Marks | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Approximate ``kk``-NN graph ``(ids [n, kk] int32, dists [n, kk])``:
+    the build of every graph index above the brute budget.
+
+    A random graph (``random_init_graph``), then ``n_trees − 1`` k-means
+    partition passes (``kmeans_leaves`` on ``max(64, n / (2·leaf))``
+    centroids, the (t mod 3 + 1)-nearest cell in pass t, joined by
+    ``leaf_join_merge``) and one random-projection pass
+    (``rp_forest_round``), then NN-descent rounds (``nnd_round_chunked``).
+    The rounds are rate-adaptive: every block of every row is expanded
+    while the update rate stays at 0.02 or more (0.01 from
+    ``NND_INPLACE_MIN_N`` rows), then, once it falls below, four sampled
+    blocks a row for the rest of the build. The build stops after two
+    rounds in a row under ``delta``, or after ``max_rounds``.
+
+    The draws come from ``gen`` in order; ``seed`` seeds the k-means.
+    ``verbose`` prints the JAX package's lines; ``mark`` (a stage timer)
+    is called after each stage and round, and after each round's draws."""
+    n, dim = vecs.shape[0] - 1, vecs.shape[1]
+    mark = mark or (lambda label: None)
+    ids, dists = random_init_graph(gen, vecs, sq, kk, metric)
+    mark("random init")
+
+    leaf = max(16, min(256, n // 8))
+    cents = train_centroids(vecs[:n], max(64, n // (2 * leaf)), metric, seed=seed)
+    mark("k-means")
+    levels = max(1, math.ceil(math.log2(max(n / leaf, 2))))
+    for t in range(n_trees):
+        if t == n_trees - 1:
+            ids, dists = rp_forest_round(gen, vecs, sq, ids, dists, levels, leaf, kk, metric)
+        else:
+            leaves = kmeans_leaves(gen, vecs, cents, t % 3, leaf, metric)
+            ids, dists = leaf_join_merge(leaves, vecs, sq, ids, dists, kk, metric)
+        if verbose:
+            print(f"partition pass {t + 1}/{n_trees} done")
+        mark(f"partition pass {t + 1}")
+
+    flags = torch.ones((n, kk), dtype=torch.bool, device=vecs.device)
+    quiet, rate, full = 0, 1.0, True
+    base_w = kk + NND_R_NEW + NND_R_OLD     # every block selectable
+    # from 8M rows the full-width phase runs one threshold longer: the
+    # sampled rounds move too few edges there to recover from an early switch
+    full_latch = 0.02 if n < NND_INPLACE_MIN_N else 0.01
+    for r in range(max_rounds):
+        full = full and rate >= full_latch
+        c_act = (base_w if full else 4) * kk
+        rev, rev2, noise = nnd_draws(gen, ids, flags)
+        mark(f"round {r + 1} draws")
+        ids, dists, upd, flags = nnd_round_chunked(
+            gen, vecs, sq, ids, dists, kk, metric, new_in=flags, c_active=c_act,
+            tile=_nnd_tile(nnd_cand_width(kk, c_act), dim),
+            row_chunk=_round_chunks(n, full), rev=rev, rev2=rev2, noise=noise,
+        )
+        rate = int(upd) / max(n * kk, 1)
+        if verbose:
+            print(f"nnd round {r + 1} ({'full' if full else 'sampled'}): update rate {rate:.4f}")
+        mark(f"round {r + 1} ({'full' if full else 'sampled'}, rate {rate:.4f})")
+        quiet = quiet + 1 if rate < delta else 0
+        if quiet >= 2:
+            break
+    return ids, dists
 
 
 def brute_knn_graph(
@@ -89,23 +209,23 @@ class NNDescentIndex(BaseIndex):
         """``build_k`` neighbours per row are built (default ``2k``),
         ``out_deg`` of them survive the pruning (default ``max(k, 16)``) and
         ``reverse_extra`` reverse edges are appended (default
-        ``out_deg // 2``). ``n_trees``, ``max_rounds`` and ``delta`` steer
-        the approximate build, which is not ported: they are accepted and
-        unused below the brute budget.
+        ``out_deg // 2``). Up to ``BRUTE_BUILD_FLOP_BUDGET`` the graph is
+        exact; above it :func:`approx_knn_graph` builds it with ``n_trees``
+        partition passes and at most ``max_rounds`` rounds that stop under
+        the update rate ``delta``, and then ``refine_rounds`` two-hop
+        passes (every edge new, every block expanded) follow; below the
+        budget ``refine_rounds`` is ignored, as in the JAX package.
+
+        ``diversify_prob`` > 0 prunes occluded edges of the graph after
+        either build (``diversify_graph``); pruned slots read ``(n, inf)``.
+
+        ``verbose`` prints the build's lines and each stage's seconds (each
+        ending in a synchronise), kept in ``build_times``. The draws come
+        from one generator on the index's device seeded with ``seed``.
 
         ``has_sentinel=True``: ``mat`` is ``[n+1, dim]`` with a zero last
         row and becomes the sentinel-padded table without a concatenation.
         Numpy inputs are validated; tensors are trusted."""
-        if refine_rounds > 0:
-            raise NotImplementedError(
-                "refine_rounds > 0 needs nnd_round_chunked (ROADMAP P5: the "
-                "approximate graph build)"
-            )
-        if diversify_prob > 0.0:
-            raise NotImplementedError(
-                "diversify_prob > 0 needs diversify_graph (ROADMAP P5: the "
-                "approximate graph build with diversify_graph)"
-            )
         if has_sentinel and isinstance(mat, np.ndarray):
             if mat.shape[0] < 1 or np.any(mat[-1]):
                 raise ValueError("has_sentinel=True requires a zero last row")
@@ -114,12 +234,6 @@ class NNDescentIndex(BaseIndex):
         if has_sentinel:
             self.n -= 1
         n = self.n
-        if n * n * self.dim > BRUTE_BUILD_FLOP_BUDGET:
-            raise NotImplementedError(
-                f"n²·d = {n * n * self.dim:.3g} exceeds BRUTE_BUILD_FLOP_BUDGET: "
-                "the approximate build (approx_knn_graph) is not ported yet "
-                "(ROADMAP P5: the approximate graph build)"
-            )
         self.k_build = min(build_k if build_k is not None else 2 * k, max(n - 1, 1))
         self.out_deg = min(out_deg if out_deg is not None else max(k, 16), self.k_build)
         self._reverse_extra = (
@@ -132,10 +246,41 @@ class NNDescentIndex(BaseIndex):
             self.vectors = torch.cat(
                 [self.vectors, torch.zeros((1, self.dim), device=self.device)])
         self.sqnorms = sq_norms(self.vectors)
+        vecs, sq, kb = self.vectors, self.sqnorms, self.k_build
+        mark = _Marks("nndescent", verbose, self.device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        self.knn_ids, self.knn_dists = self._brute_knn_graph()
-        if verbose:
-            print("graph built exactly (the fused flat scan)")
+        if n * n * self.dim <= BRUTE_BUILD_FLOP_BUDGET:
+            ids, dists = self._brute_knn_graph()
+            if verbose:
+                print("graph built exactly (the fused flat scan)")
+            mark("exact graph")
+        else:
+            ids, dists = approx_knn_graph(
+                gen, vecs, sq, kb, self.metric, n_trees=n_trees, max_rounds=max_rounds,
+                delta=delta, seed=seed, verbose=verbose, mark=mark,
+            )
+            # all-new flags and every block: an unfiltered two-hop pass
+            c_act = (kb + NND_R_NEW + NND_R_OLD) * kb
+            for r in range(refine_rounds):
+                ids, dists, upd, _ = nnd_round_chunked(
+                    gen, vecs, sq, ids, dists, kb, self.metric,
+                    new_in=torch.ones((n, kb), dtype=torch.bool, device=self.device),
+                    c_active=c_act, tile=_nnd_tile(nnd_cand_width(kb, c_act), self.dim),
+                    row_chunk=_round_chunks(n, True),
+                )
+                if verbose:
+                    print(f"two-hop refinement {r + 1}/{refine_rounds}: {int(upd)} updates")
+                mark(f"refine {r + 1}")
+
+        if diversify_prob > 0.0:
+            ids, dists = diversify_graph(gen, vecs, sq, ids, dists, diversify_prob, self.metric)
+            if verbose:
+                print(f"diversified: {int((ids < n).sum())}/{ids.numel()} edges kept "
+                      f"(prob {diversify_prob})")
+            mark("diversify")
+        self.knn_ids, self.knn_dists = ids, dists
+        self.build_times = mark.times
         # the navigable graph and the routers are built on the first query:
         # generate_knn(mode="graph") never pays for them
         self.nav_graph = None

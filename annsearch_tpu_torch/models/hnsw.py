@@ -3,13 +3,14 @@
 Layers are drawn as in the reference (exponential assignment, at most 15
 levels) from ``np.random.default_rng(seed)``, so both packages give a seed
 the same layers. Every layer's graph is built in batched rounds, not by
-inserts: the base layer is the exact kNN graph (``build_k`` neighbours),
-pruned to ``2m`` by ``cagra_prune`` and filled with ``m`` sampled reverse
-edges; each upper layer is the exact ``m``-NN graph of its members in
-local id space. A layer of at most ``EXACT_LAYER_MAX`` nodes is one
-``pairwise_dist``; a larger one is kernel K2 (``brute_knn_graph``, the
-fused flat scan at ``passes=6``), up to ``BRUTE_BUILD_FLOP_BUDGET``. Above
-it the JAX package runs its approximate build, which is not ported yet.
+inserts: the base layer is the kNN graph (``build_k`` neighbours), pruned
+to ``2m`` by ``cagra_prune`` and filled with ``m`` sampled reverse edges;
+each upper layer is the ``m``-NN graph of its members in local id space.
+A layer of at most ``EXACT_LAYER_MAX`` nodes is one ``pairwise_dist``; a
+larger one is kernel K2 (``brute_knn_graph``, the fused flat scan at
+``passes=6``), up to ``graph.BRUTE_BUILD_FLOP_BUDGET``; above it
+``graph.approx_knn_graph`` builds it (2 partition passes and at most 8
+rounds at the base, 1 and 4 on the upper layers, as in the JAX package).
 
 A query scans the largest upper layer exactly for 4 entry nodes and walks
 the base layer by beam search. The JAX package pads upper layers to a power
@@ -21,7 +22,6 @@ twice, and the beam keeps one copy).
 from __future__ import annotations
 
 import math
-import time
 from typing import Any
 
 import numpy as np
@@ -30,8 +30,8 @@ import torch
 from ..ops.graph import add_reverse_edges, beam_search, cagra_prune
 from ..ops.topk import topk_smallest
 from ..utils.dist import Dist, fp32_matmul, pairwise_dist, sq_norms
-from .base import BaseIndex
-from .graph import BRUTE_BUILD_FLOP_BUDGET, brute_knn_graph
+from .base import BaseIndex, _Marks
+from . import graph as _graph
 
 __all__ = ["HnswIndex", "EXACT_LAYER_MAX", "MAX_LAYERS"]
 
@@ -39,9 +39,13 @@ MAX_LAYERS = 16  # the reference caps layer assignment at 15
 EXACT_LAYER_MAX = 4096  # layers this small get exact kNN graphs (one matmul)
 
 
-def _build_knn_graph(vecs: torch.Tensor, sq: torch.Tensor, kk: int, metric: Dist):
+def _build_knn_graph(vecs: torch.Tensor, sq: torch.Tensor, kk: int, metric: Dist,
+                     seed: int, n_trees: int, max_rounds: int):
     """``(ids, dists)`` kNN graph over ``vecs[:-1]`` (sentinel last row),
-    self excluded, ``kk`` clamped to ``n − 1``."""
+    self excluded, ``kk`` clamped to ``n − 1``: exact up to
+    ``graph.BRUTE_BUILD_FLOP_BUDGET`` (read at call time), above it
+    ``graph.approx_knn_graph`` with ``n_trees`` and ``max_rounds``, its
+    draws from a generator on the rows' device seeded with ``seed``."""
     n, d_dim = vecs.shape[0] - 1, vecs.shape[1]
     kk = min(kk, max(n - 1, 1))
     if n <= EXACT_LAYER_MAX:
@@ -49,35 +53,13 @@ def _build_knn_graph(vecs: torch.Tensor, sq: torch.Tensor, kk: int, metric: Dist
         d.fill_diagonal_(float("inf"))
         dd, ii = topk_smallest(d, kk)
         return ii.int(), dd
-    if n * n * d_dim > BRUTE_BUILD_FLOP_BUDGET:
-        raise NotImplementedError(
-            f"n²·d = {n * n * d_dim:.3g} exceeds BRUTE_BUILD_FLOP_BUDGET: the "
-            "approximate build (approx_knn_graph) is not ported yet (ROADMAP P5: "
-            "the approximate graph build)"
-        )
-    # the JAX package's accelerator branch: K2 at f32 grade (it takes the
-    # "exact" selector only off the TPU)
-    return brute_knn_graph(vecs[:n], sq[:n], kk, metric)
-
-
-class _Marks:
-    """Build stage timings: with ``verbose`` each stage ends in a device
-    synchronise, is printed and kept in ``times``; otherwise nothing."""
-
-    def __init__(self, what: str, verbose: bool, device: torch.device):
-        self.what, self.verbose, self.device = what, verbose, device
-        self.times: dict[str, float] = {}
-        self.t0 = time.perf_counter()
-
-    def __call__(self, label: str) -> None:
-        if not self.verbose:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        self.times[label] = t - self.t0
-        print(f"{self.what} build: {label} {t - self.t0:.3f}s", flush=True)
-        self.t0 = t
+    if n * n * d_dim <= _graph.BRUTE_BUILD_FLOP_BUDGET:
+        # the JAX package's accelerator branch: K2 at f32 grade (it takes
+        # the "exact" selector only off the TPU)
+        return _graph.brute_knn_graph(vecs[:n], sq[:n], kk, metric)
+    gen = torch.Generator(device=vecs.device).manual_seed(seed)
+    return _graph.approx_knn_graph(gen, vecs, sq, kk, metric, n_trees=n_trees,
+                                   max_rounds=max_rounds)
 
 
 class HnswIndex(BaseIndex):
@@ -121,7 +103,7 @@ class HnswIndex(BaseIndex):
         # base layer: degree 2M from the exact kNN graph, rank-pruned, with
         # sampled reverse edges
         build_k = min(max(2 * m, ef_construction // 2), max(n - 1, 1))
-        ids, dists = _build_knn_graph(vecs, sq, build_k, self.metric)
+        ids, dists = _build_knn_graph(vecs, sq, build_k, self.metric, seed, 2, 8)
         mark("base kNN graph")
         deg0 = min(2 * m, build_k)
         pruned = cagra_prune(vecs, sq, ids, dists, deg0, self.metric)
@@ -143,7 +125,7 @@ class HnswIndex(BaseIndex):
             lv_vecs = torch.cat([vecs[gids.long()], torch.zeros((1, self.dim), device=self.device)])
             lv_sq = sq_norms(lv_vecs)
             kk = min(m, max(s - 1, 1))
-            lids, _ = _build_knn_graph(lv_vecs, lv_sq, kk, self.metric)
+            lids, _ = _build_knn_graph(lv_vecs, lv_sq, kk, self.metric, seed + lv, 1, 4)
             graph = torch.cat(
                 [lids, torch.full((1, lids.shape[1]), s, dtype=torch.int32, device=self.device)])
             self.layers.append((gids, graph, lv_vecs, lv_sq))

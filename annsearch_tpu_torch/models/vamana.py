@@ -2,8 +2,9 @@
 
 A flat graph of degree ``r_degree`` built by α-robust pruning and queried by
 beam search from routed entries plus the medoid. As in the JAX package the
-build runs in batched rounds: the exact kNN pool (``hnsw._build_knn_graph``:
-kernel K2 above 4,096 rows) merged with random long-range candidates, a
+build runs in batched rounds: the kNN pool (``hnsw._build_knn_graph``:
+kernel K2 above 4,096 rows, the approximate build above the brute budget)
+merged with random long-range candidates, a
 first prune with reverse edges, then each node's beam-search trail from the
 medoid over that graph merged into its pool, and a second prune with
 reverse edges.
@@ -25,8 +26,8 @@ import torch
 from ..ops.graph import _merge_rows, add_reverse_edges, beam_search, random_init_graph
 from ..ops.topk import topk_smallest
 from ..utils.dist import Dist, fp32_matmul, sq_norms
-from .base import BaseIndex
-from .hnsw import _build_knn_graph, _Marks
+from .base import BaseIndex, _Marks
+from .hnsw import _build_knn_graph
 
 __all__ = ["VamanaIndex", "robust_prune"]
 
@@ -105,11 +106,12 @@ class VamanaIndex(BaseIndex):
     ):
         """``build_k`` (default ``max(48, r_degree)``) neighbours seed each
         node's prune pool; ``n_trees`` and ``max_rounds`` steer the
-        approximate build, which is not ported: accepted and unused below
-        the brute budget. ``verbose`` prints each build stage's seconds
-        (each ending in a synchronise) and keeps them in ``build_times``.
-        The random candidates and reverse-edge slots come from one CPU
-        generator seeded with ``seed``."""
+        approximate build of that pool above the brute budget
+        (``graph.approx_knn_graph``, its draws from a generator on the
+        index's device). ``verbose`` prints each build stage's seconds (each
+        ending in a synchronise) and keeps them in ``build_times``. The
+        random candidates and reverse-edge slots come from one CPU generator
+        seeded with ``seed``."""
         self._capture_f64(mat)
         super().__init__(mat, metric, device)
         n = self.n
@@ -121,7 +123,8 @@ class VamanaIndex(BaseIndex):
         mark = _Marks("vamana", verbose, self.device)
         gen = torch.Generator().manual_seed(seed)
 
-        ids, dists = _build_knn_graph(vecs, sq, build_k, self.metric)
+        ids, dists = _build_knn_graph(vecs, sq, build_k, self.metric, seed, n_trees,
+                                      max_rounds)
         mark("base kNN pool")
         # random long-range candidates give the pool its cross-cluster
         # "highway" edges: a pure kNN pool has none, and pruning can only

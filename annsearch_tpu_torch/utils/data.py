@@ -10,14 +10,22 @@ packages see identical inputs from one seed:
     (``generate_clustered_data_high_dim``), ``lowrank``
     (``generate_low_rank_rotated_data``), ``quantisation``
     (``generate_quantisation_stress``), anything else Gaussian clusters.
+
+And two generators that draw on the device (torch generators; the JAX
+package's device streams cannot be repeated, so these match it in
+distribution, not in values): ``generate_clustered_data_device`` and
+``subsample_with_noise_device``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "generate_clustered_data",
+    "generate_clustered_data_device",
+    "subsample_with_noise_device",
     "generate_clustered_data_high_dim",
     "generate_low_rank_rotated_data",
     "generate_quantisation_stress",
@@ -59,6 +67,53 @@ def generate_clustered_data(
     noise = rng.standard_normal((n_samples, dim))
     data = centres[labels] + noise * stds[labels][:, None]
     return data.astype(np.float32), labels
+
+
+def generate_clustered_data_device(
+    n_samples: int, dim: int, n_clusters: int, seed: int = 42,
+    sentinel: bool = False, device="cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian clusters drawn on ``device``: the distributions of
+    :func:`generate_clustered_data` as the JAX package's device generator
+    draws them (centres U(-7.5, 7.5), stds U(0.5, 2.5), each row's cluster
+    drawn with weight U(0.5, 2.5)), from a torch generator on ``device``
+    seeded with ``seed``. The JAX stream cannot be repeated, so the values
+    differ from the JAX package's. Returns ``(data [n, d] f32, labels [n]
+    int32)``.
+
+    ``sentinel=True`` returns ``[n+1, d]`` with a zero last row and rows
+    0..n−1 equal to the unpadded call, written in place (graph indexes
+    adopt it with ``has_sentinel=True``; appending a row to a table on the
+    card would copy it whole)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centres = torch.rand((n_clusters, dim), generator=gen, device=device) * 15.0 - 7.5
+    stds = torch.rand((n_clusters,), generator=gen, device=device) * 2.0 + 0.5
+    w = torch.rand((n_clusters,), generator=gen, device=device) * 2.0 + 0.5
+    labels = torch.multinomial(w, n_samples, replacement=True, generator=gen)
+    data = torch.empty((n_samples + int(sentinel), dim), device=device)
+    data[:n_samples].normal_(generator=gen)
+    step = 1 << 20
+    for a in range(0, n_samples, step):
+        lab = labels[a : a + step]
+        data[a : a + lab.shape[0]].mul_(stds[lab][:, None]).add_(centres[lab])
+    if sentinel:
+        data[n_samples] = 0.0
+    return data, labels.int()
+
+
+def subsample_with_noise_device(
+    data: torch.Tensor, n_samples: int, seed: int = 42, n_rows: int | None = None,
+) -> torch.Tensor:
+    """Noisy query subsample drawn on ``data``'s device: σ = 0.05, seed
+    offset +1000, as :func:`subsample_with_noise`, from a torch generator
+    (values differ from the JAX package's device stream). ``n_rows``
+    draws from the first rows only (a sentinel-padded table passes ``n``)."""
+    nr = data.shape[0] if n_rows is None else n_rows
+    m = min(n_samples, nr)
+    gen = torch.Generator(device=data.device).manual_seed(seed + 1000)
+    idx = torch.randperm(nr, generator=gen, device=data.device)[:m]
+    noise = torch.randn((m, data.shape[1]), generator=gen, device=data.device)
+    return data[idx] + noise * 0.05
 
 
 def _separated_centres(

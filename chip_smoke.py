@@ -111,6 +111,25 @@ through the cluster scan, and one cosine point; ExhaustiveIndexBinary's
 Hamming tier and exact rerank. Recall@10 on the first 2,000 queries
 against phase 3's exact scan, each above its floor.
 
+Phase 19 forces the approximate graph build (``models.graph.
+BRUTE_BUILD_FLOP_BUDGET`` patched to 0 and restored) on
+``benchmarks/bench_nnd_forced_1m.py``'s workload: 1M × 32d, 100 Gaussian
+clusters drawn on the card (``generate_clustered_data_device(seed=42,
+sentinel=True)``, adopted with ``has_sentinel=True``),
+``NNDescentIndex(k=15, build_k=32, refine_rounds=1)``: the build's seconds
+by stage (each ending in a synchronise), every round's update rate and
+full / sampled state, the draws' share of the rounds, the peak device
+memory, graph recall@15 on 8,192 sampled rows against the exact selector
+(floor 0.985, above the benchmark's done criterion 0.95); 10,000 queries at beam 32
+and 64 beside phase 10's readings; ``validate_index``; then HNSW (m 16)
+and Vamana (r 32) forced on phase 15's 150k × 32d data (recall@15 against
+f64 beside phases 15 and 16), a ``diversify_prob=0.5`` graph and a cosine
+graph, forced. No kernel runs on this path: K2's launches are counted
+around each forced build and must stay 0. Phase 19b runs
+``StreamingExhaustiveIndex`` over phase 3's 1M × 128d rows from a
+temporary ``.vec`` file: 1,000 queries, ids equal to ``ExhaustiveIndex``'s
+up to ties.
+
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
 on its path, its error against the plain version, both times and its
@@ -197,6 +216,20 @@ V_R, V_ALPHA = 32, 1.2
 #: recall@15 against f64 on the 150k workload: HNSW at ef 100, Vamana at
 #: its default beam (the acceptance floors of this slice)
 HNSW_RECALL_MIN, VAMANA_RECALL_MIN = 0.98, 0.97
+# phase 19: benchmarks/bench_nnd_forced_1m.py's forced approximate build
+A_N, A_D, A_CLUSTERS, A_K, A_BUILD_K = 1_000_000, 32, 100, 15, 32
+#: floors of phase 19, each a little under the card's first reading
+#: (NVIDIA H100 80GB HBM3, 700 W) in the comment beside it. The graph's
+#: recall@15 also clears bench_nnd_forced_1m.py's done criterion, 0.95
+A_RECALL_MIN = 0.985                            # 0.991512
+#: the forced graph's beam search (recall@15; validate_index at beam 32)
+A_BEAM_RECALL_MIN = {32: 0.95, 64: 0.98}        # 0.964007, 0.988500
+#: at 150k: HNSW at ef 100 and Vamana at its default beam against f64, the
+#: cosine graph's own recall@15 (a diversified graph drops true neighbours
+#: by design: its recall is printed, not held)
+A_GRAPH150_MIN = {"hnsw": 0.998, "vamana": 0.998, "cosine": 0.99}   # 0.999276, 0.999093, 0.993833
+# phase 19b: the streaming index over phase 3's data, its first 1,000 queries
+S_NQ = 1_000
 # phase 17: the flat quantised indexes on phase 6's data, its first 10k queries
 FQ_NQ = 10_000
 #: recall@10 floors of phase 17 (against the exact f32 scan)
@@ -1851,8 +1884,9 @@ def phase_flat_index(dev) -> dict:
                      index.sqnorms, F_K, Dist.EUCLIDEAN, launches)
 
 
-def phase_graph_queries(dev, index, x_np) -> None:
-    """Phase 10: 10,000 queries on phase 9's index, k 15."""
+def phase_graph_queries(dev, index, x_np) -> dict:
+    """Phase 10: 10,000 queries on phase 9's index, k 15. Returns {beam:
+    (ms, recall)} of the beam search."""
     import annsearch_tpu_torch as at
     from annsearch_tpu_torch.utils.data import subsample_with_noise
 
@@ -1882,16 +1916,18 @@ def phase_graph_queries(dev, index, x_np) -> None:
     print(f"  nav graph (prune to {index.out_deg}, reverse edges, routers) in "
           f"{time.perf_counter() - t0:.2f} s: degree {index.nav_graph.shape[1]}, "
           f"{index.router_ids.shape[0]} routers", flush=True)
-    recalls = {}
+    recalls, readings = {}, {}
     for beam in (None, 64):
         ms, (ids, d) = _wall_ms(lambda: index.query(q, G_K, beam=beam, exact_fallback=False))
         recalls[beam] = check(f"beam {beam}", ids, d)
+        readings[beam or max(32, 2 * G_K)] = (ms, recalls[beam])
         print(f"  beam search, beam {beam or max(32, 2 * G_K)}: {ms:.1f} ms (median of 3) = "
               f"{G_NQ / ms * 1e3:.0f} QPS, recall@{G_K} {recalls[beam]:.6f}", flush=True)
     if recalls[None] < BEAM_RECALL_MIN:
         raise AssertionError(f"beam search recall@{G_K} {recalls[None]:.4f} < {BEAM_RECALL_MIN}")
     if recalls[64] <= recalls[None]:
         raise AssertionError("beam 64 does not beat the default beam")
+    return readings
 
 
 def phase_kmeans_sums(dev) -> None:
@@ -2433,7 +2469,7 @@ def _k2_last_launch(name, vecs, sq, kk) -> float:
 def _graph_build(name, build, warm=True):
     """A build (verbose: each stage ends in a synchronise), after a first
     one where ``warm``, with K2's launches counted from 0 around it.
-    Returns (index, launches)."""
+    Returns (index, launches, build seconds)."""
     from annsearch_tpu_torch.ops import flat_scan_fused as ff
 
     if warm:
@@ -2446,14 +2482,16 @@ def _graph_build(name, build, warm=True):
           f"launches {launches}", flush=True)
     if launches == 0:
         raise AssertionError(f"{name}: the build never launched K2")
-    return index, launches
+    return index, launches, build_s
 
 
-def _graph_runs(name, query, settings, q, truth, n, floors) -> None:
+def _graph_runs(name, query, settings, q, truth, n, floors) -> dict:
     """ms per batch (median of 3) and recall@k against f64 at each setting
-    of ``query(q, setting)``; ``floors`` {setting: least recall}."""
+    of ``query(q, setting)``; ``floors`` {setting: least recall}. Returns
+    {setting: (ms, recall)}."""
     import annsearch_tpu_torch as at
 
+    out = {}
     for s in settings:
         ms, (ids, d) = _wall_ms(lambda: query(q, s))
         _check_ids(f"{name} {s}", ids, d, q.shape[0], truth.shape[1], n)
@@ -2463,6 +2501,8 @@ def _graph_runs(name, query, settings, q, truth, n, floors) -> None:
               f"{recall:.6f}", flush=True)
         if s in floors and recall < floors[s]:
             raise AssertionError(f"{name} at {s}: recall {recall:.6f} < {floors[s]}")
+        out[s] = (ms, recall)
+    return out
 
 
 def _graph_data(dev):
@@ -2487,12 +2527,12 @@ def phase_hnsw(dev, small, x_big, q_big, t_big) -> dict:
 
     t_phase = time.time()
     x, q, truth = small
-    index, launches = _graph_build(
+    index, launches, index_s = _graph_build(
         "hnsw 150k", lambda v: at.build_hnsw_index(x, m=H_M, seed=SEED, verbose=v, device=dev))
     print(f"  hnsw 150k: {index.n_layers} levels, layers {[len(g[0]) for g in index.layers]}, "
           f"base degree {index.base_graph.shape[1]}, {index.memory_usage_bytes():,} bytes",
           flush=True)
-    _graph_runs("hnsw 150k ef", lambda qq, ef: index.query(
+    runs = _graph_runs("hnsw 150k ef", lambda qq, ef: index.query(
         qq, H_K, ef_search=ef, exact_fallback=False), H_EFS, q, truth, H_N,
         {100: HNSW_RECALL_MIN})
     vecs, sq = index.vectors[:H_N], index.sqnorms[:H_N]
@@ -2502,7 +2542,7 @@ def phase_hnsw(dev, small, x_big, q_big, t_big) -> dict:
                       vecs[:16384], vecs, sq, kk, Dist.EUCLIDEAN, launches)
     del index
 
-    big, _ = _graph_build(
+    big, _, _ = _graph_build(
         "hnsw 1M lowrank", lambda v: at.build_hnsw_index(x_big, m=H_M, seed=SEED, verbose=v,
                                                          device=dev), warm=False)
     _graph_runs("hnsw 1M lowrank ef", lambda qq, ef: big.query(
@@ -2516,7 +2556,7 @@ def phase_hnsw(dev, small, x_big, q_big, t_big) -> dict:
           f"{2.0 * 16384 * G_N * H_D / k2_ms / 1e9:.2f} TFLOP/s", flush=True)
     del big, xs, sn
     print(f"  phase 15 took {time.time() - t_phase:.1f} s", flush=True)
-    return entry
+    return entry, runs, index_s
 
 
 def phase_vamana(dev, small, x_big, q_big, t_big) -> dict:
@@ -2528,12 +2568,12 @@ def phase_vamana(dev, small, x_big, q_big, t_big) -> dict:
 
     t_phase = time.time()
     x, q, truth = small
-    index, launches = _graph_build(
+    index, launches, index_s = _graph_build(
         "vamana 150k", lambda v: at.build_vamana_index(x, r_degree=V_R, alpha=V_ALPHA,
                                                        seed=SEED, verbose=v, device=dev))
     print(f"  vamana 150k: degree {index.graph.shape[1]}, medoid {index.medoid}, "
           f"{index.memory_usage_bytes():,} bytes", flush=True)
-    _graph_runs("vamana 150k beam", lambda qq, b: index.query(
+    runs = _graph_runs("vamana 150k beam", lambda qq, b: index.query(
         qq, H_K, beam=b, exact_fallback=False), (None, 64), q, truth, H_N,
         {None: VAMANA_RECALL_MIN})
     vecs, sq = index.vectors[:H_N], index.sqnorms[:H_N]
@@ -2543,7 +2583,7 @@ def phase_vamana(dev, small, x_big, q_big, t_big) -> dict:
                       vecs[:16384], vecs, sq, kk, Dist.EUCLIDEAN, launches)
     del index
 
-    big, _ = _graph_build(
+    big, _, _ = _graph_build(
         "vamana 1M lowrank", lambda v: at.build_vamana_index(
             x_big, r_degree=V_R, alpha=V_ALPHA, seed=SEED, verbose=v, device=dev), warm=False)
     _graph_runs("vamana 1M lowrank beam", lambda qq, b: big.query(
@@ -2551,7 +2591,253 @@ def phase_vamana(dev, small, x_big, q_big, t_big) -> dict:
     _k2_last_launch("vamana 1M lowrank", big.vectors[:G_N], big.sqnorms[:G_N], kk)
     del big
     print(f"  phase 16 took {time.time() - t_phase:.1f} s", flush=True)
-    return entry
+    return entry, runs, index_s
+
+
+def _stage_split(times: dict) -> dict:
+    """Build seconds by stage from a verbose build's ``build_times``: init,
+    k-means, the partition passes, the rounds (their draws apart) and the
+    refinement."""
+    out = {"init": 0.0, "k-means": 0.0, "partition passes": 0.0, "round draws": 0.0,
+           "rounds": 0.0, "refine": 0.0, "other": 0.0}
+    for label, sec in times.items():
+        key = ("init" if label == "random init" else "k-means" if label == "k-means"
+               else "partition passes" if label.startswith("partition")
+               else "round draws" if label.endswith("draws") and label.startswith("round")
+               else "rounds" if label.startswith("round")
+               else "refine" if label.startswith("refine") else "other")
+        out[key] += sec
+    return out
+
+
+def _sampled_graph_recall(index, n, k, sample, metric_name="euclidean"):
+    """Recall@k of ``index.knn_ids`` on ``sample`` rows (a numpy draw from
+    seed 0) against the ``"exact"`` selector (fp32), self excluded."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    dev = index.vectors.device
+    xs = index.vectors[:n]
+    metric = Dist(metric_name)
+    rows = torch.as_tensor(np.random.default_rng(0).choice(n, sample, replace=False), device=dev)
+    te, ie = blocked_query_topk(xs[rows], xs, k + 1, metric,
+                                x_sqnorm=index.sqnorms[:n] if metric == Dist.EUCLIDEAN else None)
+    te = torch.where(ie == rows[:, None], float("inf"), te)
+    truth = torch.gather(ie, 1, torch.sort(te, dim=1, stable=True).indices[:, :k])
+    return at.calculate_recall(truth, index.knn_ids[rows].long()[:, :k], k)
+
+
+def _forced(build):
+    """``build()`` with ``models.graph.BRUTE_BUILD_FLOP_BUDGET`` at 0 (the
+    one patch that forces NNDescent, HNSW and Vamana onto the approximate
+    build), restored after; K2's launches counted around it must stay 0.
+    Returns (index, seconds ending in a synchronise)."""
+    import annsearch_tpu_torch.models.graph as tmg
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+
+    saved = tmg.BRUTE_BUILD_FLOP_BUDGET
+    tmg.BRUTE_BUILD_FLOP_BUDGET = 0
+    ff.flat_topk_fused.launches = 0
+    try:
+        sec, index = _timed(build)
+    finally:
+        tmg.BRUTE_BUILD_FLOP_BUDGET = saved
+    if ff.flat_topk_fused.launches:
+        raise AssertionError("a forced build launched K2: the budget patch did not hold")
+    return index, sec
+
+
+def _profile_round(index) -> None:
+    """Where a full-width NN-descent round's time goes: one more round of
+    ``index``'s graph (every edge new, every block, as its refinement runs
+    it) under ``utils.profiling.device_trace``; the device's busy share of
+    the round's wall time and the kernels that take the most of it."""
+    import tempfile
+
+    from annsearch_tpu_torch.models.graph import _nnd_tile
+    from annsearch_tpu_torch.ops.graph import (
+        NND_R_NEW, NND_R_OLD, nnd_cand_width, nnd_draws, nnd_round_chunked,
+    )
+    from annsearch_tpu_torch.utils.profiling import device_trace
+
+    n, kk, dev = index.n, index.k_build, index.device
+    c_act = (kk + NND_R_NEW + NND_R_OLD) * kk
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flags = torch.ones((n, kk), dtype=torch.bool, device=dev)
+    draws_s, draws = _timed(lambda: nnd_draws(gen, index.knn_ids, flags))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_trace(tmp) as prof:
+            nnd_round_chunked(gen, index.vectors, index.sqnorms, index.knn_ids,
+                              index.knn_dists, kk, index.metric, new_in=flags, c_active=c_act,
+                              tile=_nnd_tile(nnd_cand_width(kk, c_act), index.dim),
+                              row_chunk=n, rev=draws[0], rev2=draws[1], noise=draws[2])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the kernels themselves: an aten op's device time repeats its kernels',
+    # and "Command Buffer Full" marks a full launch queue, not work
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.key != "Command Buffer Full"]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(dev_us(e) for e in events) / 1e6
+    print(f"  one full round (width {nnd_cand_width(kk, c_act)}, tile "
+          f"{_nnd_tile(nnd_cand_width(kk, c_act), index.dim)}) under the profiler: {wall:.3f} s "
+          f"wall, device busy {busy:.3f} s ({busy / wall:.4f}); its draws alone {draws_s:.3f} s",
+          flush=True)
+    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+        print(f"    {dev_us(e) / 1e3:10.1f} ms {dev_us(e) / 1e6 / max(busy, 1e-9):7.4f}  "
+              f"{e.key[:90]}", flush=True)
+    # the round's candidate gather alone on one tile's shape (the round
+    # indexes; index_select is the same gather kernel)
+    tile = _nnd_tile(nnd_cand_width(kk, c_act), index.dim)
+    idx = torch.randint(0, n, (tile, nnd_cand_width(kk, c_act)), device=dev)
+    adv = _cuda_ms(lambda: index.vectors[idx])
+    sel = _cuda_ms(lambda: index.vectors.index_select(0, idx.reshape(-1)))
+    gb = idx.numel() * index.dim * 4 / 1e9
+    print(f"  one tile's candidate gather ({idx.shape[0]} x {idx.shape[1]} rows of "
+          f"{index.dim * 4} B, {gb:.3f} GB written): advanced indexing {adv:.3f} ms, "
+          f"index_select {sel:.3f} ms", flush=True)
+
+
+def phase_approx_graph(dev, small, exact_readings) -> None:
+    """Phase 19: the approximate graph build above the brute budget,
+    forced (``benchmarks/bench_nnd_forced_1m.py``'s workload: 1M × 32d, 100
+    Gaussian clusters from ``generate_clustered_data_device(seed=42,
+    sentinel=True)``, ``NNDescentIndex(k=15, build_k=32, refine_rounds=1)``)
+    with its stage seconds, rounds, draws' share and peak memory; recall@15
+    on 8,192 sampled rows; 10,000 queries at beam 32 and 64; validate_index;
+    then HNSW, Vamana, a diversified and a cosine graph forced on phase 15's
+    150k × 32d data. ``exact_readings``: phases 10, 15 and 16's readings of
+    the exactly built graphs, printed beside these."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.graph import NNDescentIndex
+    from annsearch_tpu_torch.utils.data import (
+        generate_clustered_data_device,
+        subsample_with_noise_device,
+    )
+
+    t_phase = time.time()
+    x, _ = generate_clustered_data_device(A_N, A_D, A_CLUSTERS, seed=SEED, sentinel=True,
+                                          device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    index, build_s = _forced(lambda: NNDescentIndex(
+        x, k=A_K, build_k=A_BUILD_K, refine_rounds=1, has_sentinel=True, verbose=True,
+        device=dev))
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    split = _stage_split(index.build_times)
+    rounds = [k for k in index.build_times if k.startswith("round") and not k.endswith("draws")]
+    per_round = split["rounds"] + split["round draws"]
+    print(f"  forced build {A_N}x{A_D}, k {A_K}, build_k {A_BUILD_K}, refine 1: {build_s:.3f} s; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    print(f"  {len(rounds)} rounds ({sum('full' in r for r in rounds)} full): "
+          + "; ".join(rounds), flush=True)
+    print(f"  the draws' share of the rounds: {split['round draws']:.3f} of {per_round:.3f} s "
+          f"= {split['round draws'] / max(per_round, 1e-9):.4f}; peak device memory above "
+          f"the data {peak / 2**30:.3f} GiB", flush=True)
+    ids, d = index.knn_ids.long(), index.knn_dists
+    if ids.shape != (A_N, A_BUILD_K) or not torch.isfinite(d).all() or (d.diff(dim=1) < 0).any():
+        raise AssertionError("forced graph rows not finite and ascending")
+    if ids.min() < 0 or ids.max() >= A_N or (ids == torch.arange(A_N, device=dev)[:, None]).any():
+        raise AssertionError("forced graph ids out of range, or a self id")
+    recall = _sampled_graph_recall(index, A_N, A_K, G_SAMPLE)
+    print(f"  graph recall@{A_K} on {G_SAMPLE} sampled rows against the exact selector: "
+          f"{recall:.6f} (floor {A_RECALL_MIN})", flush=True)
+    if recall < A_RECALL_MIN:
+        raise AssertionError(f"forced graph recall@{A_K} {recall:.6f} < {A_RECALL_MIN}")
+    _profile_round(index)
+
+    q = subsample_with_noise_device(x, G_NQ, seed=SEED, n_rows=A_N)
+    truth, _ = at.build_exhaustive_index(index.vectors[:A_N], device=dev).query(q, A_K)
+    nav_s, _ = _timed(index._ensure_nav)
+    print(f"  nav graph in {nav_s:.2f} s", flush=True)
+    for beam in (32, 64):
+        ms, (qi, qd) = _wall_ms(lambda: index.query(q, A_K, beam=beam, exact_fallback=False))
+        _check_ids(f"forced graph beam {beam}", qi, qd, G_NQ, A_K, A_N)
+        r = at.calculate_recall(truth, qi, A_K)
+        e_ms, e_r = exact_readings["phase 10"][beam]
+        print(f"  beam {beam}: {ms:.1f} ms a batch of {G_NQ} (median of 3), recall@{A_K} "
+              f"{r:.6f}; phase 10's exactly built lowrank graph: {e_ms:.1f} ms at {e_r:.6f}",
+              flush=True)
+        if r < A_BEAM_RECALL_MIN[beam]:
+            raise AssertionError(f"forced graph beam {beam}: recall {r:.6f} < "
+                                 f"{A_BEAM_RECALL_MIN[beam]}")
+    v = at.validate_index(index, k=A_K, exact_fallback=False)
+    print(f"  validate_index (1,000 stored rows, k {A_K}, beam search): {v:.6f}", flush=True)
+    if v < A_BEAM_RECALL_MIN[32]:
+        raise AssertionError(f"validate_index {v:.6f} < {A_BEAM_RECALL_MIN[32]}")
+    del index, x, q, truth
+
+    xs, qs, ts = small
+    for name, build, query, setting, exact in (
+        ("hnsw", lambda: at.build_hnsw_index(xs, m=H_M, seed=SEED, verbose=True, device=dev),
+         lambda ix: ix.query(qs, H_K, ef_search=100, exact_fallback=False), "ef 100",
+         exact_readings["phase 15"]),
+        ("vamana", lambda: at.build_vamana_index(xs, r_degree=V_R, alpha=V_ALPHA, seed=SEED,
+                                                 verbose=True, device=dev),
+         lambda ix: ix.query(qs, H_K, exact_fallback=False), "the default beam",
+         exact_readings["phase 16"]),
+    ):
+        ix, sec = _forced(build)
+        ms, (qi, qd) = _wall_ms(lambda: query(ix))
+        _check_ids(f"forced {name}", qi, qd, H_NQ, H_K, H_N)
+        r = at.calculate_recall(ts, qi, H_K)
+        split = ", ".join(f"{k} {t:.3f}" for k, t in ix.build_times.items())
+        print(f"  forced {name} 150k: build {sec:.3f} s ({split}); {setting}: {ms:.1f} ms, "
+              f"recall@{H_K} against f64 {r:.6f}; built exactly (phase {15 if name == 'hnsw' else 16}): "
+              f"build {exact[0]:.3f} s, {exact[1]:.1f} ms at {exact[2]:.6f}", flush=True)
+        if r < A_GRAPH150_MIN[name]:
+            raise AssertionError(f"forced {name}: recall {r:.6f} < {A_GRAPH150_MIN[name]}")
+        del ix
+    for name, metric, prob in (("diversified", "euclidean", 0.5), ("cosine", "cosine", 0.0)):
+        ix, sec = _forced(lambda: NNDescentIndex(xs, metric, k=H_K, diversify_prob=prob,
+                                                 seed=SEED, device=dev))
+        kept = float((ix.knn_ids < H_N).float().mean())
+        r = _sampled_graph_recall(ix, H_N, H_K, 2_000, metric)
+        print(f"  forced {name} graph 150k (k {H_K}, build_k {ix.k_build}): build {sec:.3f} s, "
+              f"edges kept {kept:.4f}, graph recall@{H_K} on 2,000 rows {r:.6f}", flush=True)
+        if name == "diversified":
+            live = ix.knn_ids < H_N
+            if not 0.0 < kept < 1.0 or (live[:, 1:] & ~live[:, :-1]).any() \
+                    or not torch.isinf(ix.knn_dists[~live]).all():
+                raise AssertionError("diversified rows: not kept edges first, then (n, inf)")
+        elif r < A_GRAPH150_MIN[name]:
+            raise AssertionError(f"forced {name} graph: recall {r:.6f} < {A_GRAPH150_MIN[name]}")
+        del ix
+    print(f"  phase 19 took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def phase_streaming(dev, x, q, ti) -> None:
+    """Phase 19b: StreamingExhaustiveIndex over phase 3's 1M × 128d rows from
+    a temporary ``.vec`` file, its first 1,000 queries: ids equal to
+    ExhaustiveIndex's up to ties (phase 3's exact scan), ms a batch."""
+    import tempfile
+
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.models.streaming import StreamingExhaustiveIndex
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        s = StreamingExhaustiveIndex.write(os.path.join(tmp, "rows"), x.cpu().numpy(), device=dev)
+        print(f"  wrote {s.n}x{s.dim} rows in {time.time() - t0:.1f} s", flush=True)
+        ms, (si, sd) = _wall_ms(lambda: s.query(q[:S_NQ], K), reps=1)
+        ei, ed = at.build_exhaustive_index(x, device=dev).query(q[:S_NQ], K)
+        del s
+    same = (si == ei)
+    tie = (sd - ed).abs() <= 1e-5 * (1.0 + ed.abs())
+    print(f"  streaming, {S_NQ} queries, k {K}: {ms:.1f} ms (one timed run after a warm-up); "
+          f"ids equal to ExhaustiveIndex's on {same.float().mean():.6f} of slots, every other "
+          f"slot a tie: {bool((same | tie).all())}; recall@{K} against phase 3's scan "
+          f"{at.calculate_recall(ti[:S_NQ], si, K):.6f}", flush=True)
+    if not bool((same | tie).all()) or not torch.isfinite(sd).all():
+        raise AssertionError("streaming ids differ from ExhaustiveIndex's beyond ties")
 
 
 def phase_flat_quantised(dev, x, q) -> None:
@@ -2974,7 +3260,7 @@ def main() -> int:
     phase("9: the kNN graph, 1M x 32d lowrank, k 15 (NNDescentIndex, K2)")
     k2, graph_index, graph_x = phase_knn_graph(dev)
     phase("10: 10,000 queries on the graph index: exact fallback and beam search")
-    phase_graph_queries(dev, graph_index, graph_x)
+    beam_readings = phase_graph_queries(dev, graph_index, graph_x)
     del graph_index
     graph_q = subsample_with_noise(graph_x, G_NQ, seed=SEED)
     phase("11: Annoy and kd-forest, 500k x 32d, 16 trees, self-queries (K1-groups)")
@@ -2991,10 +3277,16 @@ def main() -> int:
     t_big = _f64_truth(x_big, q_big, H_K)
     del graph_x, graph_q
     phase("15: HNSW, 150k x 32d (m 16) and 1M x 32d lowrank (K2 base graphs)")
-    k2_hnsw = phase_hnsw(dev, small, x_big, q_big, t_big)
+    k2_hnsw, h_runs, h_s = phase_hnsw(dev, small, x_big, q_big, t_big)
     phase("16: Vamana, r 32, alpha 1.2, on phase 15's data (K2 base pools)")
-    k2_vamana = phase_vamana(dev, small, x_big, q_big, t_big)
-    del small, x_big, q_big, t_big
+    k2_vamana, v_runs, v_s = phase_vamana(dev, small, x_big, q_big, t_big)
+    del x_big, q_big, t_big
+    phase("19: the approximate graph build, forced: 1M x 32d NNDescent; HNSW, Vamana, "
+          "diversified and cosine graphs at 150k")
+    phase_approx_graph(dev, small, {
+        "phase 10": beam_readings, "phase 15": (h_s, *h_runs[100]),
+        "phase 16": (v_s, *v_runs[None])})
+    del small
     phase("9b: the flat index, 100k x 128d self-query, k 10, three selectors")
     k2_flat = phase_flat_index(dev)
 
@@ -3024,6 +3316,8 @@ def main() -> int:
     phase_pq_residual(dev, x, q, ti, pq_recall)
     phase("18: the binary family: RaBitQ, IVF and flat binary, the mmap store; 1M x 128d")
     binary = phase_binary(dev, x, q, ti)
+    phase("19b: StreamingExhaustiveIndex over phase 3's rows from a .vec file, 1,000 queries")
+    phase_streaming(dev, x, q, ti)
     del x, q
 
     phase("6: IvfIndex, IvfIndexBf16, IvfSq8Index 1M x 256d, nlist 1024")

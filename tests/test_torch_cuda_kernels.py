@@ -1085,3 +1085,42 @@ def test_binary_indexes_on_the_card_match_the_cpu(dev, kind):
     gi, gd = gpu.query(q, 10, nprobe=8, rerank="exact", exact_fallback=False)
     ci, cd = cpu.query(q, 10, nprobe=8, rerank="exact", exact_fallback=False)
     assert (gi.cpu() == ci).float().mean().item() >= 0.99
+
+
+def test_forced_nndescent_build_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The approximate build (``BRUTE_BUILD_FLOP_BUDGET`` patched to 0) of
+    20,000 rows on the card and on the CPU: each draws its own stream on
+    its device, so the graphs are held to recall@10 against one exact
+    truth, at least 0.95 each and within 0.01 of each other."""
+    import annsearch_tpu_torch as at
+    import annsearch_tpu_torch.models.graph as tmg
+    from annsearch_tpu_torch.utils.data import generate_clustered_data
+
+    x, _ = generate_clustered_data(20000, 32, 20, seed=6)
+    monkeypatch.setattr(tmg, "BRUTE_BUILD_FLOP_BUDGET", 0)
+    gpu = tmg.NNDescentIndex(x, k=10, seed=1, device=dev)
+    cpu = tmg.NNDescentIndex(x, k=10, seed=1, device="cpu")
+    monkeypatch.undo()
+    truth, _ = at.build_exhaustive_index(x, device="cpu").query(x, 11)
+    truth = truth[:, 1:]
+    rg = at.calculate_recall(truth, gpu.knn_ids[:, :10].cpu().long(), 10)
+    rc = at.calculate_recall(truth, cpu.knn_ids[:, :10].long(), 10)
+    assert rg >= 0.95 and rc >= 0.95 and abs(rg - rc) <= 0.01, (rg, rc)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_streaming_on_the_card_equals_the_cpu(dev, metric):
+    """StreamingExhaustiveIndex on the card against the CPU (chunks of
+    3,000 rows, a ragged last one): ids ≥ 99.9% equal, distances within
+    1e-4·(1 + |d|)."""
+    from annsearch_tpu_torch.models.streaming import StreamingExhaustiveIndex
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    x, _ = generate_clustered_data(20000, 64, 12, seed=8)
+    x = x * np.float32(0.125)
+    q = subsample_with_noise(x, 500, seed=8)
+    gi, gd = StreamingExhaustiveIndex(x, metric, device=dev).query(q, 10, chunk_rows=3000)
+    ci, cd = StreamingExhaustiveIndex(x, metric, device="cpu").query(q, 10, chunk_rows=3000)
+    assert gi.device.type == "cuda"
+    assert (gi.cpu() == ci).float().mean() >= 0.999
+    assert torch.all((gd.cpu() - cd).abs() <= 1e-4 * (1.0 + cd.abs()))

@@ -169,7 +169,7 @@ def test_base_knn_graph_against_jax(hdata, monkeypatch, regime, metric):
     ji, jd = (np.asarray(a) for a in jhnsw_mod._build_knn_graph(
         jax.random.key(0), jnp.asarray(vecs), jnp.asarray(sq), 50, jm, 2, 8))
     ti, td = thnsw_mod._build_knn_graph(torch.as_tensor(vecs), torch.as_tensor(sq), 50,
-                                       Dist(metric))
+                                       Dist(metric), 0, 2, 8)
     ti, td = ti.numpy(), td.numpy()
     assert ti.shape == ji.shape == (3000, 50) and ti.dtype == np.int32
     assert (ti == ji).mean() >= 0.999
@@ -178,12 +178,27 @@ def test_base_knn_graph_against_jax(hdata, monkeypatch, regime, metric):
     assert np.all(np.abs(dp - dj) <= 1e-4 * (1.0 + np.abs(dj)))
 
 
-def test_above_the_budget_names_p5(monkeypatch):
+def test_above_the_budget_builds_approximately(monkeypatch):
+    """Above ``graph.BRUTE_BUILD_FLOP_BUDGET`` (patched in the graph module,
+    read at build time) every layer past ``EXACT_LAYER_MAX`` is built by
+    ``approx_knn_graph``: the base layer's kNN graph keeps its shape, no
+    self edge, ascending rows, and most of the exact graph's edges."""
+    import annsearch_tpu_torch.models.graph as tgraph_mod
+
     monkeypatch.setattr(thnsw_mod, "EXACT_LAYER_MAX", 10)
-    monkeypatch.setattr(thnsw_mod, "BRUTE_BUILD_FLOP_BUDGET", 100)
-    x = np.random.default_rng(0).standard_normal((50, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP P5"):
-        HnswIndex(x, m=4, device="cpu")
+    monkeypatch.setattr(tgraph_mod, "BRUTE_BUILD_FLOP_BUDGET", 100)
+    x = np.random.default_rng(0).standard_normal((300, 8)).astype(np.float32)
+    vecs = torch.cat([torch.as_tensor(x), torch.zeros((1, 8))])
+    sq = (vecs * vecs).sum(1)
+    ti, td = thnsw_mod._build_knn_graph(vecs, sq, 8, Dist.EUCLIDEAN, 0, 2, 8)
+    assert ti.shape == (300, 8) and (ti.long() != torch.arange(300)[:, None]).all()
+    assert (td.diff(dim=1) >= 0).all()
+    d = ((x[:, None, :] - x[None]) ** 2).sum(-1)
+    np.fill_diagonal(d, np.inf)
+    exact = np.argsort(d, 1)[:, :8]
+    assert np.mean([len(set(a) & set(b)) / 8 for a, b in zip(ti.numpy(), exact)]) >= 0.9
+    h = HnswIndex(x, m=4, device="cpu")
+    assert h.base_graph.shape[0] == 301
 
 
 @pytest.fixture(scope="module", params=["euclidean", "cosine"])

@@ -301,15 +301,22 @@ def test_f64_build_and_queries(gdata, metric):
     assert t.query(q64.astype(np.float32), 5)[1].dtype == torch.float32
 
 
-def test_unported_build_options_raise(gdata, monkeypatch):
+def test_build_options_apply_at_every_size(gdata, monkeypatch):
+    """``refine_rounds`` and ``diversify_prob`` build at every size, as in
+    the JAX package: below the budget refinement is ignored and
+    diversification prunes the exact graph; above it (the budget patched
+    to 0) the approximate build takes both."""
     x = gdata[0][:200]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NNDescentIndex(x, k=5, refine_rounds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NNDescentIndex(x, k=5, diversify_prob=0.5, device="cpu")
+    exact = NNDescentIndex(x, k=5, device="cpu")
+    refined = NNDescentIndex(x, k=5, refine_rounds=1, device="cpu")
+    assert torch.equal(exact.knn_ids, refined.knn_ids)
+    div = NNDescentIndex(x, k=5, diversify_prob=0.5, device="cpu")
+    kept = div.knn_ids < 200
+    assert 0 < kept.float().mean() < 1 and (kept[:, :-1] >= kept[:, 1:]).all()
+    assert torch.isinf(div.knn_dists[~kept]).all()
     monkeypatch.setattr(tgraph, "BRUTE_BUILD_FLOP_BUDGET", 0)
-    with pytest.raises(NotImplementedError, match="approx_knn_graph"):
-        NNDescentIndex(x, k=5, device="cpu")
+    approx = NNDescentIndex(x, k=5, refine_rounds=1, diversify_prob=0.5, device="cpu")
+    assert approx.knn_ids.shape == (200, 10) and (approx.knn_ids < 200).any()
 
 
 def test_facade_rows(gdata):
