@@ -17,6 +17,9 @@ Layout:
     k-means
   * ``utils``   — distances, synthetic data (host and device), metrics,
     validation, profiling
+  * ``parallel`` — the sharding layer: grids of logical shards on one card,
+    carried across ``torch.distributed`` ranks (sharded exhaustive, IVF,
+    IVF-PQ and graph indexes)
   * ``interop`` — index state carried over from the JAX package
 """
 

@@ -29,7 +29,12 @@ packed codes (the JAX package's uint32 words, held here as int32 bit
 patterns) and IVF layout, ``exhaustive_rabitq_from_jax_arrays`` and
 ``ivf_rabitq_from_jax_arrays`` the RaBitQ indexes from their rotation,
 codes, ``‖x − c‖`` and ``aux_corr``; each with its vector store (the
-device rows, or an mmap store re-opened by its path). Both
+device rows, or an mmap store re-opened by its path).
+``sharded_ivf_from_jax_arrays``, ``sharded_ivf_pq_from_jax_arrays`` and
+``sharded_graph_from_jax_arrays`` build the sharded indexes of
+``parallel/`` on a grid of logical shards from the global arrays of a JAX
+sharded index (``np.asarray`` of its attributes: the JAX classes have no
+``save``), each rank keeping its own shards. Both
 packages then query the same centroids and cells, trees, tables or codes,
 or walk the same graph from the same routers, so differences between their
 random streams drop out of a comparison.
@@ -57,6 +62,9 @@ __all__ = [
     "exhaustive_binary_from_jax_arrays", "ivf_binary_from_jax_arrays",
     "exhaustive_rabitq_from_jax_arrays", "ivf_rabitq_from_jax_arrays",
     "IVF_BINARY_SCALARS", "RABITQ_ARRAYS",
+    "sharded_ivf_from_jax_arrays", "sharded_ivf_pq_from_jax_arrays",
+    "sharded_graph_from_jax_arrays", "SHARDED_IVF_ARRAYS", "SHARDED_IVF_SCALARS",
+    "SHARDED_GRAPH_ARRAYS", "SHARDED_GRAPH_SCALARS",
 ]
 
 IVF_ARRAYS = (
@@ -608,3 +616,112 @@ def ivf_rabitq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, device
     from .models.binary.rabitq import IvfIndexRaBitQ
 
     return _rabitq_state(IvfIndexRaBitQ, arrays, meta, device)
+
+
+#: state of a ShardedIvfIndex: ``np.asarray`` of the JAX index's attributes
+#: (the per-shard arrays with their leading shard axis)
+SHARDED_IVF_ARRAYS = ("centroids", "storage", "store_sqnorms", "offsets", "counts",
+                      "original_ids")
+SHARDED_IVF_SCALARS = ("n", "dim", "nlist", "cell_cap")
+#: state of a ShardedGraphIndex (``vectors`` and the graphs row-sharded:
+#: ``[P·m, ...]``)
+SHARDED_GRAPH_ARRAYS = ("vectors", "knn_ids_local", "knn_dists", "nav_local")
+SHARDED_GRAPH_SCALARS = ("n", "dim", "k_build", "out_deg", "seed")
+
+
+def _local_shards(a, mesh, dtype=None):
+    """This rank's shards of a global ``[P, ...]`` array, on the mesh's card
+    (in ``dtype``, or the array's own)."""
+    t = torch.tensor(np.asarray(a))
+    t = t if dtype is None else t.to(dtype)
+    lo = mesh.rank * mesh.n_local
+    return t[lo : lo + mesh.n_local].to(mesh.device).contiguous()
+
+
+def _sharded_ivf_state(cls, arrays, meta, mesh, mode: str):
+    from .utils.dist import parse_ann_dist
+
+    _require(cls.__name__, arrays, meta, SHARDED_IVF_ARRAYS, SHARDED_IVF_SCALARS)
+    p = mesh.n_shards
+    storage = np.asarray(arrays["storage"])
+    if storage.shape[0] != p:
+        raise ValueError(f"the state holds {storage.shape[0]} shards, the mesh {p}")
+    obj = cls.__new__(cls)
+    obj.mesh = mesh
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    for name in SHARDED_IVF_SCALARS:
+        setattr(obj, name, int(meta[name]))
+    obj.mode = mode
+    obj.centroids = _tensor(arrays["centroids"], torch.float32, mesh.device)
+    obj.storage = _local_shards(storage, mesh)
+    obj.store_sqnorms = _local_shards(arrays["store_sqnorms"], mesh, torch.float32)
+    for name in ("offsets", "counts", "original_ids"):
+        setattr(obj, name, _local_shards(arrays[name], mesh, torch.int32))
+    obj.shard_rows = int(obj.original_ids.shape[1])
+    obj._shard_valid = [min(max(obj.n - s * obj.shard_rows, 0), obj.shard_rows)
+                        for s in range(p)]
+    return obj
+
+
+def sharded_ivf_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, mesh):
+    """``parallel.ShardedIvfIndex`` on ``mesh`` (P equal to the JAX
+    index's shard count) from :data:`SHARDED_IVF_ARRAYS` (``storage`` f32)
+    and :data:`SHARDED_IVF_SCALARS` (plus ``metric``)."""
+    from .parallel import ShardedIvfIndex
+
+    return _sharded_ivf_state(ShardedIvfIndex, arrays, meta, mesh, "f32")
+
+
+def sharded_ivf_pq_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, mesh):
+    """``parallel.ShardedIvfPqIndex`` on ``mesh`` from a JAX index's state:
+    :data:`SHARDED_IVF_ARRAYS` plus ``codebooks`` (its ``pq.codebooks``)
+    and, in mode ``i8dec_residual`` (int8 ``storage``), ``dec_scales``;
+    ``meta`` adds ``mode``."""
+    from .models.quantised.quantisers import ProductQuantiser
+    from .parallel import ShardedIvfPqIndex
+
+    mode = meta["mode"]
+    if mode not in ("i8dec_residual", "pq_residual"):
+        raise ValueError(f"unknown ShardedIvfPqIndex mode {mode!r}")
+    obj = _sharded_ivf_state(ShardedIvfPqIndex, arrays, meta, mesh, mode)
+    books = _tensor(arrays["codebooks"], torch.float32, mesh.device)
+    obj._m = int(books.shape[0])
+    obj.pq = ProductQuantiser(books, obj._m, obj.dim)
+    obj.dec_scales = None
+    if mode == "i8dec_residual":
+        obj.dec_scales = _tensor(arrays["dec_scales"], torch.float32, mesh.device)
+    return obj
+
+
+def sharded_graph_from_jax_arrays(arrays: dict[str, np.ndarray], meta: dict, mesh):
+    """``parallel.ShardedGraphIndex`` on ``mesh`` from the JAX index's
+    :data:`SHARDED_GRAPH_ARRAYS` (row-sharded ``[P·m, ...]``) and
+    :data:`SHARDED_GRAPH_SCALARS` (``seed`` is its ``_seed``, which draws
+    the routers; plus ``metric``)."""
+    from .parallel import ShardedGraphIndex
+    from .utils.dist import parse_ann_dist
+
+    _require("ShardedGraphIndex", arrays, meta, SHARDED_GRAPH_ARRAYS, SHARDED_GRAPH_SCALARS)
+    p = mesh.n_shards
+    vectors = np.asarray(arrays["vectors"], dtype=np.float32)
+    if vectors.shape[0] % p:
+        raise ValueError(f"{vectors.shape[0]} rows do not split into {p} shards")
+    m = vectors.shape[0] // p
+    obj = ShardedGraphIndex.__new__(ShardedGraphIndex)
+    obj.mesh = mesh
+    obj.metric = parse_ann_dist(meta.get("metric", "euclidean"))
+    obj.n, obj.dim = int(meta["n"]), int(meta["dim"])
+    obj.k_build, obj.out_deg = int(meta["k_build"]), int(meta["out_deg"])
+    obj._seed = int(meta["seed"])
+    obj._router_idx = None
+    obj.n_pad, obj.shard_rows = vectors.shape[0], m
+
+    def shards(name, dtype):
+        a = np.asarray(arrays[name])
+        return _local_shards(a.reshape((p, m) + a.shape[1:]), mesh, dtype)
+
+    obj.vectors = shards("vectors", torch.float32)
+    obj.knn_ids_local = shards("knn_ids_local", torch.int32)
+    obj.knn_dists = shards("knn_dists", torch.float32)
+    obj.nav_local = shards("nav_local", torch.int32)
+    return obj

@@ -134,6 +134,10 @@ class BaseIndex:
     def query(self, query_mat: Any, k: int, **kw):
         raise NotImplementedError
 
+    def generate_knn(self, k: int, **kw):
+        """Self-query: the kNN rows of every stored vector (self included)."""
+        raise NotImplementedError
+
     def vectors_original_order(self) -> torch.Tensor:
         """The stored rows in original order on the index's device: row i is
         the row ``query`` returns as id i (indexes that reorder or pad their

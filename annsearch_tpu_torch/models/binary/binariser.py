@@ -123,6 +123,16 @@ class Binariser:
             total += self.mean.numel() * 4
         return total
 
+    def state(self) -> dict:
+        """The binariser's state as host numpy arrays: the keywords of
+        :meth:`from_state` (the JAX package's ``state``)."""
+        out = {"n_bits": np.int64(self.n_bits), "mode": self.mode}
+        if self.projections is not None:
+            out["projections"] = self.projections.cpu().numpy()
+        if self.mean is not None:
+            out["mean"] = self.mean.cpu().numpy()
+        return out
+
     @classmethod
     def from_state(cls, n_bits, mode, projections=None, mean=None, device="cuda"):
         """A binariser from carried state (numpy arrays, e.g. a JAX

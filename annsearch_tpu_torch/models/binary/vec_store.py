@@ -159,3 +159,7 @@ class MmapVectorStore:
     def memory_usage_bytes(self) -> int:
         # on disk, not in host or device memory
         return 0
+
+    def file_size_bytes(self) -> int:
+        """Bytes of the ``.vec`` file on disk."""
+        return os.path.getsize(self.path + ".vec")

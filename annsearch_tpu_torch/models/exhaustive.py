@@ -21,7 +21,11 @@ __all__ = ["ExhaustiveIndex"]
 class ExhaustiveIndex(BaseIndex):
     """Flat index: exact top-k via full scan."""
 
-    def __init__(self, mat: Any, metric: str = "euclidean", device="cuda"):
+    def __init__(self, mat: Any, metric: str = "euclidean", precision="highest",
+                 device="cuda"):
+        """``precision`` is accepted and ignored: every scan is f32 grade
+        (an fp32 matmul with TF32 off), the JAX package's default
+        ``HIGHEST``."""
         super().__init__(mat, metric, device)
         self._x64 = host_f64(mat)
 

@@ -340,6 +340,7 @@ class NNDescentIndex(BaseIndex):
         iters: int | None = None,
         expand: int = 4,
         n_entries: int = 8,
+        seed: int | None = None,
         query_block: int = 1024,
         exact_fallback: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -348,7 +349,8 @@ class NNDescentIndex(BaseIndex):
         ``exact_fallback=False``; the rest walk the navigable graph by beam
         search: ``beam`` defaults to ``max(32, 2k)``, ``iters`` to
         ``max(8, beam // 4)``. f64 queries to an index built from f64 data
-        are answered at f64 grade."""
+        are answered at f64 grade. ``seed`` is accepted and ignored, as in
+        the JAX package (the entries are routed, not drawn)."""
         r = self._f64_roundtrip(
             query_mat, k, beam=beam, iters=iters, expand=expand,
             n_entries=n_entries, query_block=query_block,

@@ -68,12 +68,14 @@ _RESCORED_MODES = ("f32", "bf16")
 
 
 def route_to_cells(
-    q: torch.Tensor, centroids: torch.Tensor, nprobe: int, metric: Dist
+    q: torch.Tensor, centroids: torch.Tensor, nprobe: int, metric: Dist,
+    precision=None,
 ) -> torch.Tensor:
     """The ``nprobe`` nearest centroids per query, ``[nq, nprobe]`` int64.
 
     fp32 matmul with TF32 off, so the JAX package's HIGHEST routing of
-    certified queries (``route_hi``) is what every query gets here. The
+    certified queries (``route_hi``) is what every query gets here:
+    ``precision`` is accepted and ignored. The
     selection is a stable sort, so equal distances go to the lower index:
     the segment centroids of a split cell are exact duplicates, and
     ``torch.topk`` promises no tie order."""

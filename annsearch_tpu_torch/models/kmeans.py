@@ -24,6 +24,7 @@ __all__ = [
     "train_centroids_minibatch",
     "assign_clusters",
     "cluster_sums",
+    "build_cells",
     "SegmentLayout",
     "segment_layout",
     "expand_probes_to_segments",
@@ -115,6 +116,7 @@ def _lloyd(
     max_iters: int,
     tol: float,
     spherical: bool,
+    chunk: int = 65536,
 ) -> torch.Tensor:
     """Full-GEMM Lloyd iterations; empty clusters keep their centroid,
     ``spherical`` renormalises each iteration. Stops when the total squared
@@ -124,7 +126,7 @@ def _lloyd(
     it = 0
     shift = float("inf")
     while it < max_iters and shift > tol:
-        a, _ = _assign_chunked(x, c, xs)
+        a, _ = _assign_chunked(x, c, xs, chunk)
         sums, counts = cluster_sums(x, a, k)
         counts = counts.to(x.dtype)
         new_c = torch.where(
@@ -145,23 +147,27 @@ def train_centroids(
     max_iters: int = 30,
     seed: int = 42,
     tol: float = 1e-4,
+    sample: bool = True,
+    chunk: int = 65536,
 ) -> torch.Tensor:
     """Train ``k`` centroids on a sample of at most min(256k, 250k) rows of
-    ``x``: seed, then Lloyd. Cosine expects normalised ``x`` and returns
+    ``x`` (all rows with ``sample=False``): seed, then Lloyd, assigning
+    ``chunk`` rows at a time. Cosine expects normalised ``x`` and returns
     unit centroids (spherical k-means)."""
     n = x.shape[0]
     k = min(k, n)
     gen = torch.Generator(device=x.device).manual_seed(seed)
     x_train = x
     m = train_sample_size(n, k)
-    if m < n:
+    if sample and m < n:
         idx = torch.randperm(n, generator=gen, device=x.device)[:m]
         x_train = x[idx]
     if k <= KMEANS_SEED_CAP:
         init = _dsq_seed_init(gen, x_train, k)
     else:
         init = _random_init(gen, x_train, k)
-    return _lloyd(x_train, init, k, max_iters, tol, spherical=metric == Dist.COSINE)
+    return _lloyd(x_train, init, k, max_iters, tol, spherical=metric == Dist.COSINE,
+                  chunk=chunk)
 
 
 def train_centroids_minibatch(
@@ -197,6 +203,36 @@ def train_centroids_minibatch(
         mean_b = bsum / torch.clamp(bcnt, min=1.0)[:, :, None]
         c = torch.where(bcnt[:, :, None] > 0, c + (mean_b - c) * (bcnt * lr)[:, :, None], c)
     return c
+
+
+def build_cells(
+    assignments: np.ndarray, nlist: int, cap_quantile: float = 1.0
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Row ids grouped by cluster into a padded member table (host numpy;
+    the same arrays as the JAX package's ``build_cells``).
+
+    Returns ``(members [nlist, cap] int32, counts [nlist] int32, order
+    [n])``: ``members[c, j] = -1`` past ``counts[c]``, ``order`` the
+    cluster-sorted (stable) permutation of row ids. ``cap_quantile < 1``
+    caps the table at that quantile of the cell sizes: members past the cap
+    are left out of the table (and of ``counts``) but stay in ``order``."""
+    a = np.asarray(assignments, dtype=np.int64)
+    n = a.shape[0]
+    counts = np.bincount(a, minlength=nlist).astype(np.int32)
+    order = np.argsort(a, kind="stable").astype(np.int32)
+    if cap_quantile >= 1.0:
+        cap = int(counts.max()) if n else 0
+    else:
+        cap = int(np.quantile(counts, cap_quantile)) if n else 0
+    cap = max(cap, 1)
+    kept = np.minimum(counts, cap)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    # each kept member's (cell, slot), scattered in one step
+    cell = np.repeat(np.arange(nlist), kept)
+    slot = np.arange(int(kept.sum())) - np.repeat(np.cumsum(kept) - kept, kept)
+    members = np.full((nlist, cap), -1, dtype=np.int32)
+    members[cell, slot] = order[starts[cell] + slot]
+    return members, kept.astype(np.int32), order
 
 
 class SegmentLayout:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ...utils.dist import Dist, fp32_matmul, sq_norms
-from ..ivf_base import IvfBase
+from ..ivf_base import IvfBase, route_to_cells
 from .quantisers import (
     OptimisedProductQuantiser,
     ProductQuantiser,
@@ -38,7 +38,7 @@ from .quantisers import (
     bf16_encode,
 )
 
-__all__ = ["IvfIndexBf16", "IvfSq8Index", "IvfPqIndex", "IvfOpqIndex"]
+__all__ = ["IvfIndexBf16", "IvfSq8Index", "IvfPqIndex", "IvfOpqIndex", "route_to_cells"]
 
 
 class IvfIndexBf16(IvfBase):

@@ -52,7 +52,7 @@ from .ivf_scan_fused import regroup_topk
 from .quantised import pq_decode_tile
 from .topk import topk_smallest
 
-__all__ = ["ivf_cluster_scan", "build_probe_lists_from_pairs"]
+__all__ = ["ivf_cluster_scan", "build_probe_lists", "build_probe_lists_from_pairs"]
 
 #: bytes of transients one scan step may hold (its distance tiles, decoded
 #: cells and gathered queries)
@@ -63,6 +63,18 @@ _BINARY_MODES = ("hamming", "binary_asym", "rabitq")
 
 def _next_pow2(v: int) -> int:
     return 1 << (max(v, 1) - 1).bit_length()
+
+
+def build_probe_lists(
+    probes: np.ndarray, nlist: int, nq: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-cluster query lists from ``[nq, nprobe]`` probe assignments: the
+    pairs (q, probes[q, j]) in query-major order through
+    :func:`build_probe_lists_from_pairs` (the JAX package's function of
+    this name)."""
+    probes = np.asarray(probes)
+    flat_q = np.repeat(np.arange(probes.shape[0], dtype=np.int32), probes.shape[1])
+    return build_probe_lists_from_pairs(flat_q, probes.reshape(-1), nlist, nq)
 
 
 def build_probe_lists_from_pairs(

@@ -31,6 +31,7 @@ __all__ = [
     "generate_quantisation_stress",
     "generate_data",
     "subsample_with_noise",
+    "DEFAULT_COR_STRENGTH",
 ]
 
 #: default ρ of the correlated suite

@@ -130,6 +130,21 @@ around each forced build and must stay 0. Phase 19b runs
 temporary ``.vec`` file: 1,000 queries, ids equal to ``ExhaustiveIndex``'s
 up to ties.
 
+Phase 20 drives ``parallel/`` at P 8 logical shards on the card (the JAX
+package's mesh), one rank: 20a builds ``ShardedGraphIndex(k=15)`` over
+phase 9's 1M × 32d rows (brute per shard; seconds by stage), queries it
+with phase 10's 10,000 queries at beam 32 and 64 (recall@15 against f64),
+and runs both ``generate_knn`` rings on the first 200,000 rows (graph
+recall@15 on 8,192 sampled rows; the exact ring equal to a brute
+self-kNN up to ties); 20b runs ``ShardedExhaustive``,
+``BatchShardedExhaustive`` and ``GridShardedExhaustive`` (2 × 4) on phase
+3's data (10,000 queries, k 10, ids equal to ``ExhaustiveIndex``'s up to
+ties), then ``ShardedIvfIndex`` and ``ShardedIvfPqIndex`` (m 128, 64) at
+nlist 1024, nprobe 16, 30,000 queries (build seconds, ms a batch, bytes,
+recall@10 on the first 2,000) and one 2 × 4 grid query equal to the 1-D
+query on its index up to ties. No kernel runs there: every wrapper's
+launches are counted around it and must stay 0.
+
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
 on its path, its error against the plain version, both times and its
@@ -230,6 +245,17 @@ A_BEAM_RECALL_MIN = {32: 0.95, 64: 0.98}        # 0.964007, 0.988500
 A_GRAPH150_MIN = {"hnsw": 0.998, "vamana": 0.998, "cosine": 0.99}   # 0.999276, 0.999093, 0.993833
 # phase 19b: the streaming index over phase 3's data, its first 1,000 queries
 S_NQ = 1_000
+# phase 20: parallel/ at P 8 logical shards on the card (the JAX package's mesh:
+# BASELINE config 5's v5e-8, the 8-device test mesh), W 1; 20a on phase 9's 1M x
+# 32d rows and phase 10's queries (the rings on its first 200,000 rows), 20b on
+# phase 3's data (10,000 queries for the exhaustive classes, 30,000 for IVF)
+SH_P, SH_GRID, SH_BEAMS, SH_RING_N, SH_FLAT_NQ = 8, (2, 4), (32, 64), 200_000, 10_000
+SH_PQ_MS = (128, 64)
+#: recall floors of phase 20, each a little under the card's first reading
+#: (NVIDIA H100 80GB HBM3, 700 W) in the comment beside it
+SH_BEAM_RECALL_MIN = {32: 0.96, 64: 0.99}                           # 0.972687, 0.994193
+SH_RING_RECALL_MIN = {"exact": 0.999, "beam": 0.98}                # 0.999837, 0.990194
+SH_IVF_RECALL_MIN = {"ivf": 0.98, ("pq", 128): 0.93, ("pq", 64): 0.80}  # 0.98685, 0.945, 0.8185
 # phase 17: the flat quantised indexes on phase 6's data, its first 10k queries
 FQ_NQ = 10_000
 #: recall@10 floors of phase 17 (against the exact f32 scan)
@@ -3186,6 +3212,219 @@ def phase_binary(dev, x, q, ti) -> list[dict]:
     return entries
 
 
+# -- phase 20: the sharding layer (parallel/) at P 8 logical shards -------------
+
+
+class _StageTimes:
+    """Inside the block, each named function of ``module`` adds its seconds
+    (every call ended by a synchronise) to ``times[name]``."""
+
+    def __init__(self, module, *names):
+        self.module, self.names, self.times = module, names, dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.orig.items():
+            setattr(self.module, n, self._wrap(n, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def run(*a, **kw):
+            sec, out = _timed(lambda: fn(*a, **kw))
+            self.times[name] += sec
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def _no_kernel(what, fn):
+    """``fn()`` with K2's and every K1 wrapper's launches counted from 0:
+    ``parallel/`` reaches no kernel (the JAX package's sharded layer reaches
+    no Pallas call), so all must stay 0. Returns ``fn()``."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    wrappers = [ff.flat_topk_fused] + [getattr(tsf, n) for n in FUSED_WRAPPERS]
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    if any(w.launches for w in wrappers):
+        raise AssertionError(f"{what} launched a fused kernel")
+    return out
+
+
+def _up_to_ties(name, ids, d, ref_ids, ref_d, scale) -> None:
+    """Ids equal to the reference's; where they differ the distances tie:
+    within phase 19b's 1e-5·(1 + |d|) plus 1e-6 of ``scale [nq]`` (‖q‖² +
+    max ‖x‖²: the identity ‖q‖² + ‖x‖² − 2q·x rounds on that scale in
+    fp32, and two scans that sum its dots in another order swap near-ties
+    of small distances). Prints the share of equal ids and the largest gap
+    of a differing slot in units of ``scale``."""
+    same = ids == ref_ids
+    gap = (d - ref_d).abs()
+    tie = gap <= 1e-5 * (1.0 + ref_d.abs()) + 1e-6 * scale[:, None]
+    worst = (gap / scale[:, None])[~same].max().item() if bool((~same).any()) else 0.0
+    print(f"  {name}: ids equal on {same.float().mean().item():.6f} of slots, every other "
+          f"slot a tie: {bool((same | tie).all())} (largest gap {worst:.3e} of ‖q‖² + "
+          f"max ‖x‖²)", flush=True)
+    if not bool((same | tie).all()):
+        raise AssertionError(f"{name}: ids differ beyond ties")
+
+
+def _split(what, module, names, fn) -> None:
+    """One more run of ``fn`` with the named functions of ``module`` each
+    ended by a synchronise: prints their seconds and the rest's."""
+    with _StageTimes(module, *names) as st:
+        sec, _ = _timed(fn)
+    parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.times.items())
+    print(f"  {what}, one more batch split by stage (ms): {parts}, the rest "
+          f"{(sec - sum(st.times.values())) * 1e3:.1f}, in all {sec * 1e3:.1f}", flush=True)
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of the tensors an index holds as attributes (and its PQ
+    codebooks)."""
+    total = sum(t.numel() * t.element_size() for t in vars(obj).values()
+                if isinstance(t, torch.Tensor))
+    pq = getattr(obj, "pq", None)
+    return total + (pq.codebooks.numel() * 4 if pq is not None else 0)
+
+
+def phase_sharded_graph(dev, x_np, q_np) -> None:
+    """Phase 20a: ``ShardedGraphIndex(k=15)`` over phase 9's 1M × 32d rows at
+    P 8 (brute per shard: 125k² × 32 is within the budget): the build by
+    stage, 10,000 queries at beam 32 and 64 (recall@15 against f64, ms a
+    batch), then both ``generate_knn`` rings on the first 200,000 rows
+    (graph recall@15 on 8,192 sampled rows; the exact ring equal to a
+    brute self-kNN up to ties)."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.parallel import ShardedGraphIndex, graph_sharded, make_mesh
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    mesh = make_mesh(SH_P, device=dev)
+    x = torch.as_tensor(x_np, device=dev)
+    q = torch.as_tensor(q_np, device=dev)
+    truth = _f64_truth(x, q, G_K)
+    with _StageTimes(graph_sharded, "_shard_topk", "cagra_prune", "add_reverse_edges") as st:
+        sec, index = _timed(lambda: _no_kernel("the sharded graph build", lambda: ShardedGraphIndex(
+            x, k=G_K, mesh=mesh)))
+    split = ", ".join(f"{k} {v:.3f}" for k, v in st.times.items())
+    print(f"  ShardedGraphIndex(k={G_K}) over {G_N}x{G_D} at P {SH_P}: build {sec:.3f} s "
+          f"({split}; brute per shard: {index.shard_rows}^2 x {G_D}); k_build "
+          f"{index.k_build}, out_deg {index.out_deg}, nav degree {index.nav_local.shape[2]}, "
+          f"{index.memory_usage_bytes()} bytes", flush=True)
+    for beam in SH_BEAMS:
+        ms, (ids, d) = _no_kernel("the sharded graph query", lambda: _wall_ms(
+            lambda: index.query(q, G_K, beam=beam)))
+        _check_ids(f"sharded graph beam {beam}", ids, d, q.shape[0], G_K, G_N)
+        rec = at.calculate_recall(truth, ids, G_K)
+        print(f"  sharded graph query, beam {beam}, {q.shape[0]} queries: {ms:.1f} ms a batch "
+              f"(median of 3) = {q.shape[0] / ms * 1e3:.0f} QPS, recall@{G_K} against f64 "
+              f"{rec:.6f} (floor {SH_BEAM_RECALL_MIN[beam]})", flush=True)
+        if rec < SH_BEAM_RECALL_MIN[beam]:
+            raise AssertionError(f"sharded graph beam {beam}: recall {rec:.6f}")
+    _split("beam 32", graph_sharded, ("beam_search", "merge_shards"),
+           lambda: index.query(q, G_K, beam=SH_BEAMS[0]))
+    del index, truth
+
+    xr = x[:SH_RING_N]
+    sec, ring = _timed(lambda: ShardedGraphIndex(xr, k=G_K, mesh=mesh))
+    print(f"  ShardedGraphIndex over the first {SH_RING_N} rows: build {sec:.3f} s", flush=True)
+    rows = torch.as_tensor(np.random.default_rng(0).choice(SH_RING_N, G_SAMPLE, replace=False),
+                           device=dev)
+    sn = (xr * xr).sum(1)
+    td, ti = blocked_query_topk(xr[rows], xr, G_K + 1, Dist.EUCLIDEAN, x_sqnorm=sn)
+    td = torch.where(ti == rows[:, None], float("inf"), td)
+    td, pos = torch.sort(td, dim=1, stable=True)
+    ti = torch.gather(ti, 1, pos)[:, :G_K]
+    td = td[:, :G_K]
+    for label, budget in (("exact", None), ("beam", 0)):
+        sec, (ids, d) = _timed(lambda: _no_kernel(f"the {label} ring", lambda: ring.generate_knn(
+            G_K, flop_budget=budget)))
+        if ids.shape != (SH_RING_N, G_K) or (ids == torch.arange(SH_RING_N, device=dev)[:, None]).any():
+            raise AssertionError(f"{label} ring: bad shape or a self id")
+        rec = at.calculate_recall(ti, ids[rows], G_K)
+        print(f"  generate_knn through the {label} ring ({SH_P} hops): {sec:.3f} s, graph "
+              f"recall@{G_K} on {G_SAMPLE} sampled rows {rec:.6f} (floor "
+              f"{SH_RING_RECALL_MIN[label]})", flush=True)
+        if label == "exact":
+            _up_to_ties("the exact ring against a brute self-kNN", ids[rows], d[rows], ti, td,
+                        sn[rows] + sn.max())
+        if rec < SH_RING_RECALL_MIN[label]:
+            raise AssertionError(f"{label} ring recall {rec:.6f}")
+
+
+def phase_sharded_flat_ivf(dev, x, q, ti) -> None:
+    """Phase 20b on phase 3's data at P 8: the three sharded exhaustive
+    classes (10,000 queries, k 10, ids equal to ExhaustiveIndex's up to
+    ties), then ``ShardedIvfIndex`` and ``ShardedIvfPqIndex`` (m 128, 64):
+    nlist 1024, nprobe 16, 30,000 queries, build seconds, ms a batch, bytes,
+    recall@10 on the first 2,000; one 2 × 4 grid query equal to the 1-D
+    query on its index."""
+    import copy
+
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.parallel import (
+        BatchShardedExhaustive, GridShardedExhaustive, ShardedExhaustive, ShardedIvfIndex,
+        ShardedIvfPqIndex, ivf_sharded, make_mesh, make_mesh2d,
+    )
+
+    mesh = make_mesh(SH_P, device=dev)
+    grid = make_mesh2d(*SH_GRID, device=dev)
+    qf = q[:SH_FLAT_NQ]
+    ri, rd = at.build_exhaustive_index(x, device=dev).query(qf[:NQ_GT], K)
+    scale = (qf[:NQ_GT] ** 2).sum(1) + (x * x).sum(1).max()
+    for name, build in (("ShardedExhaustive", lambda: ShardedExhaustive(x, mesh=mesh)),
+                        ("BatchShardedExhaustive", lambda: BatchShardedExhaustive(x, mesh=mesh)),
+                        (f"GridShardedExhaustive {SH_GRID[0]}x{SH_GRID[1]}",
+                         lambda: GridShardedExhaustive(x, mesh=grid))):
+        index = build()
+        ms, (ids, d) = _no_kernel(name, lambda: _wall_ms(lambda: index.query(qf, K), reps=1))
+        _check_ids(name, ids, d, SH_FLAT_NQ, K, N)
+        print(f"  {name}, {SH_FLAT_NQ} queries, k {K}: {ms:.1f} ms a batch (one timed run "
+              f"after a warm-up)", flush=True)
+        _up_to_ties(f"{name} against ExhaustiveIndex (first {NQ_GT})", ids[:NQ_GT],
+                    d[:NQ_GT], ri, rd, scale)
+        del index
+    del ri, rd
+
+    builds = [("ShardedIvfIndex", "ivf", lambda: ShardedIvfIndex(
+        x, nlist=NLIST, seed=SEED, mesh=mesh))]
+    builds += [(f"ShardedIvfPqIndex m {m}", ("pq", m), lambda m=m: ShardedIvfPqIndex(
+        x, nlist=NLIST, m=m, seed=SEED, mesh=mesh)) for m in SH_PQ_MS]
+    for name, key, build in builds:
+        sec, index = _timed(lambda: _no_kernel(name, build))
+        ms, (ids, d) = _no_kernel(name, lambda: _wall_ms(lambda: index.query(q, K, nprobe=NPROBE)))
+        _check_ids(name, ids, d, NQ, K, N)
+        rec = at.calculate_recall(ti, ids[:NQ_GT], K)
+        print(f"  {name} (mode {index.mode}, nlist {NLIST}, cell cap {index.cell_cap}): build "
+              f"{sec:.2f} s, {NQ} queries at nprobe {NPROBE}: {ms:.1f} ms a batch (median of 3)"
+              f", {_tensor_bytes(index)} bytes, recall@{K} on the first {NQ_GT} {rec:.6f} "
+              f"(floor {SH_IVF_RECALL_MIN[key]})", flush=True)
+        if rec < SH_IVF_RECALL_MIN[key]:
+            raise AssertionError(f"{name}: recall {rec:.6f}")
+        if key == "ivf":
+            _split(name, ivf_sharded, ("build_probe_lists", "ivf_cluster_scan", "merge_shards"),
+                   lambda: index.query(q, K, nprobe=NPROBE))
+        del index
+
+    sec, gix = _timed(lambda: ShardedIvfIndex(x, nlist=NLIST, seed=SEED, mesh=grid))
+    one = copy.copy(gix)
+    one.mesh = make_mesh(SH_GRID[1], device=dev)
+    ms, (gi, gd) = _no_kernel("the grid query", lambda: _wall_ms(
+        lambda: gix.query(q, K, nprobe=NPROBE), reps=1))
+    oi, od = one.query(q, K, nprobe=NPROBE)
+    print(f"  ShardedIvfIndex on the {SH_GRID[0]}x{SH_GRID[1]} grid: build {sec:.2f} s, {NQ} "
+          f"queries {ms:.1f} ms a batch (one timed run after a warm-up), recall@{K} "
+          f"{at.calculate_recall(ti, gi[:NQ_GT], K):.6f}", flush=True)
+    _up_to_ties("the grid query against the 1-D query on its index", gi, gd, oi, od,
+                (q ** 2).sum(1) + (x * x).sum(1).max())
+
+
 def _check_mma_counts(found) -> None:
     """Phase 1: every scan instance (K2's ``flat_scan_kernel``, each K1
     ``ivf_scan_kernel``) holds tensor-core instructions: HMMA (bf16), or
@@ -3271,6 +3510,9 @@ def main() -> int:
     lsh = phase_lsh(dev, graph_x, graph_q)
     phase("14: kMkNN, 1M x 32d, nlist 1,000, 10,000 queries")
     phase_kmknn(dev, graph_x, graph_q)
+    phase(f"20a: ShardedGraphIndex at P {SH_P} logical shards, 1M x 32d, k 15; both rings "
+          f"on {SH_RING_N} rows")
+    phase_sharded_graph(dev, graph_x, graph_q)
     small = _graph_data(dev)
     x_big = torch.as_tensor(graph_x, device=dev)
     q_big = torch.as_tensor(graph_q[:H_BIG_NQ], device=dev)
@@ -3318,6 +3560,9 @@ def main() -> int:
     binary = phase_binary(dev, x, q, ti)
     phase("19b: StreamingExhaustiveIndex over phase 3's rows from a .vec file, 1,000 queries")
     phase_streaming(dev, x, q, ti)
+    phase(f"20b: the sharded exhaustive classes, ShardedIvfIndex and ShardedIvfPqIndex at P "
+          f"{SH_P}, 1M x 128d")
+    phase_sharded_flat_ivf(dev, x, q, ti)
     del x, q
 
     phase("6: IvfIndex, IvfIndexBf16, IvfSq8Index 1M x 256d, nlist 1024")

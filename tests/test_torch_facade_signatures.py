@@ -7,9 +7,18 @@ quantised rows and the 12 binary and RaBitQ rows are present (the port's
 ``__all__`` is the JAX package's, in its order), every build row defaults
 to the card,
 ``_query``'s progress report is the reference's, and every
-``NotImplementedError`` of the port names a ROADMAP tag."""
+``NotImplementedError`` of the port names a ROADMAP tag.
 
+F12: every public class of the JAX package (each module's ``__all__``,
+``parallel`` included) has its methods in the port, whose positional
+parameters lead with the JAX method's, by name and position
+(``NNDescentIndex.query``'s seventh is ``seed``); ``train_centroids`` and
+``route_to_cells`` take the JAX parameters; the functions that take a
+``torch.Generator`` for the JAX ``key`` (P5) are listed."""
+
+import importlib
 import inspect
+import pkgutil
 import re
 from pathlib import Path
 
@@ -143,3 +152,102 @@ def test_not_implemented_errors_name_roadmap_tags():
         assert not re.search(r"item \d", src), path
     assert {"lib.py", "models/graph.py", "ops/graph.py", "models/hnsw.py"} <= read
     assert len(read) >= 30
+
+
+# -- F12: the public classes and the functions that F12 names --------------------
+
+def _jax_public_classes():
+    """Every class of a JAX module's ``__all__`` (keyed by its defining
+    module), outside the Pallas kernel modules."""
+    out = {}
+    for info in pkgutil.walk_packages(ja.__path__, "annsearch_tpu."):
+        if info.name.endswith("_pallas"):
+            continue
+        mod = importlib.import_module(info.name)
+        for name in getattr(mod, "__all__", ()):
+            obj = getattr(mod, name, None)
+            if inspect.isclass(obj) and obj.__module__.startswith("annsearch_tpu."):
+                out[f"{obj.__module__}.{name}"] = obj
+    return out
+
+
+JAX_CLASSES = _jax_public_classes()
+
+
+def _methods(cls):
+    return {n: f for n, f in inspect.getmembers(cls, callable)
+            if (not n.startswith("_") or n == "__init__") and not inspect.isclass(f)}
+
+
+def test_the_class_walk_covers_the_indexes():
+    names = {k.rsplit(".", 1)[1] for k in JAX_CLASSES}
+    assert {"NNDescentIndex", "ExhaustiveIndex", "IvfIndex", "ShardedIvfIndex",
+            "ShardedGraphIndex", "Binariser", "MmapVectorStore", "BaseIndex"} <= names
+    assert len(JAX_CLASSES) >= 40
+
+
+@pytest.mark.parametrize("qualname", sorted(JAX_CLASSES))
+def test_public_class_methods_take_the_jax_positional_parameters(qualname):
+    """Each public method of the JAX class exists in the port's, and the
+    JAX method's positional parameters lead the port's, by name and
+    position; the port may add parameters after them (``device``,
+    ``fold_depth``, a ``chunk``)."""
+    import importlib
+
+    jcls = JAX_CLASSES[qualname]
+    module, name = qualname.rsplit(".", 1)
+    tcls = getattr(importlib.import_module(module.replace("annsearch_tpu", "annsearch_tpu_torch", 1)),
+                   name)
+    tmethods = _methods(tcls)
+    for mname, jfn in _methods(jcls).items():
+        assert mname in tmethods, f"{qualname}.{mname} is missing"
+        jpos = [p for p, _ in _positional(jfn)]
+        tpos = [p for p, _ in _positional(tmethods[mname])]
+        assert tpos[: len(jpos)] == jpos, f"{qualname}.{mname}: {tpos} against {jpos}"
+
+
+def test_a_seventh_positional_argument_of_the_graph_query_is_seed():
+    from annsearch_tpu_torch.models.graph import NNDescentIndex
+
+    params = list(inspect.signature(NNDescentIndex.query).parameters)
+    assert params[7] == "seed" and params[8:10] == ["query_block", "exact_fallback"]
+
+
+#: functions whose JAX ``key`` is a ``torch.Generator`` in the port (P5):
+#: their draws are apart from the arithmetic, and tests hand them the JAX draws
+KEY_AS_GENERATOR = {
+    "annsearch_tpu.models.graph.approx_knn_graph", "annsearch_tpu.ops.graph.random_init_graph",
+    "annsearch_tpu.ops.graph.rp_forest_round", "annsearch_tpu.ops.graph.nnd_round",
+    "annsearch_tpu.ops.graph.diversify_graph", "annsearch_tpu.ops.graph.add_reverse_edges",
+    "annsearch_tpu.ops.tree.build_partition_forest",
+}
+
+
+def test_the_f12_functions_take_the_jax_parameters():
+    """``train_centroids`` takes ``sample`` and ``chunk`` (honoured),
+    ``route_to_cells`` ``precision`` (accepted and ignored: f32 grade)."""
+    from annsearch_tpu.models import ivf_base as jivf, kmeans as jk
+    from annsearch_tpu_torch.models import ivf_base as tivf, kmeans as tk
+
+    jp, tp = _positional(jk.train_centroids), _positional(tk.train_centroids)
+    assert [n for n, _ in tp] == [n for n, _ in jp]
+    assert tp[-2:] == jp[-2:] == [("sample", True), ("chunk", 65536)]
+    assert [n for n, _ in _positional(tivf.route_to_cells)] == [
+        n for n, _ in _positional(jivf.route_to_cells)]
+    for qual in KEY_AS_GENERATOR:
+        module, name = qual.rsplit(".", 1)
+        j = inspect.signature(getattr(importlib.import_module(module), name)).parameters
+        t = inspect.signature(getattr(importlib.import_module(module.replace(
+            "annsearch_tpu", "annsearch_tpu_torch", 1)), name)).parameters
+        assert list(j)[0] == "key" and list(t)[0] == "gen", qual
+
+
+def test_train_centroids_honours_sample_and_chunk():
+    from annsearch_tpu_torch.models.kmeans import train_centroids
+
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((3000, 8)).astype(np.float32))
+    a = train_centroids(x, 4, seed=1, max_iters=5)
+    b = train_centroids(x, 4, seed=1, max_iters=5, chunk=257)
+    assert torch.equal(a, b)                      # the chunking changes no result
+    c = train_centroids(x, 4, seed=1, max_iters=5, sample=False)
+    assert c.shape == (4, 8) and torch.isfinite(c).all()
