@@ -111,8 +111,14 @@
 //   fold:  by the fragment map a thread holds the same 16 (slot, stride
 //          class) elements in every chunk, and keeps their (best,
 //          runner-up) in registers; after the last chunk the survivors go
-//          to shared memory and each warp runs the kb-round extraction for
-//          its 4 slots.
+//          to shared memory and each warp selects for its 4 slots, one at a
+//          time: a bitonic sort of the slot's 128 (256) survivors in
+//          registers, 4 (8) keys a lane, which gives the kb rounds' result
+//          at once (fold_select); each lane stores its own 4 outputs. The
+//          rounds themselves (kb dependent warp-wide arg-mins of 5 shuffles
+//          each, one lane storing each winner) cost K1a-bf16 about 0.25 ms
+//          per unit of kb on RaBitQ's 1M-row batch, where the sort costs
+//          the same at every kb (PERF.md, the kb sweep).
 //   exact: each chunk's [32, 128] distance tile goes to shared memory (over
 //          the staged cells), and each warp merges it into its 4 slots'
 //          sorted top-kb lists (shared memory) with a ballot skip (a chunk
@@ -251,6 +257,148 @@ __device__ __forceinline__ void put_cells_i8(unsigned char* cs, int row, int vec
     uint4* dst = reinterpret_cast<uint4*>(cs + row * kRow + vec * 32);
     dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
     dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// -- the fold's selection: a bitonic sort of the survivors in registers ------
+//
+// A survivor (value, lane) is one unsigned 64-bit key: the value's bits
+// made order-preserving above the lane, so that key order is lex_less's
+// order. -0 is taken as +0 (lex_less ranks them equal; no epilogue makes
+// -0). A warp holds 128 keys, 4 a lane: key u of lane l is element 4 l + u,
+// so the network's partner distances 1 and 2 are compare-exchanges in
+// registers and 4 .. 64 are __shfl_xor_sync of whole keys.
+
+__device__ __forceinline__ uint64_t fold_key(float v, int lane) {
+  uint32_t b = __float_as_uint(__fadd_rn(v, 0.f));
+  b ^= (b >> 31) ? 0xFFFFFFFFu : 0x80000000u;
+  return ((uint64_t)b << 32) | (uint32_t)lane;
+}
+
+__device__ __forceinline__ float key_value(uint64_t key) {
+  uint32_t b = (uint32_t)(key >> 32);
+  b ^= (b >> 31) ? 0x80000000u : 0xFFFFFFFFu;
+  return __uint_as_float(b);
+}
+
+// one stage of a bitonic network over kH groups of 128 keys (group h in
+// x[4 h .. 4 h + 3]): partner distance J, element i ascending where bit K
+// of i is 0, group 1 the other way (so that two groups sorted together end
+// one ascending, one descending); K = 256: every element ascending
+template <int kH, int K, int J>
+__device__ __forceinline__ void bitonic_stage(uint64_t (&x)[4 * kH], int lane) {
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    if constexpr (J < 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u & J) continue;
+        const bool up = (((4 * lane + u) & K) == 0) != (h == 1);
+        const uint64_t a = x[4 * h + u], b = x[4 * h + (u | J)];
+        const bool keep = (a < b) == up;
+        x[4 * h + u] = keep ? a : b;
+        x[4 * h + (u | J)] = keep ? b : a;
+      }
+    } else {
+      const bool up = (((4 * lane) & K) == 0) != (h == 1);
+      const bool keep_min = ((lane & (J / 4)) == 0) == up;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint64_t a = x[4 * h + u];
+        const uint64_t b = __shfl_xor_sync(0xffffffffu, a, J / 4);
+        x[4 * h + u] = ((a < b) == keep_min) ? a : b;
+      }
+    }
+  }
+}
+
+// the stages of partner distance J, J / 2, .. 1 under direction bit K
+template <int kH, int K, int J>
+__device__ __forceinline__ void bitonic_merge(uint64_t (&x)[4 * kH], int lane) {
+  bitonic_stage<kH, K, J>(x, lane);
+  if constexpr (J > 1) bitonic_merge<kH, K, J / 2>(x, lane);
+}
+
+// bitonic sort of each group: the merges of runs of 2, 4, .. K
+template <int kH, int K>
+__device__ __forceinline__ void bitonic_sort(uint64_t (&x)[4 * kH], int lane) {
+  if constexpr (K > 2) bitonic_sort<kH, K / 2>(x, lane);
+  bitonic_merge<kH, K, K / 2>(x, lane);
+}
+
+// The fold's selection of one slot: the kb rounds of _scan_body's stage 2
+// (each emits the lexicographic minimum (value, lane) of the survivors and
+// sets the entries equal to it to 3e38, keeping their lanes), computed at
+// once. `sv` / `si` are the slot's kDepth x 128 survivors in shared memory.
+// The rounds emit the survivors below 3e38 in key order; once those are
+// spent, every entry holds 3e38 and each later round emits (3e38, m), m
+// the least lane among the entries then at 3e38: those extracted and those
+// at 3e38 from the start (runner-ups never displaced, lanes past a short
+// row). So: sort the keys, keep the 128 smallest, emit the first n_fin,
+// then (3e38, m). (Every survivor above 3e38, which only
+// an overflowing distance gives: the first round takes the least, and the
+// rest repeat its lane at 3e38.) Lane l writes outputs 4 l .. 4 l + 3.
+template <int kDepth>
+__device__ __forceinline__ void fold_select(const float* sv, const int* si, int lane, int kb,
+                                            float* od, int* oi) {
+  uint64_t x[4 * kDepth];
+#pragma unroll
+  for (int h = 0; h < kDepth; ++h) {
+    const float4 v = *reinterpret_cast<const float4*>(sv + h * kLanes + 4 * lane);
+    const int4 l = *reinterpret_cast<const int4*>(si + h * kLanes + 4 * lane);
+    x[4 * h + 0] = fold_key(v.x, l.x);
+    x[4 * h + 1] = fold_key(v.y, l.y);
+    x[4 * h + 2] = fold_key(v.z, l.z);
+    x[4 * h + 3] = fold_key(v.w, l.w);
+  }
+  bitonic_sort<kDepth, kLanes>(x, lane);
+  // depth 2: the elementwise minimum of the ascending and the descending
+  // half is a bitonic sequence holding the 128 smallest; its half cleaner
+  // sorts it
+  uint64_t s[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    s[u] = x[u];
+    if constexpr (kDepth == 2) s[u] = x[4 + u] < s[u] ? x[4 + u] : s[u];
+  }
+  if constexpr (kDepth == 2) bitonic_merge<1, 2 * kLanes, kLanes / 2>(s, lane);
+  // n_fin: keys below 3e38; m: the least lane of the keys at most 3e38
+  const uint32_t big = __float_as_uint(kBig) ^ 0x80000000u;
+  int n_fin = 0;
+  uint32_t m = 0xFFFFFFFFu;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const uint32_t hi = (uint32_t)(s[u] >> 32);
+    n_fin += hi < big;
+    if (hi <= big) m = min(m, (uint32_t)s[u]);
+  }
+  n_fin = __reduce_add_sync(0xffffffffu, n_fin);
+  m = __reduce_min_sync(0xffffffffu, m);
+  if (m == 0xFFFFFFFFu) {   // warp-uniform
+    n_fin = 1;
+    m = __shfl_sync(0xffffffffu, (uint32_t)s[0], 0);
+  }
+  float d[4];
+  int id[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const bool real = 4 * lane + u < n_fin;
+    d[u] = real ? key_value(s[u]) : kBig;
+    id[u] = (int)(real ? (uint32_t)s[u] : m);
+  }
+  if ((kb & 3) == 0) {   // 16-byte aligned rows of kb entries
+    if (4 * lane < kb) {
+      *reinterpret_cast<float4*>(od + 4 * lane) = make_float4(d[0], d[1], d[2], d[3]);
+      *reinterpret_cast<int4*>(oi + 4 * lane) = make_int4(id[0], id[1], id[2], id[3]);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (4 * lane + u < kb) {
+        od[4 * lane + u] = d[u];
+        oi[4 * lane + u] = id[u];
+      }
+    }
   }
 }
 
@@ -637,8 +785,7 @@ ivf_scan_kernel(const int* __restrict__ lists,
     }
   } else {
     // the survivors of every slot to shared memory ([32][kDepth * 128]),
-    // then each warp extracts for its 4 slots: kb rounds of a warp-wide
-    // lexicographic arg-min
+    // then each warp selects for its 4 slots (fold_select)
     constexpr int kSurv = kDepth * kLanes;
     float* sv_s = reinterpret_cast<float*>(smem);
     int* si_s = reinterpret_cast<int*>(sv_s + kSlots * kSurv);
@@ -660,31 +807,8 @@ ivf_scan_kernel(const int* __restrict__ lists,
       const int slot = warp * kPerWarp + i;
       if (qid_s[slot] < 0) continue;   // warp-uniform
       const size_t ob = ((size_t)r * maxq + j0 + slot) * kb;
-      constexpr int kPer = kSurv / 32;
-      float v[kPer];
-      int id[kPer];
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        v[u] = sv_s[slot * kSurv + lane + 32 * u];
-        id[u] = si_s[slot * kSurv + lane + 32 * u];
-      }
-      for (int t2 = 0; t2 < kb; ++t2) {
-        float bv = v[0];
-        int bi = id[0];
-#pragma unroll
-        for (int u = 1; u < kPer; ++u) {
-          if (lex_less(v[u], id[u], bv, bi)) { bv = v[u]; bi = id[u]; }
-        }
-        warp_lex_min(bv, bi);
-        if (lane == 0) {
-          out_d[ob + t2] = bv;
-          out_i[ob + t2] = bi;
-        }
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          if (v[u] == bv && id[u] == bi) v[u] = kBig;
-        }
-      }
+      fold_select<kDepth>(sv_s + slot * kSurv, si_s + slot * kSurv, lane, kb, out_d + ob,
+                          out_i + ob);
     }
   }
 }

@@ -295,12 +295,15 @@ def segment_layout(
 
 
 def expand_probes_to_segments(
-    probes: np.ndarray, cluster_ptr: np.ndarray
+    probes: np.ndarray, layout
 ) -> tuple[np.ndarray, np.ndarray]:
     """Expand ``[nq, nprobe]`` cluster probes into flat (query, segment)
     pairs on the host: each probed cluster contributes its segments
     ``cluster_ptr[c] .. cluster_ptr[c + 1] − 1`` in order (the same pairs
-    as the JAX package's function of this name)."""
+    as the JAX package's function of this name). ``layout`` is a
+    :class:`SegmentLayout` (any object with ``cluster_ptr``), as in the
+    JAX package, or the ``cluster_ptr`` array itself."""
+    cluster_ptr = np.asarray(getattr(layout, "cluster_ptr", layout))
     probes = np.asarray(probes, dtype=np.int64)
     nq, nprobe = probes.shape
     flat_c = probes.reshape(-1)

@@ -202,6 +202,8 @@ def beam_search(
     iters: int,
     metric: Dist,
     expand: int = 2,
+    vectors_hl=None,
+    packed_nbrs=None,
     return_trail: bool = False,
 ):
     """Batched greedy beam search of at most ``iters`` iterations.
@@ -219,7 +221,13 @@ def beam_search(
     have id ``n`` and distance inf. With ``return_trail`` it runs all
     ``iters`` iterations and also returns ``(trail_d, trail_ids)`` of shape
     ``[bq, iters·expand]``: every node the walk expanded, with its
-    distance (``n`` / inf for exhausted slots)."""
+    distance (``n`` / inf for exhausted slots).
+
+    ``vectors_hl`` and ``packed_nbrs`` hold the JAX package's places for
+    its TPU layouts (bf16 hi/lo rows, a packed neighbour table: ROADMAP,
+    "Not to port"); they are accepted and ignored, and the walk scores the
+    f32 rows."""
+    del vectors_hl, packed_nbrs
     bq = q.shape[0]
     n = vectors.shape[0] - 1
     deg = graph.shape[1]
@@ -331,11 +339,14 @@ def score_candidates(
 
 def random_init_graph(
     gen: torch.Generator, vectors: torch.Tensor, sqnorms: torch.Tensor, kk: int, metric: Dist,
+    tile: int = 1024,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A random ``kk``-NN graph with true distances (the JAX package's
     ``random_init_graph``): :func:`random_candidates` scored by
     :func:`score_candidates`. ``vectors [n+1, d]`` carries the sentinel
-    row."""
+    row. ``tile`` (the JAX package's rows per ``lax.map`` step) is accepted
+    and ignored: :func:`score_candidates` sets its own blocks."""
+    del tile
     n = vectors.shape[0] - 1
     return score_candidates(
         vectors, sqnorms, random_candidates(gen, n, kk, vectors.device), metric)

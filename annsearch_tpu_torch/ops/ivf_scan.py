@@ -170,9 +170,13 @@ def ivf_cluster_scan(
     cap: int,
     mode: str,
     codebooks: torch.Tensor | None = None,  # [m, 256, ds] (pq modes) or [d] scales (i8dec modes)
-    step_bytes: int = _STEP_BYTES,
     k_cell: int | None = None,
     aux: torch.Tensor | None = None,        # [n_pad] rabitq: the rows' ‖R·u‖₁
+    approx: bool = False,
+    precision=None,
+    s_rows: int = 4,
+    *,
+    step_bytes: int = _STEP_BYTES,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan the task rows; ``(best_d, best_i) [nq, k]`` ascending, ``best_i``
     positions in the sorted storage, padded with (+inf, 0) where a query has
@@ -182,7 +186,14 @@ def ivf_cluster_scan(
     caller's k per cell under a wider final k, since a row appears at most
     once per cell. The binary modes take ``storage`` as int32 words
     (``hamming``: ``queries`` too; ``binary_asym`` / ``rabitq``: f32
-    queries of ``w·32`` columns), ``sqnorms`` ``‖x − c‖`` for ``rabitq``."""
+    queries of ``w·32`` columns), ``sqnorms`` ``‖x − c‖`` for ``rabitq``.
+
+    The parameters up to ``s_rows`` are the JAX function's, in its order.
+    ``approx`` (its ``approx_min_k`` per-cell selection), ``precision``
+    (the scan is f32 grade) and ``s_rows`` (scan rows per ``lax.scan``
+    step) are accepted and ignored; ``step_bytes``, keyword-only, bounds
+    the bytes of one step's tensors instead."""
+    del approx, precision, s_rows
     if mode not in _MODES + _BINARY_MODES:
         raise ValueError(f"unknown cluster scan mode {mode!r}")
     if mode in _BINARY_MODES and (storage.dtype != torch.int32

@@ -87,10 +87,13 @@ def chunked_topk(
     n_valid: int | None = None,
     db_chunk: int = DEFAULT_DB_CHUNK,
     precision: str = "highest",
+    approx: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k nearest rows of ``x`` for one query block; ``(dists [bq, k],
     indices [bq, k])`` ascending. Rows at or past ``n_valid`` are padding:
-    their distance is +inf."""
+    their distance is +inf. ``approx`` (the JAX package's ``approx_min_k``
+    per-tile selection) is accepted and ignored: the selection is exact."""
+    del approx
     n = x.shape[0]
     n_valid = n if n_valid is None else n_valid
     if metric == Dist.EUCLIDEAN and x_sqnorm is None:
@@ -177,6 +180,7 @@ def blocked_query_topk(
     query_block: int = DEFAULT_QUERY_BLOCK,
     db_chunk: int = DEFAULT_DB_CHUNK,
     precision: str = "highest",
+    approx: bool = False,
     selector: str = "exact",   # "exact" | "approx" | "bins" | "fused"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k for any number of queries, streamed in query blocks; see the
@@ -187,7 +191,9 @@ def blocked_query_topk(
     unrolled extraction at ``kb = 128``; the port keeps it, since it fixes
     which selection a caller gets. Under ``"fused"``, ``precision`` sets
     the grade of the dots: ``"highest"`` → ``passes=6``, ``"high"`` → 3,
-    anything else → 1 (bf16 operands)."""
+    anything else → 1 (bf16 operands). ``approx`` is accepted and ignored,
+    as in :func:`chunked_topk`."""
+    del approx
     if selector not in ("exact", "approx", "bins", "fused"):
         raise ValueError(f"unknown selector {selector!r}")
     if selector == "fused" and k > 64:

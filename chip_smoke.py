@@ -145,6 +145,20 @@ recall@10 on the first 2,000) and one 2 × 4 grid query equal to the 1-D
 query on its index up to ties. No kernel runs there: every wrapper's
 launches are counted around it and must stay 0.
 
+Phase 18 also sweeps K1a-bf16's kb (16, 32, 64, 128) at fold depth 1
+and 2 on its captured call, prints the share of pad slots in its live
+rows and of 32-slot blocks made wholly of pad, and times a yardstick of
+two library calls on the same inputs (``torch.bmm`` of the same bf16
+products, then ``torch.topk(k=128)``: its ``library_ms``).
+
+    python3 chip_smoke.py --parent DIR
+
+builds the kernels of another checkout of the repository (DIR, e.g. a
+``git archive`` of the parent commit) beside this one's, and times every
+call that launches a kernel in turns with both libraries (parent, this,
+this, parent), printing both readings; the inputs and the checks are this
+checkout's.
+
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
 on its path, its error against the plain version, both times and its
@@ -161,6 +175,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -403,6 +418,110 @@ _FFMA_MS = {
 BIG = np.float32(3e38)
 
 
+#: ``--parent DIR``: the kernel library built from another checkout of the
+#: repository (``_start_parent`` / ``_load_parent``); every timing of a call
+#: that launches a kernel then runs in turns, that library's and this
+#: one's, on the same inputs (``_against_parent``)
+_PARENT: dict = {}
+
+
+def _counters() -> list:
+    """Every kernel wrapper (its ``launches`` is the count)."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    return [getattr(tsf, n) for n in FUSED_WRAPPERS] + [ff.flat_topk_fused]
+
+
+def _start_parent(path: str) -> None:
+    """Start building the kernels of the checkout at ``path`` (its own
+    ``_cuda.load_library``, into its own ``_build/``) beside this one's."""
+    code = ("from annsearch_tpu_torch.ops import _cuda; _cuda.load_library(); "
+            "print(_cuda._build_dir() / _cuda._LIB_NAME)")
+    _PARENT["proc"] = subprocess.Popen([sys.executable, "-c", code], cwd=path,
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    _PARENT["path"] = path
+
+
+def _load_parent() -> None:
+    """Wait for the other checkout's build and load its library with this
+    package's entry signatures (the two must agree)."""
+    import ctypes
+
+    from annsearch_tpu_torch.ops import _cuda
+
+    out, _ = _PARENT.pop("proc").communicate()
+    lib_path = out.strip().splitlines()[-1] if out.strip() else ""
+    if not lib_path.endswith(_cuda._LIB_NAME) or not os.path.exists(lib_path):
+        raise RuntimeError(f"the parent checkout's kernels did not build:\n{out}")
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _cuda._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _PARENT["lib"] = lib
+    print(f"  the parent's kernels ({_PARENT['path']}): {lib_path}", flush=True)
+    own_log = _cuda.build_log
+    _cuda.build_log = lambda: (Path(lib_path).parent / "build.log").read_text()
+    try:
+        theirs = dict(_cuda.kernel_resources())
+    finally:
+        _cuda.build_log = own_log
+    for kernel, used in _cuda.kernel_resources():
+        if theirs.get(kernel, used) != used:
+            print(f"  ptxas: {kernel}: the parent's {theirs[kernel]}", flush=True)
+
+
+def _against_parent(timer, fn, *args, **kw):
+    """``timer(fn, ...)`` with the parent's library and with this one's,
+    in turns (parent, this, this, parent), where ``fn`` launches a kernel;
+    prints both and returns this library's reading (``timer``'s result)."""
+    from annsearch_tpu_torch.ops import _cuda
+
+    wrappers = _counters()
+    c0 = [w.launches for w in wrappers]
+    fn()
+    torch.cuda.synchronize()
+    if [w.launches for w in wrappers] == c0:
+        return timer(fn, *args, **kw)
+    own, parent_lib = _cuda.load_library, _PARENT["lib"]
+    got = {"parent": [], "this": []}
+    result = None
+    for who in ("parent", "this", "this", "parent"):
+        _cuda.load_library = (lambda: parent_lib) if who == "parent" else own
+        before = [w.launches for w in wrappers]
+        try:
+            out = timer(fn, *args, **kw)
+        finally:
+            _cuda.load_library = own
+        got[who].append(out[0] if isinstance(out, tuple) else out)
+        if who == "this":
+            result = out
+            one = [w.launches - b for w, b in zip(wrappers, before)]
+    # the counts as one timing alone leaves them (the phases read them)
+    for w, c, n in zip(wrappers, c0, one):
+        w.launches = c + n
+    p, t = (float(np.mean(got[k])) for k in ("parent", "this"))
+    print(f"    in turns against the parent: parent {got['parent'][0]:.3f} / "
+          f"{got['parent'][1]:.3f} ms, this {got['this'][0]:.3f} / {got['this'][1]:.3f} ms; "
+          f"this / parent {t / p:.4f}", flush=True)
+    return result
+
+
+def _in_turns(timer):
+    """``timer`` as it is, or under ``--parent`` in turns with the parent's
+    kernels (``_against_parent``)."""
+
+    @functools.wraps(timer)
+    def timed(fn, *args, **kw):
+        if "lib" not in _PARENT:
+            return timer(fn, *args, **kw)
+        return _against_parent(timer, fn, *args, **kw)
+
+    return timed
+
+
+@_in_turns
 def _cuda_ms(fn, reps: int = 7) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` runs after a warm-up,
     by CUDA events."""
@@ -419,6 +538,7 @@ def _cuda_ms(fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
+@_in_turns
 def _wall_ms(fn, reps: int = 3):
     """Median wall milliseconds of ``fn()`` (ending in a synchronise) over
     ``reps`` runs after a warm-up, and the last result."""
@@ -3042,6 +3162,60 @@ def _one_run(wrapper, fn):
     return out, counts.get(wrapper, 0)
 
 
+#: phase 18: kb of K1a-bf16's sweep on its captured call
+K1A_BF16_SWEEP = (16, 32, 64, 128)
+
+
+def _k1a_bf16_readings(call) -> float:
+    """Phase 18, on K1a-bf16's captured call: its time at kb 16, 32, 64 and
+    128, fold depth 1 and 2 (the slope over kb is the selection's cost);
+    the share of pad slots (list entry nq) in live rows (cnt > 0) and of
+    32-slot blocks made wholly of pad slots, which run the whole body as in
+    the Pallas kernel; and a yardstick of two library calls on the same
+    inputs: ``torch.bmm`` of the same bf16 products (the two query terms
+    side by side against each cell row twice: one product of depth 2·dp)
+    and ``torch.topk(k=128)`` over its output. Returns the two calls'
+    milliseconds together."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+    from annsearch_tpu_torch.utils.dist import mantissa_split
+
+    a, _ = call
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells = a[:7]
+    for depth in (1, 2):
+        times = [_cuda_ms(lambda: tsf.ivf_cell_scan_bf16_residual(*a[:8], kb, fold_depth=depth),
+                          reps=5) for kb in K1A_BF16_SWEEP]
+        slope = (times[-1] - times[0]) / (K1A_BF16_SWEEP[-1] - K1A_BF16_SWEEP[0])
+        print(f"  K1a-bf16 kb sweep, fold depth {depth}: "
+              + ", ".join(f"kb {kb} {ms:.3f} ms" for kb, ms in zip(K1A_BF16_SWEEP, times))
+              + f"; slope {slope * 1e3:.2f} us per unit of kb", flush=True)
+    nq = queries_x.shape[0] - 1
+    pad = lists[cnt > 0] == nq
+    blocks = torch.nn.functional.pad(pad, (0, -pad.shape[1] % 32), value=True)
+    blocks = blocks.reshape(pad.shape[0], -1, 32).all(dim=-1)
+    print(f"  K1a-bf16 pad slots: {pad.float().mean().item():.4f} of the live rows' "
+          f"{pad.numel():,} slots ({int((cnt > 0).sum())} of {cnt.numel()} rows live); "
+          f"{blocks.float().mean().item():.4f} of their {blocks.numel():,} 32-slot blocks "
+          "wholly pad", flush=True)
+    dp = cells.shape[2]
+    qr = (queries_x[lists.long()] - cent_x[task_seg.long()][:, None, :]) * scales
+    q2 = torch.cat([torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+                    for t in mantissa_split(qr, 2)], dim=-1)    # [R, maxq, 2·dp] bf16
+    del qr
+    x = cells[task_seg.long()]
+    x2t = torch.cat([x, x], dim=-1).transpose(1, 2)
+    del x
+    prod = torch.bmm(q2, x2t)
+    bmm_ms = _cuda_ms(lambda: torch.bmm(q2, x2t, out=prod), reps=5)
+    topk_ms = _cuda_ms(lambda: torch.topk(prod, 128, dim=-1), reps=5)
+    print(f"  K1a-bf16 yardstick, two library calls: torch.bmm of the bf16 products "
+          f"{tuple(q2.shape)} x {tuple(x2t.shape)} -> {tuple(prod.shape)} {prod.dtype} "
+          f"{bmm_ms:.3f} ms, then torch.topk(k=128) over it {topk_ms:.3f} ms: "
+          f"{bmm_ms + topk_ms:.3f} ms together", flush=True)
+    del q2, x2t, prod
+    torch.cuda.empty_cache()
+    return bmm_ms + topk_ms
+
+
 def _b_floor(key, rec) -> None:
     floor = B_RECALL_MIN[key]
     if rec < floor:
@@ -3095,6 +3269,7 @@ def phase_binary(dev, x, q, ti) -> list[dict]:
                                   cap.args["ivf_cell_scan_bf16_residual"],
                                   2, BF16_FLOP_S / 2, rq.encoder.n_words * 32 * 4)
             entry["launches"] = launches
+            entry["library_ms"] = _k1a_bf16_readings(cap.args["ivf_cell_scan_bf16_residual"])
             entries.append(entry)
     run = lambda: rq.query(q, K, nprobe=B_NPROBE)  # noqa: E731
     (ids, d), launches = _one_run("ivf_cell_scan_bf16_residual", run)
@@ -3445,7 +3620,14 @@ def _check_mma_counts(found) -> None:
                              f"({len(scans)} instances found)")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout of the repository: its kernels are built too, and "
+                         "every timing of a kernel runs in turns with them")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -3472,8 +3654,12 @@ def main() -> int:
 
     phase("1: build the kernels")
     t0 = time.time()
+    if parent:
+        _start_parent(parent)
     _cuda.load_library()
     print(f"  kernels built/loaded in {time.time() - t0:.1f} s", flush=True)
+    if parent:
+        _load_parent()
     for kernel, used in _cuda.kernel_resources():
         print(f"  ptxas: {kernel}: {used}", flush=True)
     _check_mma_counts(_cuda.mma_counts())

@@ -17,7 +17,9 @@ matmul sum the same products in other orders) and
 ≥ 99.9% of ids agree (orders can swap near-ties); end to end, where
 routing also runs on another device, ≥ 99% of ids. The sq8 kernels agree
 bit for bit: their dots are sums of integers below 2²⁴, and their square
-roots and quotients IEEE-rounded on both sides."""
+roots and quotients IEEE-rounded on both sides. The fold's selection (a
+sort network in registers) equals the plain version's kb rounds bit for
+bit on exact integer distances, their (3e38, m) tail included."""
 
 import numpy as np
 import pytest
@@ -937,11 +939,15 @@ def test_flat_bf16_on_the_card_returns_f32_sums(dev):
 # -- the binary family: K1a-bf16 (RaBitQ) and K1d-bf16 on ±1 cells (Hamming) ----------
 
 
-def _rabitq_tasks(gen, dev, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300):
+def _rabitq_tasks(gen, dev, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300, short=False):
     """K1a's task inputs over RaBitQ's estimator cells: ±1 rows scaled by a
     per-row multiplier (some 0: rows on their centroid) in bf16, sn the
-    squared distances to the centroid, unit scales."""
+    squared distances to the centroid, unit scales. ``short``: most rows
+    hold fewer valid rows than 128, so fewer survivors than kb are finite."""
     lists, task_seg, cnt, queries, cents, _, _, _ = _tasks(gen, dev, R, maxq, seg, d, nseg, nq)
+    if short:
+        cnt[cnt > 0] = torch.randint(1, 200, (int((cnt > 0).sum()),), generator=gen,
+                                     device=dev, dtype=torch.int32)
     sign = torch.randint(0, 2, (nseg + 1, seg, d), generator=gen, device=dev) * 2.0 - 1.0
     dist = torch.rand((nseg + 1, seg), generator=gen, device=dev) * 3.0
     corr = torch.rand((nseg + 1, seg), generator=gen, device=dev) * 8.0 + 2.0
@@ -962,6 +968,10 @@ def _rabitq_tasks(gen, dev, R=96, maxq=64, seg=512, d=128, nseg=12, nq=300):
         (dict(maxq=36, d=64), 8),            # slots past maxq; RaBitQ at d 64
         (dict(seg=128, maxq=32), 128),       # one chunk, kb = 128
         (dict(R=256, maxq=128, seg=1024, d=128), 16),   # phase 18's widths
+        (dict(R=256, maxq=128, seg=1024, d=128), 32),
+        (dict(R=256, maxq=128, seg=1024, d=128), 64),
+        (dict(R=256, maxq=128, seg=1024, d=128), 128),  # phase 18's kb
+        (dict(R=96, maxq=64, seg=1024, d=128, short=True), 128),   # the rounds' tail
         (dict(R=64, maxq=64, seg=512, d=256), 16),      # d 256: four steps a chunk
         (dict(R=16, maxq=40, seg=256, d=1536), 16),     # query terms per column block
     ],
@@ -980,6 +990,54 @@ def test_k1a_bf16_matches_plain(dev, shape, kb, sel):
     cnt = args[2]
     assert (kd[cnt == 0] == np.float32(3e38)).all() and (ki[cnt == 0] == 0).all()
     assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+def _selection_tasks(gen, dev, R=64, maxq=64, seg=1024, d=64, nseg=8, nq=200):
+    """Task inputs on which kernel and plain version compute the same
+    distances exactly: ±1 bf16 cells (multiplier 1, sn = d), integer
+    queries in [-2, 2], zero centroids and unit scales, so every query term,
+    dot and distance is a small integer, and distances tie often. Rows of
+    every length, many of them shorter than 128 (the rounds' tail), some
+    empty."""
+    cells = (torch.randint(0, 2, (nseg + 1, seg, d), generator=gen, device=dev) * 2.0
+             - 1.0).to(torch.bfloat16)
+    cells[-1] = 0
+    sn = torch.full((nseg + 1, seg), float(d), device=dev)
+    sn[-1] = 0
+    queries = torch.randint(-2, 3, (nq + 1, d), generator=gen, device=dev).float()
+    queries[-1] = 0
+    task_seg = torch.randint(0, nseg, (R,), generator=gen, device=dev)
+    cnt = torch.randint(0, seg + 1, (R,), generator=gen, device=dev)
+    cnt[::3] = torch.randint(0, 130, (len(range(0, R, 3)),), generator=gen, device=dev)
+    cnt[5::9] = 0
+    task_seg[5::9] = nseg
+    lists = torch.randint(0, nq + 1, (R, maxq), generator=gen, device=dev)
+    return (lists.int(), task_seg.int(), cnt.int(), queries,
+            torch.zeros(nseg + 1, d, device=dev), torch.ones(d, device=dev), cells, sn)
+
+
+@pytest.mark.parametrize("fold_depth", [1, 2])
+@pytest.mark.parametrize("kb", [8, 16, 32, 64, 100, 128])
+def test_fold_selection_is_the_rounds_bit_for_bit(dev, kb, fold_depth):
+    """The fold's selection (a bitonic sort of the survivors in registers)
+    against the plain version's kb rounds, ids and distances equal in every
+    slot, the (3e38, m) tail of short rows included: K1a-bf16 and, over the
+    same cells, K1d-bf16 (the selection is shared by every fold
+    instance)."""
+    gen = torch.Generator(device=dev).manual_seed(40 + kb)
+    args = _selection_tasks(gen, dev)
+    kd, ki = tsf.ivf_cell_scan_bf16_residual(*args, kb, fold_depth=fold_depth)
+    pd, pi = tsf.ivf_cell_scan_plain(*args, kb, q_split=True, fold_depth=fold_depth)
+    torch.cuda.synchronize()
+    assert torch.equal(pd, pd.round()) and (pd == np.float32(3e38)).any()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    lists, task_seg, cnt, queries, _, _, cells, sn = args
+    kd, ki = tsf.ivf_cell_scan_bf16_fold(lists, task_seg, cnt, queries, cells, sn, kb,
+                                         fold_depth=fold_depth)
+    pd, pi = tsf.ivf_cell_scan_bf16_plain(lists, task_seg, cnt, queries, cells, sn, kb, False,
+                                          exact=False, fold_depth=fold_depth)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
 def test_k1a_bf16_rejects_what_it_cannot_take(dev):

@@ -14,7 +14,13 @@ F12: every public class of the JAX package (each module's ``__all__``,
 parameters lead with the JAX method's, by name and position
 (``NNDescentIndex.query``'s seventh is ``seed``); ``train_centroids`` and
 ``route_to_cells`` take the JAX parameters; the functions that take a
-``torch.Generator`` for the JAX ``key`` (P5) are listed."""
+``torch.Generator`` for the JAX ``key`` (P5) are listed.
+
+F14: every public function of the JAX package (each module's ``__all__``,
+bar ROADMAP's "Not to port") takes the JAX positional parameters first,
+by name and position, and ``chunked_topk``, ``blocked_query_topk``,
+``ivf_cluster_scan`` and ``expand_probes_to_segments`` called with the
+JAX positional tuple give the JAX results."""
 
 import importlib
 import inspect
@@ -251,3 +257,152 @@ def test_train_centroids_honours_sample_and_chunk():
     assert torch.equal(a, b)                      # the chunking changes no result
     c = train_centroids(x, 4, seed=1, max_iters=5, sample=False)
     assert c.shape == (4, 8) and torch.isfinite(c).all()
+
+
+# -- F14: the public functions -------------------------------------------------
+
+#: JAX public functions with no counterpart (ROADMAP, "Not to port": the TPU
+#: walk's and rerank's layouts)
+NOT_TO_PORT = {
+    "annsearch_tpu.ops.graph.nav_hl_split", "annsearch_tpu.ops.graph.pack_neighbor_table",
+    "annsearch_tpu.ops.graph.neighbor_pack_bytes", "annsearch_tpu.ops.rerank.rerank_exact_split",
+}
+
+
+def _jax_public_functions():
+    """Every function of a JAX module's ``__all__`` (jitted ones included),
+    keyed by its defining module, outside the Pallas kernel modules."""
+    out = {}
+    for info in pkgutil.walk_packages(ja.__path__, "annsearch_tpu."):
+        if info.name.endswith("_pallas"):
+            continue
+        mod = importlib.import_module(info.name)
+        for name in getattr(mod, "__all__", ()):
+            obj = getattr(mod, name, None)
+            if inspect.isclass(obj) or not (inspect.isfunction(obj) or hasattr(obj, "__wrapped__")):
+                continue
+            qual = f"{obj.__module__}.{name}"
+            if obj.__module__.startswith("annsearch_tpu.") and qual not in NOT_TO_PORT:
+                out[qual] = obj
+    return out
+
+
+JAX_FUNCTIONS = _jax_public_functions()
+
+
+def test_the_function_walk_covers_the_f14_functions():
+    assert {"annsearch_tpu.ops.topk.chunked_topk", "annsearch_tpu.ops.topk.blocked_query_topk",
+            "annsearch_tpu.ops.ivf_scan.ivf_cluster_scan",
+            "annsearch_tpu.models.kmeans.expand_probes_to_segments",
+            "annsearch_tpu.lib.build_ivf_index"} <= set(JAX_FUNCTIONS)
+    assert KEY_AS_GENERATOR <= set(JAX_FUNCTIONS)
+    assert len(JAX_FUNCTIONS) >= 150
+
+
+@pytest.mark.parametrize("qualname", sorted(JAX_FUNCTIONS))
+def test_public_functions_take_the_jax_positional_parameters(qualname):
+    """The JAX function's positional parameters lead the port's, by name
+    and position (after ``key`` / ``gen`` for the P5 draws); the port may
+    add parameters after them."""
+    module, name = qualname.rsplit(".", 1)
+    tfn = getattr(importlib.import_module(module.replace("annsearch_tpu", "annsearch_tpu_torch", 1)),
+                  name)
+    jpos = [p for p, _ in _positional(JAX_FUNCTIONS[qualname])]
+    tpos = [p for p, _ in _positional(tfn)]
+    if qualname in KEY_AS_GENERATOR:
+        assert (jpos[0], tpos[0]) == ("key", "gen")
+        jpos, tpos = jpos[1:], tpos[1:]
+    assert tpos[: len(jpos)] == jpos, f"{qualname}: {tpos} against {jpos}"
+
+
+def _f14_data(n=700, d=16, nq=20, seed=14):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+    q = (rng.standard_normal((nq, d)) * 0.5).astype(np.float32)
+    return x, q
+
+
+@pytest.mark.parametrize("fn", ["chunked_topk", "blocked_query_topk"])
+def test_the_topk_functions_take_the_jax_positional_tuple(fn):
+    """F14: a call written for the JAX signature (``approx`` the ninth of
+    ``chunked_topk``, the tenth of ``blocked_query_topk``, then
+    ``selector``) gives the JAX result; ``approx`` is accepted and ignored
+    (the JAX package's ``approx_min_k`` is exact off the TPU too)."""
+    import jax
+    import jax.numpy as jnp
+
+    from annsearch_tpu.ops import topk as jtopk
+    from annsearch_tpu.utils.dist import Dist as JDist
+    from annsearch_tpu_torch.ops import topk as ttopk
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    x, q = _f14_data()
+    n_valid = 650
+    if fn == "chunked_topk":
+        wd, wi = jtopk.chunked_topk(jnp.asarray(q), jnp.asarray(x), 7, JDist.EUCLIDEAN, None,
+                                    n_valid, 256, jax.lax.Precision.HIGHEST, True)
+        gd, gi = ttopk.chunked_topk(torch.as_tensor(q), torch.as_tensor(x), 7, Dist.EUCLIDEAN,
+                                    None, n_valid, 256, "highest", True)
+    else:
+        wd, wi = jtopk.blocked_query_topk(jnp.asarray(q), jnp.asarray(x), 7, JDist.EUCLIDEAN,
+                                          None, n_valid, 8, 256, jax.lax.Precision.HIGHEST,
+                                          True, "exact")
+        gd, gi = ttopk.blocked_query_topk(torch.as_tensor(q), torch.as_tensor(x), 7,
+                                          Dist.EUCLIDEAN, None, n_valid, 8, 256, "highest",
+                                          True, "exact")
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=1e-5)
+    assert int(gi.max()) < n_valid
+
+
+def test_the_cluster_scan_takes_the_jax_positional_tuple():
+    """F14: ``ivf_cluster_scan`` called with the JAX positional tail
+    ``codebooks, k_cell, aux, approx, precision, s_rows`` gives the JAX
+    result; ``step_bytes`` is keyword-only."""
+    import jax.numpy as jnp
+
+    from annsearch_tpu.models.ivf import IvfIndex as JIvf
+    from annsearch_tpu.models.kmeans import SegmentLayout as JLayout
+    from annsearch_tpu.models.kmeans import expand_probes_to_segments as j_expand
+    from annsearch_tpu.ops.ivf_scan import build_probe_lists_from_pairs as j_lists
+    from annsearch_tpu.ops.ivf_scan import ivf_cluster_scan as j_scan
+    from annsearch_tpu.utils.dist import Dist as JDist
+    from annsearch_tpu_torch.ops.ivf_scan import ivf_cluster_scan as t_scan
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    x, q = _f14_data()
+    j = JIvf(x, "euclidean", nlist=4, seg_size=200)
+    probes = np.argsort(((q[:, None, :] - np.asarray(j.centroids)[None]) ** 2).sum(-1), 1)[:, :2]
+    layout = JLayout(None, np.asarray(j.seg_offsets), np.asarray(j.seg_counts), None,
+                     j._cluster_ptr, j.seg_size, None)
+    lists = j_lists(*j_expand(probes, layout), len(np.asarray(j.seg_offsets)), len(q))
+    common = (np.asarray(j.storage), np.asarray(j.store_sqnorms), np.asarray(j.seg_offsets),
+              np.asarray(j.seg_counts), np.asarray(j._scan_seg_centroids()))
+    wd, wi = j_scan(jnp.asarray(q), *(jnp.asarray(a) for a in lists),
+                    *(jnp.asarray(a) for a in common), 6, JDist.EUCLIDEAN, j.seg_size, "f32",
+                    None, 4, None, False, None, 2)
+    gd, gi = t_scan(torch.as_tensor(q), *(torch.as_tensor(np.asarray(a)) for a in lists),
+                    *(torch.tensor(a) for a in common), 6, Dist.EUCLIDEAN, j.seg_size, "f32",
+                    None, 4, None, False, None, 2)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=1e-5)
+    params = inspect.signature(t_scan).parameters
+    assert params["step_bytes"].kind == inspect.Parameter.KEYWORD_ONLY
+
+
+def test_expand_probes_takes_the_layout_or_its_cluster_ptr():
+    """F14: ``expand_probes_to_segments(probes, layout)`` as in the JAX
+    package (the JAX layout, the port's, or the ``cluster_ptr`` array)."""
+    from annsearch_tpu.models import kmeans as jk
+    from annsearch_tpu_torch.models import kmeans as tk
+
+    rng = np.random.default_rng(15)
+    assign = rng.integers(0, 6, 900).astype(np.int32)
+    jl = jk.segment_layout(assign, 6, 64)
+    tl = tk.segment_layout(assign, 6, 64)
+    probes = rng.integers(0, 6, (30, 3))
+    wq, ws = jk.expand_probes_to_segments(probes, jl)
+    for layout in (jl, tl, np.asarray(tl.cluster_ptr)):
+        gq, gs = tk.expand_probes_to_segments(probes, layout)
+        np.testing.assert_array_equal(gq, wq)
+        np.testing.assert_array_equal(gs, ws)

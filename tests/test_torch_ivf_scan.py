@@ -982,3 +982,38 @@ def test_fused_ivf_scan_fold1_matches_jax_and_the_index_passes_it(jindex, tasks)
     i2, d2 = port.query(q, K, nprobe=2, approx=True)
     assert bool((d1 >= d2 - 1e-5).all())       # fewer survivors: never better
     assert (i1 == i2).float().mean() >= 0.9
+
+
+@pytest.mark.parametrize("fold_depth", [1, 2])
+def test_k1a_bf16_plain_matches_jax_at_kb_128_on_short_rows(fold_depth):
+    """K1a-bf16's plain version (``ivf_cell_scan_plain(q_split=True)`` over
+    bf16 cells) against the Pallas kernel in interpret mode at kb 128, bit
+    for bit: ±1 cells, integer queries and centroids, so every distance is
+    an exact small integer with many ties. Most rows hold fewer finite
+    survivors than kb, so the rounds' tail ((3e38, m), m the least lane
+    then at 3e38) fills most slots, as the card's selection must."""
+    rng = np.random.default_rng(31)
+    R, maxq, seg, d, nseg, nq = 10, 8, 512, 32, 4, 20
+    cells = (rng.integers(0, 2, (nseg + 1, seg, d)) * 2 - 1).astype(np.float32)
+    cells[-1] = 0
+    sn = (cells * cells).sum(-1).astype(np.float32)
+    queries_x = rng.integers(-2, 3, (nq + 1, d)).astype(np.float32)
+    queries_x[-1] = 0
+    cent_x = rng.integers(-1, 2, (nseg + 1, d)).astype(np.float32)
+    cent_x[-1] = 0
+    task_seg = rng.integers(0, nseg, R).astype(np.int32)
+    cnt = np.array([0, 1, 5, 37, 100, 129, 200, 300, 512, 128], np.int32)
+    task_seg[0] = nseg
+    lists = rng.integers(0, nq + 1, (R, maxq)).astype(np.int32)
+    scales = np.ones(d, np.float32)
+    args = (lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn)
+    t = [torch.as_tensor(a) for a in args]
+    t[6] = t[6].to(torch.bfloat16)
+    gd, gi = tsf.ivf_cell_scan_plain(*t, 128, q_split=True, fold_depth=fold_depth)
+    wd, wi = _jax_i8_cell_scan(*args, 128, "i8dec_residual", False, True,
+                               fold_depth=fold_depth)
+    np.testing.assert_array_equal(gd.numpy(), wd)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+    big = np.float32(3e38)
+    assert (wd[1:8] == big).any() and (wd[:, :, 0] < big)[1:].all()
+    assert (wd[0] == big).all() and (wi[0] == 0).all()
