@@ -1,7 +1,7 @@
 // K2, the fused flat top-k: the Pallas kernel
 // annsearch_tpu/ops/flat_scan_pallas.py (_flat_kernel, launched by
-// flat_topk_fused) as two hand-written kernels, a scan on the tensor cores
-// and an extraction.
+// flat_topk_fused) as two hand-written kernels for Hopper, a scan on
+// wgmma fed by TMA and an extraction by a sort network.
 //
 // What it computes, for query i < nq over the rows x[0 .. n):
 //   dot    = sum over the pairs (a, b) of _CROSS[T] of q_a[i] . x_b[col]
@@ -23,47 +23,73 @@
 // Grade. These are the Pallas body's passes: the same split, the same
 // cross terms. The terms are formed once per call by the wrapper (tensor
 // code, as the JAX package's _prep_parts), bf16 [T, rows, dk] with dk = d
-// rounded up to 16 and zero columns. No lane-packed layout: the tensor
-// cores take each pair as its own product.
-//
-// Partition. A scan block owns 128 queries and a slice of 32 classes: of
-// every db tile j it reads the 32 contiguous rows j*B + s .. j*B + s + 31.
-// Eight warps, each 16 queries x the 32 classes (four m16n8 tiles): by the
-// accumulator-fragment map a thread holds the same 16 (query, class) pairs
-// in the same registers for every tile, and keeps their bins there over
-// the whole database. Every pair is followed by one thread through the
-// tiles in order, so the bins are those of the sequential scan entry for
-// entry, exact score ties included. The bins of a slab of queries go to
-// device memory once ([queries, depth*B] values and columns), and the
-// extraction kernel, one block per query, reads them once: 16 bins a
-// thread in registers, kb rounds of a block-wide lexicographic arg-min.
+// rounded up to 32 and zero columns.
 //
 // Bound on the H100: the cross terms' passes (1, 3 or 6) x nq * n * d
-// multiply-adds at the bf16 tensor-core peak (6 x 3.2e13 at 1M x 1M x 32d,
-// 0.39 s); q, x and the outputs are a few hundred MB. Design: the query
-// terms of the block stay in shared memory for the whole scan where they
-// fit (else they are streamed beside x); x steps of 32 rows x 32 columns
-// of every term, with the 32 row norms, go through a ring of eight stages
-// (three beside a streamed query) filled by cp.async. Per 16 columns a
-// warp loads its query fragments and the tile's with ldmatrix and issues
-// one mma.sync per (pair, n-tile), the smallest cross terms first into a
-// fresh accumulator that then joins the tile's sums by one IEEE add (see
-// mma_terms.cuh: each mma chops its sum to 24 bits of its largest term, so
-// one accumulator over many steps would gather chops that all lean one
-// way). The bins update runs on the accumulator fragment in registers, a
-// bin's tile in 16 bits: sn - 2 dot as one FMA, and the update skipped when
-// the score does not beat the class's runner-up (m1 <= m2 always holds, so
-// the skip changes nothing). A launch covers fewer than 65,535 tiles; the
-// C entry scans longer databases in runs of tiles and merges each run's
-// bins into the earlier runs' (flat_merge_kernel). Blocks of one class
-// slice are adjacent in the grid, so the blocks in flight read the same
-// slice of x (n / B * 32 rows) from L2.
+// multiply-adds at the bf16 tensor-core peak (6 x 5.2e11 for 16,384
+// queries x 1M x 32d: 6.4 ms); q, x and the outputs are a few hundred MB,
+// the bins between the two kernels 0.5 GB a slab. At d 32 the products are
+// short (K = 32 a tile) and each output costs as much on the CUDA cores as
+// on the tensor cores: the bins update is about ten instructions per
+// (query, class) per tile against 6 x 32 multiply-adds. The design keeps
+// the two side by side, and spends as few instructions as it can on the
+// rest (barriers, copies, indexing).
+//
+// Scan design (flat_scan_kernel). A block owns 128 queries (two consumer
+// warpgroups of 64) and a slice of 32 classes: of every db tile j it reads
+// the 32 contiguous rows j*B + s0 .. j*B + s0 + 31. A producer (one thread
+// of a third warpgroup, whose registers setmaxnreg lowers to 40 so that the
+// consumers can take 232) issues TMA loads of those rows, one box a term of
+// 32 rows x 32 columns, 64-byte swizzled, and of their 32 norms, into a
+// ring of stages of an even number of tiles, with a full and an empty
+// mbarrier each: no block barrier in the main loop. Rows past n come back
+// as zeros (TMA's out-of-bounds fill). The query terms come once, by TMA,
+// into shared memory; at d 32 each consumer thread keeps its fragments of
+// them in registers for the whole scan, wider rows take them by ldmatrix
+// per 32-column chunk. One wgmma.mma_async m64n64k16 (A from registers, B
+// the stage) covers a pair of tiles, the 32 rows of tile j and then those
+// of tile j + 1, which a stage holds adjacent for each term: the products
+// a warpgroup issues per tile are half what m64n32 would take, and at these
+// shapes a wgmma's cost goes with its count more than with its width. Each
+// 32-column chunk of a pair is two k16 steps, each summed into a fresh
+// `part` (the first product with scale-d 0), the smallest cross terms
+// first, the two steps' chains interleaved, and joined to the pair's sums
+// by IEEE adds (see mma_terms.cuh: a tensor-core sum keeps 24 bits of its
+// largest term, so one long accumulation would gather chops that all lean
+// one way). The consumers issue the next chunk's products before they run
+// this pair's bins update (selects, no branches, so a thread's 32 updates
+// run side by side), so the update overlaps the tensor cores; the issue in
+// the loop is unconditional, or ptxas waits for the products on the spot.
+// By the wgmma accumulator map a thread holds the same 16 (query, class)
+// pairs of both tiles in fixed registers, and keeps their bins in
+// registers over the whole database: every pair is followed by one thread
+// through the tiles in order, so the bins are those of the sequential scan
+// entry for entry, exact score ties included. The bins of a slab of
+// queries go to device memory once ([queries, depth*B] values and
+// columns). Blocks of one class slice are adjacent in the grid, so the
+// blocks in flight read the same slice of x from L2. A launch covers fewer
+// than 65,535 tiles (a bin's tile is kept below 0xFFFF); the C entry scans
+// longer databases in runs of tiles and merges each run's bins into the
+// earlier runs' (flat_merge_kernel). Rows so wide that the query terms and
+// two stages of two tiles do not fit shared memory (d > 128 at three terms,
+// d > 192 at two, d > 416 at one) take flat_scan_streamed_kernel (mma.sync,
+// the query streamed beside x through cp.async), chosen by shape alone
+// (annsearch_flat_scan_plan).
+//
+// Extraction (flat_extract_kernel), one block per query: the kb rounds
+// computed at once. Each warp sorts its 512 keys (value, col) (bitonic.cuh)
+// in registers and keeps its 128 smallest, the warps' lists are merged in
+// a tree through shared memory, and the first kb of the result are the
+// rounds' output (see flat_extract_kernel for their tail). Its bound is the
+// bins' bytes (8 a bin, read once).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
 
+#include "bitonic.cuh"
+#include "hopper.cuh"
 #include "lex_min.cuh"
 #include "mma_terms.cuh"
 
@@ -71,102 +97,351 @@ namespace {
 
 constexpr int kQT = 128;       // queries per scan block
 constexpr int kCS = 32;        // classes per scan block
-constexpr int kKC = 32;        // columns per staged step
-constexpr int kRow = kKC * 2 + 16;   // bytes of a staged row (5 x 16: odd)
-// stages of the ring: deep where the query tile is resident (a step is
-// then one x tile, a few hundred cycles of work against a microsecond of
-// L2 latency), three where the query is streamed beside x
-__host__ __device__ constexpr int stages(bool resident) { return resident ? 8 : 3; }
-constexpr int kThreads = 256;
-constexpr int kBinsPerThread = 16;  // extraction: depth * B <= 16 * 256
 constexpr float kBig = 3.0e38f;
 constexpr uint32_t kNoTile = 0xFFFFu;   // a bin still at its initial column 0
 
-// bytes of one stage: the T terms of 32 x rows, then their 32 norms
-template <int kTerms>
-__host__ __device__ constexpr int x_stage_bytes() {
-  return kTerms * kCS * kRow + kCS * 4;
+// -- the scan on wgmma ----------------------------------------------------------
+
+// two consumer warpgroups and a producer warpgroup (one thread of it issues
+// the copies): setmaxnreg moves registers between whole warpgroups, and
+// ptxas gives such a kernel 65536 / 384 registers a thread at launch
+constexpr int kConsumerWarps = 8;
+constexpr int kScanThreads = kConsumerWarps * 32 + 128;
+constexpr int kLaunchRegs = 65536 / kScanThreads / 8 * 8;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(kConsumerWarps * 32 * kConsumerRegs + 128 * kProducerRegs <=
+                  kScanThreads * kLaunchRegs,
+              "setmaxnreg asks for more registers than the block holds");
+constexpr int kChunk = 32;           // columns of a box: 64 bytes, the swizzle's row
+constexpr int kBox = kCS * 64;       // one term of a tile's chunk: 32 rows x 64 bytes
+constexpr int kQBox = 64 * 64;       // one term of a warpgroup's chunk: 64 queries
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kStageTarget = 16384;  // bytes a stage aims at
+constexpr int kMaxStages = 8;
+
+// The scan's shared memory for rows of dk columns and T terms: up to 1024
+// bytes of alignment slack, 1024 of barriers, the query terms of both
+// warpgroups ([2][nch][T][64][64 B]), and `stages` stages of `tps` tiles
+// each, tps even ([nch][T][tps][32][64 B]: a term's tiles adjacent, so that
+// one product reads two tiles' rows; then [tps][32] norms), each stage a
+// multiple of 1024 bytes. tps 0: the query terms and two stages of two
+// tiles do not fit (the streamed kernel). ops/flat_scan_fused.py::scan_plan
+// mirrors this.
+struct Plan {
+  int tps, stages, stage_bytes, smem;
+};
+
+Plan scan_plan(int dk, int terms) {
+  const int nch = (dk + kChunk - 1) / kChunk;
+  const int tile = nch * terms * kBox + kCS * 4;
+  const int fixed = 1024 + 1024 + 2 * nch * terms * kQBox;
+  auto stage_of = [](int bytes) { return (bytes + 1023) / 1024 * 1024; };
+  int tps = kStageTarget / tile / 2 * 2;
+  if (tps < 2) tps = 2;
+  const int stages = (kSmemMax - fixed) / stage_of(tps * tile);
+  if (stages < 2) return Plan{0, 0, 0, 0};
+  const int s = stages > kMaxStages ? kMaxStages : stages;
+  return Plan{tps, s, stage_of(tps * tile), fixed + s * stage_of(tps * tile)};
 }
 
-template <int kDepth, int kTerms, bool kResident>
-__global__ void __launch_bounds__(kThreads, 2)
-flat_scan_kernel(const uint16_t* __restrict__ q,   // [T][.., dk] bf16, this slab's rows
-                 size_t q_ts,                      // elements between q terms
-                 const uint16_t* __restrict__ x,   // [T][n, dk] bf16
-                 const float* __restrict__ sn,     // [NB * B], 3e38 past n_valid
-                 float* __restrict__ bins_v,       // [nq, kDepth * B]
-                 int* __restrict__ bins_i,         // [nq, kDepth * B]
-                 int nq, int n, int dk, int B,
-                 int tile0, int ntiles) {          // the db tiles of this launch
+template <int kDepth, int kTerms, bool kARegs>
+__global__ void __launch_bounds__(kScanThreads, 1)
+flat_scan_kernel(const __grid_constant__ CUtensorMap qmap,   // [T][nq][dk] bf16
+                 const __grid_constant__ CUtensorMap xmap,   // [T][n][dk] bf16
+                 const __grid_constant__ CUtensorMap snmap,  // [NB][B] f32
+                 float* __restrict__ bins_v,                 // [nq, kDepth * B]
+                 int* __restrict__ bins_i,                   // [nq, kDepth * B]
+                 int nq, int B, int nch, int tile0, int ntiles,  // the db tiles of this launch
+                 int tps, int stages, int stage_bytes) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* qbar = empty + kMaxStages;
+  unsigned char* qs = smem + 1024;
+  const int q_bytes = 2 * nch * kTerms * kQBox;
+  unsigned char* xs = qs + q_bytes;
+  const int term_x = tps * kBox;              // one term's tiles of a chunk in a stage
+  const int chunk_x = kTerms * term_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kQT;
+  const int s0 = blockIdx.y * kCS;
+  const int units = (ntiles + tps - 1) / tps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::bar_init(&full[s], 1);
+      hopper::bar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::bar_init(qbar, 1);
+    hopper::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // the producer: the query terms once, then unit u (tiles u*tps ..) into
+    // stage u mod stages once the consumers have released it
+    hopper::regs_lower<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      hopper::bar_expect(qbar, q_bytes);
+      for (int wg = 0; wg < 2; ++wg) {
+        for (int c = 0; c < nch; ++c) {
+          hopper::tma_load(qs + (wg * nch + c) * kTerms * kQBox, &qmap, qbar, c * kChunk,
+                           q0 + 64 * wg, 0);
+        }
+      }
+      for (int u = 0, st = 0, ph = 1; u < units; ++u) {
+        hopper::bar_wait(&empty[st], ph);
+        const int nt = min(tps, ntiles - u * tps);
+        hopper::bar_expect(&full[st], nt * (nch * kTerms * kBox + kCS * 4));
+        unsigned char* sb = xs + st * stage_bytes;
+        for (int p = 0; p < nt; ++p) {
+          const int row = (tile0 + u * tps + p) * B + s0;
+          for (int c = 0; c < nch; ++c) {
+            for (int b = 0; b < kTerms; ++b) {
+              hopper::tma_load(sb + c * chunk_x + b * term_x + p * kBox, &xmap, &full[st],
+                               c * kChunk, row, b);
+            }
+          }
+          hopper::tma_load(sb + nch * chunk_x + p * kCS * 4, &snmap, &full[st], s0,
+                           tile0 + u * tps + p);
+        }
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {
+    hopper::regs_raise<kConsumerRegs>();
+    const int wg = warp >> 2, wl = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    // the query fragments of one chunk, k16 steps h = 0, 1: ldmatrix.x4 of
+    // the warp's 16 rows from the swizzled box (mma::a_offset's matrices)
+    const unsigned char* qw = qs + wg * nch * kTerms * kQBox;
+    const int a_row = wl * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    uint32_t a[2][kTerms][4];
+    auto load_a = [&](int c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) {
+          mma::ldsm_x4(a[h][t], qw + (c * kTerms + t) * kQBox +
+                                    hopper::sw64(a_row, 2 * h + (lane >> 4)));
+        }
+      }
+    };
+    hopper::bar_wait(qbar, 0);
+    if constexpr (kARegs) load_a(0);
+
+    // bins of the thread's 16 (query, class) pairs, element e of n-tile nb
+    // at index 4 nb + e: query 64 wg + 16 wl + g + 8 (e / 2), class nb*8 +
+    // 2 t4 + e % 2. A bin's column is (tile0 + tile) * B + s0 + class: t1 /
+    // t2 hold the best's and the runner-up's tile within the launch
+    // (kNoTile: a bin's initial column 0; a launch covers fewer tiles)
+    float m1[16], m2[16];
+    uint32_t t1[16], t2[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      m1[e] = kBig;
+      m2[e] = kBig;
+      t1[e] = kNoTile;
+      t2[e] = kNoTile;
+    }
+    // A product covers a pair of tiles (64 rows: the 32 of tile j, then the
+    // 32 of tile j + 1), so element 4 nb + e of the accumulator is pair k =
+    // 4 (nb mod 4) + e of tile j + nb / 4. acc: the pair's sums; p0, p1: the
+    // two k16 steps of one chunk, each into a fresh part, smallest cross
+    // terms first, joined by IEEE adds (a tile's first chunk starts acc at
+    // p0 + p1, not 0 + p0 + p1: that differs only in the sign of a zero
+    // sum, which sn - 2 acc does not see)
+    float acc[32], p0[32], p1[32];
+
+    // a position in the scan: unit u in stage st of phase ph, tile pair pp
+    // of the unit, chunk c
+    struct Cursor {
+      int u, st, ph, pp, c;
+    };
+    const int last_pairs = (ntiles - (units - 1) * tps + 1) / 2;
+    auto advance = [&](Cursor& k) {
+      if (++k.c < nch) return;
+      k.c = 0;
+      if (++k.pp < (k.u == units - 1 ? last_pairs : tps / 2)) return;
+      k.pp = 0;
+      ++k.u;
+      if (++k.st == stages) { k.st = 0; k.ph ^= 1; }
+    };
+    // both k16 steps of a chunk, their products interleaved (two
+    // independent chains), one commit
+    auto issue = [&](const Cursor& k) {
+      if (k.c == 0 && k.pp == 0) hopper::bar_wait(&full[k.st], k.ph);
+      if constexpr (!kARegs) load_a(k.c);
+      const unsigned char* xb = xs + k.st * stage_bytes + k.c * chunk_x + 2 * k.pp * kBox;
+      hopper::wgmma_fence();
+      bool first = true;
+#pragma unroll
+      for (int b = kTerms - 1; b >= 0; --b) {
+#pragma unroll
+        for (int pr = mma::cross_count(kTerms, kTerms) - 1; pr >= 0; --pr) {
+          if (mma::cross_b(kTerms, pr) != b) continue;
+          const int ai = mma::cross_a(kTerms, pr);
+          const uint64_t desc = hopper::desc_sw64(xb + b * term_x);
+          hopper::wgmma_m64n64k16(p0, a[0][ai], desc, first ? 0 : 1);
+          hopper::wgmma_m64n64k16(p1, a[1][ai], desc + 2, first ? 0 : 1);   // 32 bytes on
+          first = false;
+        }
+      }
+      hopper::wgmma_commit();
+    };
+    auto consume = [&](const Cursor& k) {
+      hopper::fence_operands(p0);
+      hopper::fence_operands(p1);
+#pragma unroll
+      if (k.c == 0) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[e] = __fadd_rn(p0[e], p1[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[e] = __fadd_rn(__fadd_rn(acc[e], p0[e]), p1[e]);
+      }
+    };
+    // after a pair's last chunk: the bins update of its tiles in order, and
+    // the stage released after the unit's last pair
+    auto pair_end = [&](const Cursor& k) {
+      if (k.c != nch - 1) return;
+      const float* sn_st = reinterpret_cast<const float*>(xs + k.st * stage_bytes + nch * chunk_x);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = k.u * tps + 2 * k.pp + half;   // the tile within the launch
+        if (j >= ntiles) break;
+        const float* snr = sn_st + (2 * k.pp + half) * kCS;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          const float2 sv = *reinterpret_cast<const float2*>(snr + nb * 8 + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k2 = nb * 4 + e;
+            // 2 * acc is exact, so this is sn - 2 dot rounded once
+            const float s = __fmaf_rn(-2.f, acc[16 * half + k2], (e & 1) ? sv.y : sv.x);
+            // selects, no branch: the 32 updates of a pair run side by side
+            const bool b1 = s < m1[k2];
+            if constexpr (kDepth == 2) {
+              const float lose_v = b1 ? m1[k2] : s;
+              const uint32_t lose_t = b1 ? t1[k2] : (uint32_t)j;
+              const bool b2 = lose_v < m2[k2];
+              m2[k2] = b2 ? lose_v : m2[k2];
+              t2[k2] = b2 ? lose_t : t2[k2];
+            }
+            m1[k2] = b1 ? s : m1[k2];
+            t1[k2] = b1 ? (uint32_t)j : t1[k2];
+          }
+        }
+      }
+      if (k.pp == (k.u == units - 1 ? last_pairs : tps / 2) - 1) {
+        __syncwarp();
+        if (lane == 0) hopper::bar_arrive(&empty[k.st]);
+      }
+    };
+
+    // One chunk in flight while the previous one's bins update runs. The
+    // issue in the loop is unconditional: a GMMA result that only some
+    // paths define makes ptxas wait for it on the spot.
+    const int total = (units - 1) * (tps / 2) * nch + last_pairs * nch;
+    Cursor now{0, 0, 0, 0, 0}, next = now;
+    issue(next);
+    advance(next);
+    for (int i = 0; i + 1 < total; ++i) {
+      hopper::wgmma_wait<0>();
+      consume(now);
+      issue(next);   // the next chunk's products run while this pair's bins update does
+      advance(next);
+      pair_end(now);
+      advance(now);
+    }
+    hopper::wgmma_wait<0>();
+    consume(now);
+    pair_end(now);
+
+    const size_t width = (size_t)kDepth * B;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int nb = k >> 2, e = k & 3;
+      const int qi = q0 + wg * 64 + wl * 16 + g + 8 * (e >> 1);
+      if (qi >= nq) continue;
+      const int cls = s0 + nb * 8 + 2 * t4 + (e & 1);
+      const size_t o = (size_t)qi * width + cls;
+      bins_v[o] = m1[k];
+      bins_i[o] = t1[k] == kNoTile ? 0 : (tile0 + (int)t1[k]) * B + cls;
+      if constexpr (kDepth == 2) {
+        bins_v[o + B] = m2[k];
+        bins_i[o + B] = t2[k] == kNoTile ? 0 : (tile0 + (int)t2[k]) * B + cls;
+      }
+    }
+  }
+}
+
+// -- the streamed variant: rows too wide for the query terms to stay --------------
+//
+// mma.sync: eight warps of 16 queries x the 32 classes (four m16n8 tiles),
+// the bins in registers as above; steps of 32 rows x 32 columns of every x
+// term and the 128 queries' 32 columns of every q term through a ring of
+// three stages filled by cp.async (rows of 80 bytes: an odd number of
+// 16-byte units, so ldmatrix's eight rows fall in distinct banks).
+
+constexpr int kStreamThreads = 256;
+constexpr int kStreamStages = 3;
+constexpr int kRow = kChunk * 2 + 16;   // bytes of a staged row
+
+template <int kTerms>
+__host__ __device__ constexpr int streamed_stage_bytes() {
+  return kTerms * kCS * kRow + kCS * 4 + kTerms * kQT * kRow;
+}
+
+template <int kDepth, int kTerms>
+__global__ void __launch_bounds__(kStreamThreads, 2)
+flat_scan_streamed_kernel(const uint16_t* __restrict__ q,   // [T][.., dk] bf16, this slab's rows
+                          size_t q_ts,                      // elements between q terms
+                          const uint16_t* __restrict__ x,   // [T][n, dk] bf16
+                          const float* __restrict__ sn,     // [NB * B], 3e38 past n_valid
+                          float* __restrict__ bins_v, int* __restrict__ bins_i,
+                          int nq, int n, int dk, int B, int tile0, int ntiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStages = stages(kResident);
-  constexpr int kXStage = x_stage_bytes<kTerms>();
-  constexpr int kQStageTerm = kQT * kRow;      // streamed: one term of a step
-  unsigned char* xs = smem;                    // [kStages][T][32][kRow] + norms
-  unsigned char* qs = smem + kStages * kXStage;
-  // resident: [T][128][dk * 2 + 16]; streamed: [kStages][T][128][kRow]
-  const int qstride = kResident ? dk * 2 + 16 : kRow;
-  const int q_term = kQT * qstride;
+  constexpr int kStage = streamed_stage_bytes<kTerms>();
+  constexpr int kXTerm = kCS * kRow, kQTerm = kQT * kRow;
+  constexpr int kQOff = kTerms * kXTerm + kCS * 4;   // the query within a stage
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * kQT;
   const int s0 = blockIdx.y * kCS;
   const size_t x_ts = (size_t)n * dk;
-
-  const int nch = (dk + kKC - 1) / kKC;
+  const int nch = dk / kChunk;
   const int total = ntiles * nch;
 
-  if constexpr (kResident) {
-    const int vpr = dk / 8;   // 16-byte vectors of a row
-    for (int v = tid; v < kTerms * kQT * vpr; v += kThreads) {
-      const int term = v / (kQT * vpr);
-      const int rem = v - term * kQT * vpr;
-      const int row = rem / vpr, vec = rem - row * vpr;
-      const bool ok = q0 + row < nq;
-      mma::cp_async16(qs + term * q_term + row * qstride + vec * 16,
-                      q + term * q_ts + (ok ? (size_t)(q0 + row) * dk + vec * 8 : 0),
-                      ok ? 16 : 0);
-    }
-  }
-  // step t = (tile tile0 + j, column chunk ch) into stage t mod kStages;
-  // rows and columns outside the matrices read as zeros
+  // step t = (tile tile0 + t / nch, column chunk t mod nch) into stage t
+  // mod kStreamStages; rows and columns outside the matrices read as zeros
   auto issue = [&](int t) {
-    unsigned char* st = xs + (t % kStages) * kXStage;
-    const int j = tile0 + t / nch, ch = t % nch;
-    const int c0 = ch * kKC;
-    for (int v = tid; v < kTerms * kCS * 4; v += kThreads) {
+    unsigned char* st = smem + (t % kStreamStages) * kStage;
+    const int j = tile0 + t / nch, c0 = (t % nch) * kChunk;
+    for (int v = tid; v < kTerms * kCS * 4; v += kStreamThreads) {
       const int term = v / (kCS * 4);
       const int row = (v >> 2) & (kCS - 1), vec = v & 3;
-      const int xr = j * B + s0 + row, col = c0 + vec * 8;
-      const bool ok = xr < n && col < dk;
-      mma::cp_async16(st + term * kCS * kRow + row * kRow + vec * 16,
-                      x + term * x_ts + (ok ? (size_t)xr * dk + col : 0), ok ? 16 : 0);
+      const int xr = j * B + s0 + row;
+      const bool ok = xr < n;
+      mma::cp_async16(st + term * kXTerm + row * kRow + vec * 16,
+                      x + term * x_ts + (ok ? (size_t)xr * dk + c0 + vec * 8 : 0), ok ? 16 : 0);
     }
     if (tid < kCS / 4) {   // the tile's 32 norms (sn holds whole tiles)
-      mma::cp_async16(st + kTerms * kCS * kRow + tid * 16,
-                      sn + (size_t)j * B + s0 + tid * 4, 16);
+      mma::cp_async16(st + kTerms * kXTerm + tid * 16, sn + (size_t)j * B + s0 + tid * 4, 16);
     }
-    if constexpr (!kResident) {
-      unsigned char* qst = qs + (t % kStages) * kTerms * kQStageTerm;
-      for (int v = tid; v < kTerms * kQT * 4; v += kThreads) {
-        const int term = v / (kQT * 4);
-        const int row = (v >> 2) & (kQT - 1), vec = v & 3;
-        const int col = c0 + vec * 8;
-        const bool ok = q0 + row < nq && col < dk;
-        mma::cp_async16(qst + term * kQStageTerm + row * kRow + vec * 16,
-                        q + term * q_ts + (ok ? (size_t)(q0 + row) * dk + col : 0),
-                        ok ? 16 : 0);
-      }
+    for (int v = tid; v < kTerms * kQT * 4; v += kStreamThreads) {
+      const int term = v / (kQT * 4);
+      const int row = (v >> 2) & (kQT - 1), vec = v & 3;
+      const bool ok = q0 + row < nq;
+      mma::cp_async16(st + kQOff + term * kQTerm + row * kRow + vec * 16,
+                      q + term * q_ts + (ok ? (size_t)(q0 + row) * dk + c0 + vec * 8 : 0),
+                      ok ? 16 : 0);
     }
   };
 
-  // bins of the thread's 16 (query, class) pairs, element e of n-tile nb
-  // at index 4 nb + e: query warp*16 + g + 8 (e / 2), class nb*8 + 2 t4 +
-  // e % 2. A bin's column is (tile0 + tile) * B + s0 + class, so one
-  // register holds both bins' tiles within the launch: the best's in the
-  // low 16 bits, the runner-up's in the high 16 (kNoTile: a bin's initial
-  // column 0); a launch covers fewer than kNoTile tiles
   float m1[16], m2[16];
   uint32_t jt[16];
 #pragma unroll
@@ -175,27 +450,23 @@ flat_scan_kernel(const uint16_t* __restrict__ q,   // [T][.., dk] bf16, this sla
     m2[e] = kBig;
     jt[e] = kNoTile | (kNoTile << 16);
   }
-  // the tile's sums, and one 16-column step's: each step's products go
-  // into a fresh `part`, smallest cross terms first, and join `acc` by one
-  // IEEE add (an mma chops its sum to 24 bits of its largest term: the
-  // chops of one long accumulation would all lean one way)
   float acc[4][4], part[4][4];
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kStreamStages - 1; ++s) {
     if (s < total) issue(s);
     mma::cp_async_commit();
   }
-  const int a_off = mma::a_offset(lane, qstride) + warp * 16 * qstride;
+  const int a_off = mma::a_offset(lane, kRow) + warp * 16 * kRow;
   const int b_off = mma::b_offset(lane, kRow);
 
   for (int t = 0; t < total; ++t) {
-    mma::cp_async_wait<kStages - 2>();
+    mma::cp_async_wait<kStreamStages - 2>();
     __syncthreads();   // step t landed; every warp is done with step t - 1
-    if (t + kStages - 1 < total) issue(t + kStages - 1);
+    if (t + kStreamStages - 1 < total) issue(t + kStreamStages - 1);
     mma::cp_async_commit();
 
-    const unsigned char* st = xs + (t % kStages) * kXStage;
+    const unsigned char* st = smem + (t % kStreamStages) * kStage;
     const int j = t / nch, ch = t - j * nch;   // j: the tile within the launch
     if (ch == 0) {
 #pragma unroll
@@ -204,27 +475,23 @@ flat_scan_kernel(const uint16_t* __restrict__ q,   // [T][.., dk] bf16, this sla
         for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
       }
     }
-    const int w = min(kKC, dk - ch * kKC);
-    const unsigned char* qb =
-        kResident ? qs + a_off + ch * kKC * 2 : qs + (t % kStages) * kTerms * kQStageTerm + a_off;
+    const unsigned char* qb = st + kQOff + a_off;
     const unsigned char* xb = st + b_off;
 #pragma unroll
-    for (int ks = 0; ks < kKC / 16; ++ks) {
-      if (ks * 16 >= w) break;
+    for (int ks = 0; ks < kChunk / 16; ++ks) {
       uint32_t a[kTerms][4];
 #pragma unroll
-      for (int i = 0; i < kTerms; ++i) mma::ldsm_x4(a[i], qb + i * q_term + ks * 32);
+      for (int i = 0; i < kTerms; ++i) mma::ldsm_x4(a[i], qb + i * kQTerm + ks * 32);
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
       }
-      // database terms from the smallest; within one, query terms likewise
 #pragma unroll
       for (int b = kTerms - 1; b >= 0; --b) {
         uint32_t b01[4], b23[4];
-        mma::ldsm_x4(b01, xb + b * kCS * kRow + ks * 32);
-        mma::ldsm_x4(b23, xb + b * kCS * kRow + 16 * kRow + ks * 32);
+        mma::ldsm_x4(b01, xb + b * kXTerm + ks * 32);
+        mma::ldsm_x4(b23, xb + b * kXTerm + 16 * kRow + ks * 32);
 #pragma unroll
         for (int p = mma::cross_count(kTerms, kTerms) - 1; p >= 0; --p) {
           if (mma::cross_b(kTerms, p) != b) continue;
@@ -243,19 +510,17 @@ flat_scan_kernel(const uint16_t* __restrict__ q,   // [T][.., dk] bf16, this sla
     }
 
     if (ch == nch - 1) {
-      // the bins update of tile j on the accumulator fragment
-      const float* snr = reinterpret_cast<const float*>(st + kTerms * kCS * kRow);
+      const float* snr = reinterpret_cast<const float*>(st + kTerms * kXTerm);
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
         const float2 sv = *reinterpret_cast<const float2*>(snr + nb * 8 + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int k = nb * 4 + e;
-          // 2 * acc is exact, so this is sn - 2 dot rounded once
           const float s = __fmaf_rn(-2.f, acc[nb][e], (e & 1) ? sv.y : sv.x);
           if constexpr (kDepth == 1) {
             if (s < m1[k]) { m1[k] = s; jt[k] = j; }
-          } else if (s < m2[k]) {   // m1 <= m2: else nothing changes
+          } else if (s < m2[k]) {
             const bool b1 = s < m1[k];
             const float lose_v = b1 ? m1[k] : s;
             const uint32_t lose_t = b1 ? jt[k] & 0xFFFFu : (uint32_t)j;
@@ -316,90 +581,218 @@ __global__ void flat_merge_kernel(float* __restrict__ bv, int* __restrict__ bi,
   }
 }
 
-// one block per query: kb rounds of the lexicographic (value, col) minimum
-// over its `width` bins
-__global__ void __launch_bounds__(kThreads)
+// -- the extraction: the kb rounds computed at once ---------------------------------
+
+constexpr int kMaxKb = 128;
+constexpr int kMaxBins = 4096;   // 8 warps x 512 keys
+// a slot past the bins, (inf, INT_MAX): after every bin (every bin is <= 3e38)
+constexpr uint64_t kPadKey = (0xFF800000ull << 32) | 0x7FFFFFFFull;
+
+// One block of `blockDim.x / 32` warps (a power of two, 512 * warps >=
+// width) per query. The rounds emit the bins below 3e38 in key order;
+// once those are spent, every bin holds 3e38 and each later round emits
+// (3e38, m), m the least column among the bins then at 3e38: those
+// extracted and those at 3e38 from the start (never filled, column 0;
+// or, after a merge of runs, a later run's). So: sort the keys, keep the
+// 128 smallest, emit the first n_fin (the keys below 3e38), then (3e38,
+// m), m the least column of the kept keys at most 3e38 (the least 3e38 key
+// is among them whenever n_fin < 128), each value plus qadd. Warp w sorts
+// the bins 512 w + 128 h + 4 lane + u (groups h = 0..3, odd groups
+// descending), keeps the 128 smallest of each pair of groups and then of
+// the two, and the warps' lists merge pairwise in a tree through shared
+// memory (the partner's list read reversed: the elementwise minimum of an
+// ascending and a descending list is a bitonic sequence holding the 128
+// smallest of both). Lane l of warp 0 writes outputs 4 l .. 4 l + 3.
+__global__ void __launch_bounds__(kMaxBins / 16)
 flat_extract_kernel(const float* __restrict__ bins_v,
                     const int* __restrict__ bins_i,
                     const float* __restrict__ qadd,
                     float* __restrict__ out_d, int* __restrict__ out_i,
                     int width, int kb) {
-  __shared__ float wv[2][kThreads / 32];
-  __shared__ int wi[2][kThreads / 32];
-  const int tid = threadIdx.x;
+  __shared__ uint64_t lists[kMaxBins / 512][128];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   const size_t qi = blockIdx.x;
   const float* bv_row = bins_v + qi * width;
   const int* bi_row = bins_i + qi * width;
 
-  float v[kBinsPerThread];
-  int id[kBinsPerThread];
+  uint64_t s[4];
+  if (512 * warp < width) {
+    uint64_t x[16];
 #pragma unroll
-  for (int e = 0; e < kBinsPerThread; ++e) {
-    const int b = tid + kThreads * e;
-    // a slot past the bins never wins: every bin is <= 3e38
-    v[e] = b < width ? bv_row[b] : __int_as_float(0x7f800000);
-    id[e] = b < width ? bi_row[b] : INT_MAX;
-  }
-  const float qa = qadd[qi];
-
-  for (int t = 0; t < kb; ++t) {
-    float bv = v[0];
-    int bi = id[0];
+    for (int h = 0; h < 4; ++h) {
+      const int b = 512 * warp + 128 * h + 4 * lane;   // width is a multiple of 32
+      if (b < width) {
+        const float4 v = *reinterpret_cast<const float4*>(bv_row + b);
+        const int4 l = *reinterpret_cast<const int4*>(bi_row + b);
+        x[4 * h + 0] = sort_key(v.x, l.x);
+        x[4 * h + 1] = sort_key(v.y, l.y);
+        x[4 * h + 2] = sort_key(v.z, l.z);
+        x[4 * h + 3] = sort_key(v.w, l.w);
+      } else {
 #pragma unroll
-    for (int e = 1; e < kBinsPerThread; ++e) {
-      if (lex_less(v[e], id[e], bv, bi)) { bv = v[e]; bi = id[e]; }
+        for (int u = 0; u < 4; ++u) x[4 * h + u] = kPadKey;
+      }
     }
-    warp_lex_min(bv, bi);
-    const int par = t & 1;
-    if ((tid & 31) == 0) { wv[par][tid >> 5] = bv; wi[par][tid >> 5] = bi; }
+    bitonic_sort<4, 128>(x, lane);
+    uint64_t m[8];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      m[u] = x[4 + u] < x[u] ? x[4 + u] : x[u];
+      m[4 + u] = x[12 + u] < x[8 + u] ? x[12 + u] : x[8 + u];
+    }
+    bitonic_merge<2, 256, 64>(m, lane);   // group 0 ascending, group 1 descending
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u] = m[4 + u] < m[u] ? m[4 + u] : m[u];
+    bitonic_merge<1, 256, 64>(s, lane);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u] = kPadKey;
+  }
+  for (int half = warps >> 1; half >= 1; half >>= 1) {
+    if (warp >= half && warp < 2 * half) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) lists[warp][4 * lane + u] = s[u];
+    }
     __syncthreads();
-    bv = wv[par][0];
-    bi = wi[par][0];
+    if (warp < half) {
 #pragma unroll
-    for (int wp = 1; wp < kThreads / 32; ++wp) {
-      if (lex_less(wv[par][wp], wi[par][wp], bv, bi)) { bv = wv[par][wp]; bi = wi[par][wp]; }
+      for (int u = 0; u < 4; ++u) {
+        const uint64_t r = lists[warp + half][127 - 4 * lane - u];
+        s[u] = r < s[u] ? r : s[u];
+      }
+      bitonic_merge<1, 256, 64>(s, lane);
     }
-    if (tid == 0) {
-      out_d[qi * kb + t] = __fadd_rn(bv, qa);
-      out_i[qi * kb + t] = bi;
-    }
+  }
+  if (warp != 0) return;
+
+  // n_fin: keys below 3e38; m: the least column of the keys at most 3e38
+  const uint32_t big = __float_as_uint(kBig) ^ 0x80000000u;
+  int n_fin = 0;
+  uint32_t m = 0xFFFFFFFFu;
 #pragma unroll
-    for (int e = 0; e < kBinsPerThread; ++e) {
-      if (v[e] == bv && id[e] == bi) v[e] = kBig;
+  for (int u = 0; u < 4; ++u) {
+    const uint32_t hi = (uint32_t)(s[u] >> 32);
+    n_fin += hi < big;
+    if (hi <= big) m = min(m, (uint32_t)s[u]);
+  }
+  n_fin = __reduce_add_sync(0xffffffffu, n_fin);
+  m = __reduce_min_sync(0xffffffffu, m);
+  const float qa = qadd[qi];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int r = 4 * lane + u;
+    if (r < kb) {
+      const bool real = r < n_fin;
+      out_d[qi * kb + r] = __fadd_rn(real ? key_value(s[u]) : kBig, qa);
+      out_i[qi * kb + r] = (int)(real ? (uint32_t)s[u] : m);
     }
   }
 }
 
-template <int kTerms>
-size_t scan_smem(int dk, bool resident) {
-  const size_t q = resident ? (size_t)kTerms * kQT * (dk * 2 + 16)
-                            : (size_t)stages(false) * kTerms * kQT * kRow;
-  return (size_t)stages(resident) * x_stage_bytes<kTerms>() + q;
+int launch_extract(const float* bins_v, const int* bins_i, const float* qadd, float* out_d,
+                   int* out_i, int nq, int width, int kb, cudaStream_t stream) {
+  int warps = 1;
+  while (512 * warps < width) warps *= 2;
+  flat_extract_kernel<<<nq, 32 * warps, 0, stream>>>(bins_v, bins_i, qadd, out_d, out_i,
+                                                     width, kb);
+  return (int)cudaGetLastError();
 }
 
-template <int kDepth, int kTerms, bool kResident>
-int launch_scan(const uint16_t* q, size_t q_ts, const uint16_t* x, const float* sn,
-                float* bins_v, int* bins_i, int nq, int n, int dk, int B, int tile0,
-                int ntiles, cudaStream_t stream) {
-  auto kern = flat_scan_kernel<kDepth, kTerms, kResident>;
-  const size_t smem = scan_smem<kTerms>(dk, kResident);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// -- host: tensor maps and launches ---------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// links no libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a tensor map of `rank` dims (innermost first), strides in bytes of dims 1..
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Maps {
+  CUtensorMap q, x, sn;
+};
+
+template <int kDepth, int kTerms, bool kARegs>
+int launch_wgmma(const Maps& maps, const Plan& plan, float* bins_v, int* bins_i, int nq,
+                 int dk, int B, int tile0, int ntiles, cudaStream_t stream) {
+  auto kern = flat_scan_kernel<kDepth, kTerms, kARegs>;
+  // setmaxnreg moves registers within the block's launch allocation: a
+  // smaller allocation than the launch bounds give would hang the raise
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.numRegs < kLaunchRegs) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nq + kQT - 1) / kQT, B / kCS);
-  kern<<<grid, kThreads, smem, stream>>>(q, q_ts, x, sn, bins_v, bins_i, nq, n, dk, B,
-                                         tile0, ntiles);
+  kern<<<grid, kScanThreads, plan.smem, stream>>>(
+      maps.q, maps.x, maps.sn, bins_v, bins_i, nq, B, dk / kChunk, tile0, ntiles, plan.tps,
+      plan.stages, plan.stage_bytes);
   return (int)cudaGetLastError();
 }
 
 template <int kDepth, int kTerms>
-int launch_terms(const uint16_t* q, size_t q_ts, const uint16_t* x, const float* sn,
-                 float* bins_v, int* bins_i, int nq, int n, int dk, int B, int tile0,
-                 int ntiles, cudaStream_t stream) {
-  // the query terms stay resident where the block fits 200 KiB
-  auto run = scan_smem<kTerms>(dk, true) <= 200 * 1024 ? &launch_scan<kDepth, kTerms, true>
-                                                        : &launch_scan<kDepth, kTerms, false>;
-  return run(q, q_ts, x, sn, bins_v, bins_i, nq, n, dk, B, tile0, ntiles, stream);
+int launch_streamed(const uint16_t* q, size_t q_ts, const uint16_t* x, const float* sn,
+                    float* bins_v, int* bins_i, int nq, int n, int dk, int B, int tile0,
+                    int ntiles, cudaStream_t stream) {
+  auto kern = flat_scan_streamed_kernel<kDepth, kTerms>;
+  const int smem = kStreamStages * streamed_stage_bytes<kTerms>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nq + kQT - 1) / kQT, B / kCS);
+  kern<<<grid, kStreamThreads, smem, stream>>>(q, q_ts, x, sn, bins_v, bins_i, nq, n, dk, B,
+                                               tile0, ntiles);
+  return (int)cudaGetLastError();
+}
+
+struct ScanArgs {
+  const uint16_t* q;
+  size_t q_ts;
+  const uint16_t* x;
+  const float* sn;
+  int nq, n, dk, B;
+};
+
+template <int kDepth, int kTerms>
+int launch_terms(const ScanArgs& a, const Maps* maps, const Plan& plan, float* bins_v,
+                 int* bins_i, int tile0, int ntiles, cudaStream_t stream) {
+  if (plan.tps == 0) {
+    return launch_streamed<kDepth, kTerms>(a.q, a.q_ts, a.x, a.sn, bins_v, bins_i, a.nq, a.n,
+                                           a.dk, a.B, tile0, ntiles, stream);
+  }
+  auto run = a.dk == kChunk ? &launch_wgmma<kDepth, kTerms, true>
+                            : &launch_wgmma<kDepth, kTerms, false>;
+  return run(*maps, plan, bins_v, bins_i, a.nq, a.dk, a.B, tile0, ntiles, stream);
 }
 
 using ScanLaunch = decltype(&launch_terms<1, 1>);
@@ -411,6 +804,21 @@ const ScanLaunch kScan[2][3] = {
 
 }  // namespace
 
+// The scan's plan for rows of dk columns (a multiple of 32) and `terms`
+// terms: out[0..3] = tiles a stage, stages, bytes a stage, dynamic shared
+// memory; tiles a stage 0: the streamed mma.sync kernel (its stages and
+// shared memory). Returns 0.
+extern "C" int annsearch_flat_scan_plan(int dk, int terms, void* out) {
+  const Plan p = scan_plan(dk, terms);
+  int* o = (int*)out;
+  o[0] = p.tps;
+  o[1] = p.tps ? p.stages : kStreamStages;
+  o[2] = p.stage_bytes;
+  o[3] = p.tps ? p.smem
+               : kStreamStages * (terms * kCS * kRow + kCS * 4 + terms * kQT * kRow);
+  return 0;
+}
+
 // K2 for one slab of queries: the scan into bins_v / bins_i ([nq, depth * B]
 // scratch of the caller) and the extraction into out_d / out_i ([nq, kb]).
 // q_terms points at the slab's first row of the first query term; the terms
@@ -420,44 +828,82 @@ const ScanLaunch kScan[2][3] = {
 // bins_v2 / bins_i2 (scratch as bins_v / bins_i, unused with fewer tiles)
 // and are merged into the earlier runs'. Launches on `stream` and returns
 // the first cudaError_t that is not 0. The caller validates: dk a multiple
-// of 16, B a multiple of 32, depth 1 or 2, terms 1 to 3, depth * B <= 4096,
-// 1 <= kb <= depth * B, 16-byte aligned arrays.
+// of 32, B a multiple of 32, depth 1 or 2, terms 1 to 3, depth * B <= 4096,
+// 1 <= kb <= min(depth * B, 128), 16-byte aligned arrays.
 extern "C" int annsearch_flat_scan(
     const void* q_terms, const void* x_terms, const void* sn, const void* qadd,
     void* bins_v, void* bins_i, void* bins_v2, void* bins_i2, void* out_d, void* out_i,
     int nq, int nq_total, int n, int dk, int B, int depth, int kb, int terms,
     void* stream) {
   if (nq <= 0) return 0;
-  if (depth < 1 || depth > 2 || terms < 1 || terms > 3) return (int)cudaErrorInvalidValue;
+  if (depth < 1 || depth > 2 || terms < 1 || terms > 3 || dk % kChunk || B % kCS ||
+      depth * B > kMaxBins || kb < 1 || kb > kMaxKb || kb > depth * B) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int tiles = (n + B - 1) / B;
   const int run = (int)kNoTile - 1;
   if (tiles > run && (bins_v2 == nullptr || bins_i2 == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const Plan plan = scan_plan(dk, terms);
+  Maps maps;
+  if (plan.tps > 0) {
+    const cuuint64_t esz = 2, row = (cuuint64_t)dk * esz;
+    const cuuint64_t q_dims[3] = {(cuuint64_t)dk, (cuuint64_t)nq, (cuuint64_t)terms};
+    const cuuint64_t q_strides[2] = {row, (cuuint64_t)nq_total * row};
+    const cuuint32_t q_box[3] = {kChunk, 64, (cuuint32_t)terms};
+    const cuuint64_t x_dims[3] = {(cuuint64_t)dk, (cuuint64_t)n, (cuuint64_t)terms};
+    const cuuint64_t x_strides[2] = {row, (cuuint64_t)n * row};
+    const cuuint32_t x_box[3] = {kChunk, kCS, 1};
+    const cuuint64_t sn_dims[2] = {(cuuint64_t)B, (cuuint64_t)tiles};
+    const cuuint64_t sn_strides[1] = {(cuuint64_t)B * 4};
+    const cuuint32_t sn_box[2] = {kCS, 1};
+    if (!make_map(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q_terms, q_dims, q_strides,
+                  q_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x_terms, x_dims, x_strides,
+                  x_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !make_map(&maps.sn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sn, sn_dims, sn_strides,
+                  sn_box, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const ScanArgs args{(const uint16_t*)q_terms, (size_t)nq_total * dk, (const uint16_t*)x_terms,
+                      (const float*)sn, nq, n, dk, B};
   cudaStream_t st = (cudaStream_t)stream;
   for (int t0 = 0; t0 < tiles; t0 += run) {
     const bool first = t0 == 0;
     const int err = kScan[depth - 1][terms - 1](
-        (const uint16_t*)q_terms, (size_t)nq_total * dk, (const uint16_t*)x_terms,
-        (const float*)sn, (float*)(first ? bins_v : bins_v2),
-        (int*)(first ? bins_i : bins_i2), nq, n, dk, B, t0, min(run, tiles - t0), st);
+        args, &maps, plan, (float*)(first ? bins_v : bins_v2), (int*)(first ? bins_i : bins_i2),
+        t0, min(run, tiles - t0), st);
     if (err) return err;
     if (!first) {
       const size_t pairs = (size_t)nq * B;
-      const unsigned blocks = (unsigned)((pairs + kThreads - 1) / kThreads);
+      const unsigned blocks = (unsigned)((pairs + 255) / 256);
       if (depth == 1) {
-        flat_merge_kernel<1><<<blocks, kThreads, 0, st>>>(
+        flat_merge_kernel<1><<<blocks, 256, 0, st>>>(
             (float*)bins_v, (int*)bins_i, (const float*)bins_v2, (const int*)bins_i2, nq, B);
       } else {
-        flat_merge_kernel<2><<<blocks, kThreads, 0, st>>>(
+        flat_merge_kernel<2><<<blocks, 256, 0, st>>>(
             (float*)bins_v, (int*)bins_i, (const float*)bins_v2, (const int*)bins_i2, nq, B);
       }
       const int merr = (int)cudaGetLastError();
       if (merr) return merr;
     }
   }
-  flat_extract_kernel<<<nq, kThreads, 0, st>>>(
-      (const float*)bins_v, (const int*)bins_i, (const float*)qadd,
-      (float*)out_d, (int*)out_i, depth * B, kb);
-  return (int)cudaGetLastError();
+  return launch_extract((const float*)bins_v, (const int*)bins_i, (const float*)qadd,
+                        (float*)out_d, (int*)out_i, nq, depth * B, kb, st);
+}
+
+// K2's extraction alone, on bins the caller gives ([nq, width] values, every
+// one at most 3e38, and columns): out_d / out_i [nq, kb] as the kb rounds
+// give them. width a multiple of 32 up to 4096, 1 <= kb <= min(width, 128).
+extern "C" int annsearch_flat_extract(const void* bins_v, const void* bins_i, const void* qadd,
+                                      void* out_d, void* out_i, int nq, int width, int kb,
+                                      void* stream) {
+  if (nq <= 0) return 0;
+  if (width % 32 || width > kMaxBins || kb < 1 || kb > kMaxKb || kb > width) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_extract((const float*)bins_v, (const int*)bins_i, (const float*)qadd,
+                        (float*)out_d, (int*)out_i, nq, width, kb, (cudaStream_t)stream);
 }

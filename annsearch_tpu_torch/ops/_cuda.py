@@ -21,7 +21,7 @@ from pathlib import Path
 
 __all__ = [
     "load_library", "build_log", "kernel_resources", "mma_counts", "mma_sync_once",
-    "SOURCE_DIR", "BUILD_DIR",
+    "wgmma_once", "SOURCE_DIR", "BUILD_DIR",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -48,7 +48,10 @@ _SIGNATURES = {
     "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_flat_scan": [_P] * 10 + [_I] * 8 + [_P],
+    "annsearch_flat_scan_plan": [_I, _I, _P],
+    "annsearch_flat_extract": [_P] * 5 + [_I] * 3 + [_P],
     "annsearch_mma_probe": [_P] * 4 + [_I, _P],
+    "annsearch_wgmma_probe": [_P] * 4 + [_I, _P],
 }
 
 
@@ -108,19 +111,20 @@ def kernel_resources() -> list[tuple[str, str]]:
     return out
 
 
-def mma_counts() -> tuple[str, dict[str, tuple[int, int]]]:
-    """Tensor-core instructions of each kernel of the built library:
-    ``("sass", {kernel: (HMMA, IMMA)})`` counted in ``cuobjdump -sass``
-    where the toolkit has it, else ``("ptx", {kernel: (mma.sync with bf16
-    operands, with s8 operands)})`` counted in the PTX that ``nvcc -ptx``
-    makes of each source."""
+def mma_counts() -> tuple[str, dict[str, tuple[int, int, int, int]]]:
+    """Tensor-core and TMA instructions of each kernel of the built library:
+    ``("sass", {kernel: (HMMA, IMMA, HGMMA, UTMALDG)})`` counted in
+    ``cuobjdump -sass`` where the toolkit has it, else ``("ptx", {kernel:
+    (mma.sync with bf16 operands, with s8 operands, wgmma.mma_async,
+    cp.async.bulk.tensor)})`` counted in the PTX that ``nvcc -ptx`` makes of
+    each source."""
     load_library()
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     counts: dict[str, list[int]] = {}
     if os.path.exists(tool):
         text = subprocess.run([tool, "-sass", str(_build_dir() / _LIB_NAME)],
                               capture_output=True, text=True, check=True).stdout
-        head, marks, kind = r"Function : (\S+)", ("HMMA", "IMMA"), "sass"
+        head, marks, kind = r"Function : (\S+)", ("HMMA", "IMMA", "HGMMA", "UTMALDG"), "sass"
     else:
         text = ""
         for p in _sources():
@@ -128,17 +132,19 @@ def mma_counts() -> tuple[str, dict[str, tuple[int, int]]]:
             subprocess.run([_nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx", "-o",
                             str(ptx), str(p)], capture_output=True, check=True)
             text += ptx.read_text()
-        head, marks, kind = r"\.entry (\S+?)\(", ("mma.sync.aligned.m16n8k16", "s8.s8.s32"), "ptx"
+        head, kind = r"\.entry (\S+?)\(", "ptx"
+        marks = ("mma.sync.aligned.m16n8k16", "s8.s8.s32", "wgmma.mma_async",
+                 "cp.async.bulk.tensor")
     name = None
     for line in text.splitlines():
         m = re.search(head, line)
         if m:
             name = _short_name(m.group(1))
-            counts.setdefault(name, [0, 0])
+            counts.setdefault(name, [0] * len(marks))
         elif name is not None:
             for i, mark in enumerate(marks):
                 counts[name][i] += mark in line
-    return kind, {k: (v[0], v[1]) for k, v in counts.items()}
+    return kind, {k: tuple(v) for k, v in counts.items()}
 
 
 def mma_sync_once(a, b, c):
@@ -154,6 +160,23 @@ def mma_sync_once(a, b, c):
         torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"mma probe launch failed: cudaError {err}")
+    return d
+
+
+def wgmma_once(a, b, c):
+    """One ``wgmma.mma_async.m64n64k16`` bf16 → f32 as K2's scan issues it
+    (``csrc/mma_probe.cu``) per problem: ``a [P, 64, 16]`` and ``b [P, 16,
+    64]`` bf16, ``c [P, 64, 64]`` f32, CUDA tensors; returns ``a @ b + c``
+    as the tensor cores sum it."""
+    import torch
+
+    a, bt, c = a.contiguous(), b.transpose(1, 2).contiguous(), c.contiguous()
+    d = torch.empty_like(c)
+    err = load_library().annsearch_wgmma_probe(
+        a.data_ptr(), bt.data_ptr(), c.data_ptr(), d.data_ptr(), a.shape[0],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wgmma probe launch failed: cudaError {err}")
     return d
 
 

@@ -8,9 +8,12 @@ minima in turn, ties to the lowest column. A true neighbour is lost only
 when more than ``depth`` of the top-k share a class, so ``B`` (from
 ``block_db`` and ``n``) is part of the result, not a tuning knob.
 
-A CUDA tensor goes to the hand-written kernel in ``csrc/flat_scan.cu`` (or
-raises); a CPU tensor goes to ``flat_topk_fused_plain``, the same function
-in tensor operations, which is also what the kernel is held against.
+A CUDA tensor goes to the hand-written kernels in ``csrc/flat_scan.cu`` (or
+raises): a scan on ``wgmma`` fed by TMA, or, for rows too wide for the
+query terms to stay in shared memory (:func:`scan_plan`), the streamed scan
+on ``mma.sync``; then an extraction by a sort network. A CPU tensor goes to
+``flat_topk_fused_plain``, the same function in tensor operations, which
+is also what the kernels are held against.
 
 Grade of the dots. The Pallas kernel sums bf16 cross terms of a mantissa
 split on the MXU; the port sums the same terms on the tensor cores:
@@ -37,8 +40,8 @@ import torch
 from ..utils.dist import Dist, cross_packed, fp32_matmul, mantissa_split, sq_norms
 
 __all__ = [
-    "flat_topk_fused", "flat_topk_fused_plain", "fused_shapes", "slab_rows",
-    "scan_smem_bytes", "split_terms",
+    "flat_topk_fused", "flat_topk_fused_plain", "flat_extract", "fused_shapes",
+    "slab_rows", "scan_plan", "split_terms",
 ]
 
 #: finite "masked" value of the scan (ranks after every real score)
@@ -48,8 +51,10 @@ _DEF_B = 2048
 _PLAIN_ROWS = 512
 #: bytes of bins scratch per kernel launch: queries go through in slabs
 _SCRATCH_BYTES = 512 * 1024 * 1024
-#: the extraction kernel holds depth·B bins in 256 threads × 16 registers
+#: the extraction kernel sorts depth·B bins in up to 8 warps × 512 keys
 _MAX_BINS = 4096
+#: the extraction keeps the 128 smallest keys: kb ≤ 128 (``fused_shapes``)
+_MAX_KB = 128
 #: db tiles one scan launch covers (a bin keeps its tile in 16 bits)
 _RUN_TILES = 65_534
 
@@ -76,18 +81,40 @@ def split_terms(passes: int) -> int:
     return 3 if passes >= 6 else (2 if passes >= 3 else 1)
 
 
-def scan_smem_bytes(d: int, passes: int = 1) -> int:
-    """Dynamic shared memory of one scan block at row width ``d``, as
-    ``csrc/flat_scan.cu`` sizes it for T terms: a ring of stages of T × 32
-    x rows of 32 bf16 columns (rows of 80 bytes) with their 32 norms, and
-    the 128-query tile's T terms: whole (rows of ``2 dk + 16`` bytes, dk =
-    d rounded up to 16) beside eight stages where that fits 200 KiB, else
-    streamed, T × 128 rows of 80 bytes in each of three stages."""
-    t = split_terms(passes)
-    dk = -(-d // 16) * 16
-    stage = t * 32 * 80 + 128
-    whole = 8 * stage + t * 128 * (2 * dk + 16)
-    return whole if whole <= 200 * 1024 else 3 * stage + 3 * t * 128 * 80
+def _cols(d: int) -> int:
+    """dk: the kernels' row width, ``d`` rounded up to 32 columns."""
+    return -(-d // 32) * 32
+
+
+def scan_plan(d: int, passes: int = 1) -> tuple[int, int, int, int]:
+    """``(tiles a stage, stages, bytes a stage, dynamic shared memory)`` of
+    the scan at row width ``d``, as ``csrc/flat_scan.cu::scan_plan`` sizes
+    it for T terms and dk = d rounded up to 32 columns (nch chunks of 32):
+    up to 1024 bytes of alignment slack, 1024 of barriers, the 128 queries'
+    terms (2 × nch × T boxes of 64 rows × 64 bytes), then the ring: a tile
+    is nch × T boxes of 32 rows × 64 bytes and its 32 norms, a stage an even
+    number of tiles (as many as fit 16 KiB, at least two: one product reads
+    a pair) rounded up to 1024 bytes, up to 8 stages in 227 KiB. Tiles a
+    stage 0: two stages do not fit, and the query is streamed (the
+    ``mma.sync`` kernel, three stages of T × 32 x rows and T × 128 query
+    rows of 80 bytes, and the 32 norms)."""
+    return _plan(_cols(d), split_terms(passes))
+
+
+def _plan(dk: int, t: int) -> tuple[int, int, int, int]:
+    nch = dk // 32
+    tile = nch * t * 2048 + 128
+    fixed = 2048 + 2 * nch * t * 4096
+
+    def stage_of(b):
+        return -(-b // 1024) * 1024
+
+    tps = max(2, 16384 // tile // 2 * 2)
+    stages = (227 * 1024 - fixed) // stage_of(tps * tile)
+    if stages < 2:
+        return 0, 3, 0, 3 * (t * 32 * 80 + 128 + t * 128 * 80)
+    stages = min(stages, 8)
+    return tps, stages, stage_of(tps * tile), fixed + stages * stage_of(tps * tile)
 
 
 def _prepare(q, x, metric, x_sqnorm, n_valid):
@@ -158,19 +185,32 @@ def _scan_plain(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms
                 m2[:, :w] = torch.where(b2, spill, a2)
         vals = torch.cat([m1, m2], dim=1) if depth == 2 else m1
         idx = torch.cat([i1, i2], dim=1) if depth == 2 else i1
-        for t in range(kb):
-            v = vals.min(dim=1, keepdim=True).values
-            hit = vals == v
-            low = torch.where(hit, idx, 2**30).min(dim=1, keepdim=True).values
-            out_d[r0 : r0 + _PLAIN_ROWS, t] = (v + qadd[r0 : r0 + _PLAIN_ROWS, None])[:, 0]
-            out_i[r0 : r0 + _PLAIN_ROWS, t] = low[:, 0]
-            vals = torch.where(hit & (idx == low), BIG, vals)
+        sl = slice(r0, r0 + _PLAIN_ROWS)
+        out_d[sl], out_i[sl] = _extract_plain(vals, idx, qadd[sl], kb)
+    return out_d, out_i
+
+
+def _extract_plain(vals, idx, qadd, kb: int):
+    """The extraction in tensor operations: kb rounds of the lexicographic
+    minimum (value, column) over each row's bins ``vals`` / ``idx`` [rows,
+    width] (columns below 2³⁰), each writing (value + qadd, column) and
+    setting the bins equal to the winner to 3e38. ``(d [rows, kb] f32, i
+    [rows, kb] int32)``."""
+    out_d = torch.empty((vals.shape[0], kb), device=vals.device)
+    out_i = torch.empty((vals.shape[0], kb), dtype=torch.int32, device=vals.device)
+    for t in range(kb):
+        v = vals.min(dim=1, keepdim=True).values
+        hit = vals == v
+        low = torch.where(hit, idx, 2**30).min(dim=1, keepdim=True).values
+        out_d[:, t] = (v + qadd[:, None])[:, 0]
+        out_i[:, t] = low[:, 0]
+        vals = torch.where(hit & (idx == low), BIG, vals)
     return out_d, out_i
 
 
 def _terms_of(v: torch.Tensor, terms: int, dk: int) -> torch.Tensor:
     """``[terms, rows, dk]`` bf16: the mantissa split of ``v [rows, d]``
-    with zero columns past d (the kernel's operands)."""
+    with zero columns past d (the kernels' operands; dk a multiple of 32)."""
     out = torch.zeros((terms, v.shape[0], dk), dtype=torch.bfloat16, device=v.device)
     for i, t in enumerate(mantissa_split(v, terms)):
         out[i, :, : v.shape[1]] = t
@@ -183,10 +223,12 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
 
     nq, d = q.shape
     n = x.shape[0]
-    if depth not in (1, 2) or B % 32 or depth * B > _MAX_BINS or not 1 <= kb <= depth * B:
+    if (depth not in (1, 2) or B % 32 or depth * B > _MAX_BINS
+            or not 1 <= kb <= min(depth * B, _MAX_KB)):
         raise ValueError(
             f"flat_topk_fused: unsupported depth={depth}, B={B}, kb={kb} (the "
-            f"kernel takes depth 1 or 2, B a multiple of 32, depth·B ≤ {_MAX_BINS})"
+            f"kernel takes depth 1 or 2, B a multiple of 32, depth·B ≤ {_MAX_BINS}, "
+            f"kb ≤ {_MAX_KB})"
         )
     if n >= 2**31 - B:
         raise ValueError(f"flat_topk_fused: n={n} does not fit int32 columns")
@@ -195,9 +237,9 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
             raise ValueError(f"flat_topk_fused: {name} must be float32 on {q.device}")
     if sn is not None and sn.shape != (n,):
         raise ValueError(f"flat_topk_fused: x_sqnorm must have shape ({n},)")
-    # the kernel's operands: the bf16 terms in rows of a multiple of 16
+    # the kernels' operands: the bf16 terms in rows of a multiple of 32
     # columns, and the norms of whole tiles (3e38 at and past n_valid)
-    dk = -(-d // 16) * 16
+    dk = _cols(d)
     q_t, x_t = _terms_of(q, terms, dk), _terms_of(x, terms, dk)
     sn_t = torch.full((-(-n // B) * B,), BIG, device=q.device)
     sn_t[:n_valid] = 0.0 if sn is None else sn[:n_valid]
@@ -216,6 +258,7 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
     bins_i2 = torch.empty_like(bins_i) if many else None
     fn = load_library().annsearch_flat_scan
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    streamed = _plan(dk, terms)[0] == 0
     for s in range(0, nq, slab):
         m = min(slab, nq - s)
         err = fn(
@@ -228,6 +271,36 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
         if err:
             raise RuntimeError(f"flat_topk_fused launch failed: cudaError {err}")
         flat_topk_fused.launches += 1
+        flat_topk_fused.mma_sync_launches += streamed
+    return out_d, out_i
+
+
+def flat_extract(bins_v: torch.Tensor, bins_i: torch.Tensor, qadd: torch.Tensor, kb: int):
+    """K2's extraction alone: kb rounds of the lexicographic minimum (value,
+    column) over each row of bins ``bins_v`` [rows, width] f32 (every value
+    at most 3e38) and ``bins_i`` int32, each writing (value + ``qadd`` [rows],
+    column) and setting the bins equal to the winner to 3e38: ``(d [rows,
+    kb], i [rows, kb] int32)``. width a multiple of 32 up to 4096, kb ≤
+    min(width, 128). CUDA tensors launch the kernel that ends every K2 scan
+    (or raise), counted in ``flat_extract.launches``; CPU tensors run the
+    rounds in tensor operations."""
+    if not bins_v.is_cuda:
+        return _extract_plain(bins_v, bins_i, qadd, kb)
+    from ._cuda import load_library
+
+    rows, width = bins_v.shape
+    if width % 32 or width > _MAX_BINS or not 1 <= kb <= min(width, _MAX_KB):
+        raise ValueError(f"flat_extract: unsupported width={width}, kb={kb}")
+    bins_v, bins_i = bins_v.float().contiguous(), bins_i.int().contiguous()
+    qadd = qadd.float().contiguous()
+    out_d = torch.empty((rows, kb), dtype=torch.float32, device=bins_v.device)
+    out_i = torch.empty((rows, kb), dtype=torch.int32, device=bins_v.device)
+    err = load_library().annsearch_flat_extract(
+        bins_v.data_ptr(), bins_i.data_ptr(), qadd.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), rows, width, kb, torch.cuda.current_stream(bins_v.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flat_extract launch failed: cudaError {err}")
+    flat_extract.launches += 1
     return out_d, out_i
 
 
@@ -273,13 +346,18 @@ def flat_topk_fused(
     columns past ``kb`` are (inf, 0), and with fewer than ``kb`` rows the
     tail is the unfilled bins' (about 3e38, clamped id).
 
-    CUDA tensors launch the kernel (or raise), in slabs of queries whose
+    CUDA tensors launch the kernels (or raise), in slabs of queries whose
     bins fit 512 MiB of scratch (twice that past 65,534 database tiles),
-    one count in ``flat_topk_fused.launches`` per slab; CPU tensors run the
-    plain version."""
+    one count in ``flat_topk_fused.launches`` per slab, and one more in
+    ``flat_topk_fused.mma_sync_launches`` where the rows are too wide for
+    the ``wgmma`` scan (:func:`scan_plan`); CPU tensors run the plain
+    version."""
     scan = _scan_cuda if q.is_cuda else _scan_plain
     return _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db)
 
 
 #: kernel launches (slabs) since the last reset; plain calls do not count
 flat_topk_fused.launches = 0
+#: of those, the slabs that took the streamed ``mma.sync`` scan
+flat_topk_fused.mma_sync_launches = 0
+flat_extract.launches = 0

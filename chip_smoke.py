@@ -4,11 +4,12 @@
 
 Phase 1 builds the CUDA kernels from ``annsearch_tpu_torch/csrc``, prints
 ptxas's registers and spills of each instance and counts the tensor-core
-instructions (HMMA, IMMA) in each scan instance's SASS (or ``mma.sync`` in
-the PTX where the toolkit has no ``cuobjdump``), and fails where one has
-none. Phase 1b runs one ``mma.sync`` of the scans on chosen and random
-operands and prints what the tensor cores keep of a sum (24 bits of its
-largest term, chopped), failing if fewer. The f32-grade kernels (K2 at
+and TMA instructions in each scan instance's SASS (HMMA, IMMA; HGMMA and
+UTMALDG in K2's ``wgmma`` scan; or their PTX names where the toolkit has no
+``cuobjdump``), and fails where one lacks its own. Phase 1b runs one
+``mma.sync`` of the scans and one ``wgmma`` as K2 issues it on chosen and
+random operands and prints what the tensor cores keep of a sum (24 bits of
+its largest term, chopped), failing if fewer. The f32-grade kernels (K2 at
 ``passes=6``, f32 cells, K1c-bf16) are also held to f64 on the pairs they
 return: no farther off than twice the fp32 plain version, and nearer
 than a two-way split of their operands (phases 2b, 2c, 2e, 2f and 9). Each kernel's time is printed beside its plain version's, its bound
@@ -52,13 +53,15 @@ Phase 2e holds K2 (the fused flat top-k) against its plain version at nq
 both metrics, ``passes`` 1 and 6, depth 1 and 2: bit for bit on grid inputs,
 by tolerance on Gaussian inputs. Phase 9 builds the kNN graph of
 ``benchmarks/bench_knn_graph.py`` (1M × 32d lowrank, k 15) through
-``NNDescentIndex`` (K2), twice more to compare, with recall@15 on 8,192
+``NNDescentIndex`` (K2; K2's device time split by kernel under
+``torch.profiler``), three more times to compare, with recall@15 on 8,192
 sampled rows against the exact selector, and reads the same scan through
 ``"exact"`` and ``"bins"`` on a slice of rows, and times the bare bf16
 products of one slab as a diagnostic. Phase 9b runs the flat index
 of ``benchmarks/bench_config1_exhaustive.py`` (100k × 128d, k 10 self-query)
 through the three selectors. Phase 10 queries phase 9's index with 10,000
-queries: the exact fallback, then the beam search at beam 32 and 64.
+queries: the exact fallback, the same queries through K2, then the beam
+search at beam 32 and 64.
 Phase 2f holds the last K1 variants against their plain versions: fold
 depth 1 for the seven fold kernels at their phase-2 shapes, the exact
 selection over int8-decode cells (K1-exact-i8) at K1a's shapes, and
@@ -457,8 +460,9 @@ def _load_parent() -> None:
         raise RuntimeError(f"the parent checkout's kernels did not build:\n{out}")
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in _cuda._SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        if hasattr(lib, name):   # entries this checkout added are not the parent's
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     _PARENT["lib"] = lib
     print(f"  the parent's kernels ({_PARENT['path']}): {lib_path}", flush=True)
     own_log = _cuda.build_log
@@ -1834,8 +1838,11 @@ def phase_flat_kernel(dev) -> None:
         (4097, 200_000, 150_000, 128, 8, True, 6, 2),
     ]
     for d in (32, 100, 128):
-        print(f"  scan block at d {d}: {ff.scan_smem_bytes(d):,} bytes of dynamic shared "
-              "memory", flush=True)
+        for passes in (1, 6):
+            tps, stages, _, smem = ff.scan_plan(d, passes)
+            print(f"  scan at d {d}, passes {passes}: "
+                  + (f"wgmma, {stages} stages of {tps} tiles" if tps else "mma.sync, streamed")
+                  + f", {smem:,} bytes of dynamic shared memory", flush=True)
     for nq, n, n_valid, d, k, cosine, passes, depth in cases:
         metric = Dist.COSINE if cosine else Dist.EUCLIDEAN
         kw = dict(n_valid=n_valid, passes=passes, depth=depth)
@@ -1879,6 +1886,7 @@ def _k2_entry(name, q, x, sn, k, metric, launches) -> dict:
                     False, _k2_truth(q, x, sn, l2))
     _grade(name, k_out, p_out, lambda tw: _k2_truth(q, x, sn, l2, tw))
     ms = _cuda_ms(lambda: ff.flat_topk_fused(q, x, k, metric, **kw), reps=5)
+    _k2_split(name, lambda: ff.flat_topk_fused(q, x, k, metric, **kw))
     plain_ms = _cuda_ms(lambda: ff.flat_topk_fused_plain(q, x, k, metric, **kw), reps=1)
     bound_ms, bound_by = _k2_bound(q.shape[0], x.shape[0], x.shape[1], kb, 6)
     print(f"  {name} (nq {q.shape[0]}, n {x.shape[0]}, d {x.shape[1]}, kb {kb}): kernel "
@@ -1890,6 +1898,47 @@ def _k2_entry(name, q, x, sn, k, metric, launches) -> dict:
             "replaces": "annsearch_tpu/ops/flat_scan_pallas.py:66",
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _k2_split(name, call) -> None:
+    """Where one K2 call's device time goes: ``torch.profiler``'s kernel sums
+    over a second run (after a warm one) of ``call``: the scan
+    (``flat_scan_kernel``, or the streamed ``flat_scan_streamed_kernel``),
+    the extraction (``flat_extract_kernel``), the merge of runs, and the
+    wrapper's tensor code (the split into bf16 terms, the padded norms, the
+    clamps). Under ``--parent`` the same with the parent's kernels."""
+    import tempfile
+
+    from annsearch_tpu_torch.ops import _cuda
+    from annsearch_tpu_torch.utils.profiling import device_trace
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    libs = [("this", _cuda.load_library)]
+    if "lib" in _PARENT:
+        libs.insert(0, ("parent", lambda: _PARENT["lib"]))
+    own = _cuda.load_library
+    for who, lib in libs:
+        _cuda.load_library = lib
+        try:
+            call()
+            torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp, device_trace(tmp) as prof:
+                call()
+                torch.cuda.synchronize()
+        finally:
+            _cuda.load_library = own
+        parts = {"scan": 0.0, "extraction": 0.0, "merge": 0.0, "tensor code": 0.0}
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA") or e.key == (
+                    "Command Buffer Full"):
+                continue
+            part = ("scan" if "flat_scan" in e.key else "extraction" if "flat_extract" in e.key
+                    else "merge" if "flat_merge" in e.key else "tensor code")
+            parts[part] += dev_us(e) / 1e3
+        print(f"    {name}, device time by kernel ({who}'s kernels, torch.profiler): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
 
 
 def phase_knn_graph(dev):
@@ -1913,14 +1962,7 @@ def phase_knn_graph(dev):
     first = build()
     torch.cuda.synchronize()
     launches = ff.flat_topk_fused.launches
-    times = []
-    for _ in range(3):
-        index = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        index = build()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    build_ms, index = _wall_ms(build, reps=3)     # in turns under --parent
     same = (torch.equal(first.knn_ids, index.knn_ids)
             and torch.equal(first.knn_dists, index.knn_dists))
     del first
@@ -1929,8 +1971,7 @@ def phase_knn_graph(dev):
     kk = G_K + 1
     k2_ms = _cuda_ms(lambda: blocked_query_topk(
         xs, xs, kk, Dist.EUCLIDEAN, x_sqnorm=sn, selector="fused"), reps=1)
-    print(f"  build {np.median(times):.3f} s warm (median of 3: "
-          f"{', '.join(f'{t:.3f}' for t in times)}), K2 inside it {k2_ms:.1f} ms in "
+    print(f"  build {build_ms / 1e3:.3f} s warm (median of 3), K2 inside it {k2_ms:.1f} ms in "
           f"{launches} launches = {2.0 * G_N * G_N * G_D / k2_ms / 1e9:.2f} TFLOP/s; two "
           f"builds agree: {same}", flush=True)
     if not same:
@@ -2034,7 +2075,9 @@ def phase_graph_queries(dev, index, x_np) -> dict:
     """Phase 10: 10,000 queries on phase 9's index, k 15. Returns {beam:
     (ms, recall)} of the beam search."""
     import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
     from annsearch_tpu_torch.utils.data import subsample_with_noise
+    from annsearch_tpu_torch.utils.dist import Dist
 
     os.environ.pop("ANNSEARCH_NO_EXACT_FALLBACK", None)
     q = torch.as_tensor(subsample_with_noise(x_np, G_NQ, seed=SEED), device=dev)
@@ -2054,6 +2097,12 @@ def phase_graph_queries(dev, index, x_np) -> dict:
           f"{index.nav_graph is not None}", flush=True)
     if r_fb < 0.9999 or index.nav_graph is not None:
         raise AssertionError("the default call did not take the exact fallback")
+    # F3: the same scan through K2, which the fallback (the JAX rule) does not take
+    xs, sn = index.vectors[:G_N], index.sqnorms[:G_N]
+    ms, (d, ids) = _wall_ms(lambda: blocked_query_topk(q, xs, G_K, Dist.EUCLIDEAN, x_sqnorm=sn,
+                                                       selector="fused"))
+    print(f"  the same queries through K2 (selector 'fused'; F3): {ms:.1f} ms (median of 3), "
+          f"recall@{G_K} {at.calculate_recall(truth, ids.long(), G_K):.6f}", flush=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2538,26 +2587,36 @@ def phase_kmknn(dev, x_np, q_np) -> None:
 
 
 def phase_mma_adder(dev) -> None:
-    """Phase 1b: what one ``mma.sync`` bf16 → f32 keeps of its sum
-    (``_cuda.mma_sync_once``, the scans' own product). Beside a product of
-    1 (or C = 1): a second term of 2⁻ᵏ, the largest k it still counts in;
-    1 + 2⁻²⁴ + 2⁻²⁵ (round to nearest gives 1 + 2⁻²³, a chop 1); 1 − 2⁻²⁵;
-    1 + 15 products of 2⁻ᵏ (how deep the alignment counts them); and random
-    normal operands, the largest error against the exact sum
-    in units of 2⁻²⁴ of the largest term and of the result's ulp. Fails
-    unless every term down to 2⁻²³ of the largest counts exactly (what the
-    scans' f32 grade rests on)."""
-    from annsearch_tpu_torch.ops._cuda import mma_sync_once
+    """Phase 1b: what one tensor-core product of the scans keeps of its sum,
+    bf16 → f32: ``mma.sync`` m16n8k16 (``_cuda.mma_sync_once``: the K1 scans,
+    K2's streamed scan) and its ``wgmma`` twin, m64n64k16 as K2's scan
+    issues it (``_cuda.wgmma_once``: A from registers, B through the
+    64-byte-swizzled descriptor). Beside a product of 1 (or C = 1): a second
+    term of 2⁻ᵏ, the largest k it still counts in; 1 + 2⁻²⁴ + 2⁻²⁵ (round to
+    nearest gives 1 + 2⁻²³, a chop 1); 1 − 2⁻²⁵; 1 + 15 products of 2⁻ᵏ
+    (how deep the alignment counts them); and random normal operands, the
+    largest error against the exact sum in units of 2⁻²⁴ of the largest
+    term and of the result's ulp. Fails unless every term down to 2⁻²³ of
+    the largest counts exactly (what the scans' f32 grade rests on), or
+    where a random case misses by more than a bit and 17·2⁻²⁵ of its
+    largest term (a wrong operand layout)."""
+    from annsearch_tpu_torch.ops._cuda import mma_sync_once, wgmma_once
 
+    for name, once, m, n, problems in (("mma.sync m16n8k16", mma_sync_once, 16, 8, 4096),
+                                       ("wgmma m64n64k16", wgmma_once, 64, 64, 256)):
+        _adder(dev, name, once, m, n, problems)
+
+
+def _adder(dev, name, once, m, n, problems) -> None:
     def run(cases):   # [(products, c)] -> D[p, 0, 0] of each
-        a = torch.zeros(len(cases), 16, 16, device=dev)
-        b = torch.zeros(len(cases), 16, 8, device=dev)
-        c = torch.zeros(len(cases), 16, 8, device=dev)
+        a = torch.zeros(len(cases), m, 16, device=dev)
+        b = torch.zeros(len(cases), 16, n, device=dev)
+        c = torch.zeros(len(cases), m, n, device=dev)
         for p, (prods, c0) in enumerate(cases):
             for i, v in enumerate(prods):
                 a[p, 0, i], b[p, i, 0] = v, 1.0
             c[p, 0, 0] = c0
-        return mma_sync_once(a.bfloat16(), b.bfloat16(), c)[:, 0, 0].double().tolist()
+        return once(a.bfloat16(), b.bfloat16(), c)[:, 0, 0].double().tolist()
 
     ks = range(16, 30)
     prod = run([([1.0, 2.0 ** -k], 0.0) for k in ks])
@@ -2568,27 +2627,31 @@ def phase_mma_adder(dev) -> None:
     # fifteen products of 2^-k beside 1: how far below the largest term the
     # alignment still counts a product (the sum then truncated to f32)
     deep = run([([1.0] + [2.0 ** -k] * 15, 0.0) for k in range(24, 28)])
-    print(f"  1 + 2^-k exact up to k = {max(kept_p)} (a product beside 1), "
-          f"{max(kept_c)} (beside C = 1); 1 + 2^-24 + 2^-25 -> 1 + {chop - 1.0:.3e}; "
-          f"1 - 2^-25 -> 1 - {1.0 - neg:.3e}; 1 + 15 x 2^-k -> 1 + "
+    print(f"  {name}: 1 + 2^-k exact up to k = {max(kept_p, default=0)} (a product beside "
+          f"1), {max(kept_c, default=0)} (beside C = 1); 1 + 2^-24 + 2^-25 -> 1 + "
+          f"{chop - 1.0:.3e}; 1 - 2^-25 -> 1 - {1.0 - neg:.3e}; 1 + 15 x 2^-k -> 1 + "
           + ", ".join(f"{(v - 1.0) / 2.0 ** -k:.0f} x 2^-{k}" for k, v in zip(range(24, 28), deep)),
           flush=True)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    a = torch.randn(4096, 16, 16, generator=g, device=dev).bfloat16()
-    b = torch.randn(4096, 16, 8, generator=g, device=dev).bfloat16()
-    c = torch.randn(4096, 16, 8, generator=g, device=dev)
-    d = mma_sync_once(a, b, c).double()
+    a = torch.randn(problems, m, 16, generator=g, device=dev).bfloat16()
+    b = torch.randn(problems, 16, n, generator=g, device=dev).bfloat16()
+    c = torch.randn(problems, m, n, generator=g, device=dev)
+    d = once(a, b, c).double()
     terms = a.double()[:, :, :, None] * b.double()[:, None, :, :]   # exact products
     exact = terms.sum(2) + c.double()
     big = torch.maximum(terms.abs().amax(2), c.double().abs())
     ulp = torch.abs(torch.nextafter(d.float(), torch.tensor(float("inf"), device=dev)).double()
                     - d)
     err = (d - exact).abs()
-    print(f"  random operands: largest error {(err / (2.0 ** -24 * big)).max().item():.2f} "
-          f"x 2^-24 of the largest term, {(err / ulp).max().item():.1f} ulps of the result; "
-          f"mean signed error {((d - exact) / ulp).mean().item():+.3f} ulps", flush=True)
-    if min(max(kept_p), max(kept_c)) < 23 or any(k not in kept_p for k in range(16, 24)):
-        raise AssertionError("mma.sync keeps fewer than 24 bits of its largest term")
+    print(f"  {name}, random operands: largest error "
+          f"{(err / (2.0 ** -24 * big)).max().item():.2f} x 2^-24 of the largest term, "
+          f"{(err / ulp).max().item():.1f} ulps of the result; mean signed error "
+          f"{((d - exact) / ulp).mean().item():+.3f} ulps", flush=True)
+    if min(max(kept_p, default=0), max(kept_c, default=0)) < 23 or any(
+            k not in kept_p for k in range(16, 24)):
+        raise AssertionError(f"{name} keeps fewer than 24 bits of its largest term")
+    if not bool((err <= ulp + 17 * 2.0 ** -25 * big).all()):
+        raise AssertionError(f"{name} misses random sums by more than its rounding")
 
 
 # -- phases 15-17: HNSW, Vamana, the flat quantised indexes -----------------------
@@ -3601,23 +3664,35 @@ def phase_sharded_flat_ivf(dev, x, q, ti) -> None:
 
 
 def _check_mma_counts(found) -> None:
-    """Phase 1: every scan instance (K2's ``flat_scan_kernel``, each K1
-    ``ivf_scan_kernel``) holds tensor-core instructions: HMMA (bf16), or
-    IMMA for the sq8 instances (int8 cells under the plain prologue,
-    ``ivf_scan_kernelIaLi1E...``); counted in the SASS, or in the PTX's
-    ``mma.sync`` where the toolkit has no ``cuobjdump``."""
+    """Phase 1: every scan instance holds tensor-core instructions: K2's scan
+    (``flat_scan_kernel``) wgmma (HGMMA) and TMA loads (UTMALDG); K2's
+    streamed scan (``flat_scan_streamed_kernel``) and each K1
+    ``ivf_scan_kernel`` HMMA (bf16), or IMMA for the sq8 instances (int8
+    cells under the plain prologue, ``ivf_scan_kernelIaLi1E...``); counted
+    in the SASS, or in the PTX (``mma.sync``, ``wgmma.mma_async``,
+    ``cp.async.bulk.tensor``) where the toolkit has no ``cuobjdump``."""
     kind, counts = found
-    scans = {k: v for k, v in counts.items() if k.startswith(("flat_scan_kernel",
-                                                               "ivf_scan_kernel"))}
-    for k, (bf16, s8) in sorted(scans.items()):
-        print(f"  {kind} tensor-core instructions: {k}: {bf16} bf16, {s8} int8", flush=True)
-    bad = [k for k, (bf16, s8) in scans.items()
-           if (s8 if k.startswith("ivf_scan_kernelIaLi1E") else bf16) == 0]
-    print(f"  {len(scans)} scan instances, {len(bad)} without tensor-core instructions",
-          flush=True)
-    if len(scans) < 102 or bad:     # 90 K1 and 12 K2 instances
-        raise AssertionError(f"scan instances without tensor-core instructions: {bad} "
-                             f"({len(scans)} instances found)")
+    scans = {k: v for k, v in counts.items() if k.startswith(("flat_scan_", "ivf_scan_kernel"))}
+    for k, (bf16, s8, gmma, tma) in sorted(scans.items()):
+        print(f"  {kind} instructions: {k}: {bf16} mma bf16, {s8} mma int8, {gmma} wgmma, "
+              f"{tma} TMA loads", flush=True)
+
+    def missing(k, v):
+        bf16, s8, gmma, tma = v
+        if k.startswith("flat_scan_kernel"):
+            return gmma == 0 or tma == 0
+        return (s8 if k.startswith("ivf_scan_kernelIaLi1E") else bf16) == 0
+
+    bad = [k for k, v in scans.items() if missing(k, v)]
+    on_wgmma = sum(k.startswith("flat_scan_kernel") for k in scans)
+    print(f"  {len(scans)} scan instances ({on_wgmma} on wgmma and TMA), {len(bad)} without "
+          "their tensor-core (and TMA) instructions", flush=True)
+    # 90 K1, 12 K2 wgmma (depth x terms x query fragments kept or reloaded)
+    # and 6 K2 streamed instances
+    if len(scans) < 108 or on_wgmma < 12 or bad:
+        raise AssertionError(f"scan instances without their tensor-core (and TMA) "
+                             f"instructions: {bad} ({len(scans)} instances found, "
+                             f"{on_wgmma} on wgmma)")
 
 
 def main(argv=None) -> int:
@@ -3663,7 +3738,7 @@ def main(argv=None) -> int:
     for kernel, used in _cuda.kernel_resources():
         print(f"  ptxas: {kernel}: {used}", flush=True)
     _check_mma_counts(_cuda.mma_counts())
-    phase("1b: what one mma.sync keeps of its sum")
+    phase("1b: what one mma.sync and one wgmma keep of a sum")
     phase_mma_adder(dev)
 
     phase("2: K1a against its plain version")

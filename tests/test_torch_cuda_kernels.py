@@ -514,6 +514,15 @@ def _flat_inputs(gen, dev, nq, n, d, grid, cosine):
     (300, 5000, 64, 10, False, 1, 2, None, 2048),   # one term, depth 2
     (1000, 50000, 128, 16, False, 3, 2, 49000, 2048),
     (4097, 200001, 32, 15, False, 6, 2, 199990, 2048),
+    (65, 14341, 32, 10, False, 1, 2, None, 2048),   # nq past 64; 8 tiles in stages of 7
+    (191, 14341, 32, 10, True, 1, 1, 9000, 2048),   # n_valid inside a stage
+    (300, 30001, 64, 10, False, 6, 2, 29999, 2048), # two chunks a tile, k16 steps by ldmatrix
+    (200, 20000, 512, 8, False, 1, 2, None, 2048),  # one term at d 512: wgmma, two stages
+    (200, 20000, 160, 8, False, 3, 2, None, 2048),  # two terms at d 160: three stages
+    (200, 20000, 160, 8, True, 6, 1, None, 2048),   # the narrowest streamed rows, three terms
+    (300, 9000, 32, 100, False, 6, 1, None, 128),   # kb 128, depth 1 (B 128)
+    (300, 9000, 32, 100, False, 3, 2, 8000, 128),   # kb 128, depth 2
+    (129, 30000, 32, 40, True, 6, 2, None, 2048),   # kb 64
 ])
 def test_k2_matches_plain(dev, grid, nq, n, d, k, cosine, passes, depth, n_valid, block_db):
     """K2 against its plain version, each term count (``passes`` 1, 3, 6):
@@ -543,18 +552,20 @@ def test_k2_matches_plain(dev, grid, nq, n, d, k, cosine, passes, depth, n_valid
         assert ki.max() < n_valid
 
 
-@pytest.mark.parametrize("depth,n_valid", [(2, None), (1, 2_150_000)])
-def test_k2_runs_of_tiles_match_plain(dev, depth, n_valid):
+@pytest.mark.parametrize("depth,n_valid,passes", [(2, None, 6), (1, 2_150_000, 6),
+                                                  (2, 2_199_000, 1)])
+def test_k2_runs_of_tiles_match_plain(dev, depth, n_valid, passes):
     """Past 65,534 database tiles (here B 32, 68,751 tiles) the kernel scans
     runs of tiles and merges each run's bins into the earlier runs': on grid
     inputs, full of exact ties, the result is the plain version's bit for
-    bit."""
+    bit (one term: six tiles a stage, so a run ends inside a stage; the
+    second run's 3,217 tiles end on half a pair)."""
     from annsearch_tpu_torch.ops import flat_scan_fused as ff
     from annsearch_tpu_torch.utils.dist import Dist
 
     gen = torch.Generator(device=dev).manual_seed(31)
     q, x = _flat_inputs(gen, dev, 100, 2_200_001, 16, True, False)
-    kw = dict(n_valid=n_valid, passes=6, depth=depth, block_db=32)
+    kw = dict(n_valid=n_valid, passes=passes, depth=depth, block_db=32)
     assert ff.fused_shapes(x.shape[0], 10, 32)[1] == 32
     kd, ki = ff.flat_topk_fused(q, x, 10, Dist.EUCLIDEAN, **kw)
     pd, pi = ff.flat_topk_fused_plain(q, x, 10, Dist.EUCLIDEAN, **kw)
@@ -591,6 +602,116 @@ def test_mma_sync_keeps_24_bits_of_the_largest_term(dev):
     big = torch.maximum(terms.abs().amax(2), c.double().abs())
     ulp = (torch.nextafter(d.float(), torch.tensor(float("inf"), device=dev)).double() - d).abs()
     assert torch.all((d - terms.sum(2) - c.double()).abs() <= ulp + 17 * 2.0 ** -25 * big)
+
+
+def test_wgmma_keeps_24_bits_of_the_largest_term(dev):
+    """The same for one ``wgmma.mma_async.m64n64k16`` as K2's scan issues it
+    (A from registers, B through its 64-byte-swizzled descriptor): every
+    term down to 2⁻²³ of the largest counts exactly, and on random operands
+    the error stays within the result's last bit plus 17·2⁻²⁵ of the largest
+    term. The random case also holds the operand layouts: a wrong swizzle or
+    fragment map misses by whole products."""
+    from annsearch_tpu_torch.ops._cuda import wgmma_once
+
+    ks = list(range(1, 24))
+    a = torch.zeros(2 * len(ks), 64, 16, device=dev)
+    b = torch.zeros(2 * len(ks), 16, 64, device=dev)
+    c = torch.zeros(2 * len(ks), 64, 64, device=dev)
+    for p, k in enumerate(ks):
+        a[p, 0, 0], a[p, 0, 1], b[p, 0, 0], b[p, 1, 0] = 1.0, 2.0 ** -k, 1.0, 1.0
+        q = len(ks) + p      # beside C = 1
+        a[q, 0, 0], b[q, 0, 0], c[q, 0, 0] = 2.0 ** -k, 1.0, 1.0
+    d = wgmma_once(a.bfloat16(), b.bfloat16(), c)[:, 0, 0].double().cpu()
+    want = torch.tensor([1.0 + 2.0 ** -k for k in ks] * 2, dtype=torch.float64)
+    assert torch.equal(d, want)
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(256, 64, 16, generator=g, device=dev).bfloat16()
+    b = torch.randn(256, 16, 64, generator=g, device=dev).bfloat16()
+    c = torch.randn(256, 64, 64, generator=g, device=dev)
+    d = wgmma_once(a, b, c).double()
+    terms = a.double()[:, :, :, None] * b.double()[:, None, :, :]
+    big = torch.maximum(terms.abs().amax(2), c.double().abs())
+    ulp = (torch.nextafter(d.float(), torch.tensor(float("inf"), device=dev)).double() - d).abs()
+    assert torch.all((d - terms.sum(2) - c.double()).abs() <= ulp + 17 * 2.0 ** -25 * big)
+
+
+def _extract_bins(gen, dev, rows, width, kb, case):
+    """Bins as the scan leaves them, on exact values: [rows, width] values
+    at most 3e38 and int32 columns, distinct where filled, (3e38, 0) where
+    not. ``case``: "ties" (small integers, many equal), "tail" (each row
+    fewer finite bins than kb, some none), "zeros" (±0 and negative values,
+    columns 0 among them), "late" (no bin at column 0: a merge of runs
+    leaves 3e38 bins with later columns, so the tail's m is not 0)."""
+    vals = torch.randint(-20, 21, (rows, width), generator=gen, device=dev).float()
+    cols = torch.stack([torch.randperm(1 << 20, generator=gen, device=dev)[:width] + 1
+                        for _ in range(rows)]).int()     # distinct, and never 0
+    empty = torch.rand(rows, width, generator=gen, device=dev) < 0.2
+    if case == "tail":
+        keep = torch.randint(0, kb, (rows, 1), generator=gen, device=dev)
+        rank = torch.rand(rows, width, generator=gen, device=dev).argsort(1).argsort(1)
+        empty = rank >= keep
+        empty[::5] = True                     # all-empty rows
+    if case == "zeros":
+        vals = torch.randint(-2, 3, (rows, width), generator=gen, device=dev).float() * 0.5
+        vals[vals == 0] = torch.where(torch.rand_like(vals[vals == 0]) < 0.5, -0.0, 0.0)
+        cols[:, 0] = 0
+    vals[empty] = 3e38
+    if case != "late":
+        cols[empty] = 0
+    qadd = torch.randint(0, 50, (rows,), generator=gen, device=dev).float()
+    return vals, cols, qadd
+
+
+@pytest.mark.parametrize("case", ["ties", "tail", "zeros", "late"])
+@pytest.mark.parametrize("width,kb", [(32, 8), (64, 16), (256, 100), (2048, 16),
+                                      (2560, 64), (4096, 128), (4096, 8)])
+def test_k2_extraction_is_the_rounds_bit_for_bit(dev, width, kb, case):
+    """K2's extraction (a bitonic sort of each warp's 512 keys, then a tree
+    of merges) against the plain kb rounds, distances and columns equal in
+    every slot, the (3e38 + qadd, m) tail of short and empty rows
+    included."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+
+    gen = torch.Generator(device=dev).manual_seed(width + kb)
+    vals, cols, qadd = _extract_bins(gen, dev, 300, width, kb, case)
+    before = ff.flat_extract.launches
+    kd, ki = ff.flat_extract(vals, cols, qadd, kb)
+    assert ff.flat_extract.launches == before + 1
+    pd, pi = ff._extract_plain(vals, cols, qadd, kb)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_k2_plans_agree_with_the_library(dev):
+    """The wrapper's scan plan (which scan, tiles a stage, stages, shared
+    memory) is the C entry's for every row width and term count, so
+    ``flat_topk_fused.mma_sync_launches`` counts what the library runs."""
+    import ctypes
+
+    from annsearch_tpu_torch.ops import _cuda
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+
+    lib = _cuda.load_library()
+    out = (ctypes.c_int * 4)()
+    for dk in range(32, 1088, 32):
+        for terms, passes in ((1, 1), (2, 3), (3, 6)):
+            assert lib.annsearch_flat_scan_plan(dk, terms, ctypes.addressof(out)) == 0
+            assert tuple(out) == ff.scan_plan(dk, passes), (dk, terms)
+
+
+def test_k2_counts_the_streamed_scan(dev):
+    """Rows too wide for the wgmma scan take the streamed mma.sync scan,
+    chosen by shape and counted apart."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, x = _flat_inputs(gen, dev, 10, 3000, 160, True, False)
+    for passes, streamed in ((6, 1), (3, 0), (1, 0)):
+        before, mma = ff.flat_topk_fused.launches, ff.flat_topk_fused.mma_sync_launches
+        ff.flat_topk_fused(q, x, 8, Dist.EUCLIDEAN, passes=passes)
+        assert ff.flat_topk_fused.launches == before + 1
+        assert ff.flat_topk_fused.mma_sync_launches == mma + streamed
 
 
 def test_k2_slabs_and_refusals(dev):

@@ -22,7 +22,7 @@ from annsearch_tpu_torch.ops.flat_scan_fused import (
     flat_topk_fused,
     flat_topk_fused_plain,
     fused_shapes,
-    scan_smem_bytes,
+    scan_plan,
     slab_rows,
 )
 from annsearch_tpu_torch.ops.topk import blocked_query_topk
@@ -185,9 +185,11 @@ def test_shapes_and_plain_alias():
     assert fused_shapes(40, 3, 128) == (8, 128)
     assert fused_shapes(700, 65) == (128, 1024)
     assert slab_rows(2048) == 16_384 and slab_rows(128, 1) == 524_288
-    assert scan_smem_bytes(32) == 31_744 and scan_smem_bytes(30) == scan_smem_bytes(32)
-    assert scan_smem_bytes(32, passes=6) == 93_184    # three terms a side
-    assert scan_smem_bytes(1024) == 38_784        # the query tile streamed
+    assert scan_plan(30) == scan_plan(32) == (6, 8, 13_312, 116_736)   # six one-term tiles a stage
+    assert scan_plan(32, passes=6) == (2, 8, 13_312, 133_120)    # three terms a side
+    assert scan_plan(128, passes=6) == (2, 2, 50_176, 200_704)
+    assert scan_plan(160, passes=3)[:2] == (2, 3) and scan_plan(160, passes=6)[0] == 0
+    assert scan_plan(1024) == (0, 3, 0, 38_784)      # the query tile streamed (mma.sync)
     rng = np.random.default_rng(8)
     q, x = torch.tensor(_grid(rng, (5, 8))), torch.tensor(_grid(rng, (200, 8)))
     a = flat_topk_fused(q, x, 4, Dist.EUCLIDEAN, passes=6)
