@@ -75,9 +75,10 @@
 //          each round setting the entries equal to the winner to 3e38 (so
 //          short rows surface their 3e38 lanes in a fixed order)
 //   exact: the kb lexicographically smallest (value, lane) pairs over the
-//          valid lanes, then (3e38, 0) in every slot past n: the Pallas
-//          extraction sets each emitted lane to 3e38 and so finds lane 0 in
-//          every later round
+//          valid lanes whose value is at most FLT_MAX (-0 ranking as +0;
+//          an inf or NaN distance never enters), then (3e38, 0) in every
+//          slot past them: the Pallas extraction sets each emitted lane to
+//          3e38 and so finds lane 0 in every later round
 // and writes out_d / out_i [R, maxq, kb]. A row with n == 0 writes
 // (3e38, 0) everywhere, as the computation itself would.
 //
@@ -119,12 +120,23 @@
 //          each, one lane storing each winner) cost K1a-bf16 about 0.25 ms
 //          per unit of kb on RaBitQ's 1M-row batch, where the sort costs
 //          the same at every kb (PERF.md, the kb sweep).
-//   exact: each chunk's [32, 128] distance tile goes to shared memory (over
-//          the staged cells), and each warp merges it into its 4 slots'
-//          sorted top-kb lists (shared memory) with a ballot skip (a chunk
-//          whose lanes all rank after a list's kb-th entry costs nothing
-//          more) and kb rounds of the warp-wide lexicographic arg-min. seg
-//          is not bounded: a segment is never held whole.
+//   exact: each slot keeps its kb smallest (value, lane) pairs as a sorted
+//          list of 64-bit keys in shared memory (exact_key: the value's
+//          order-preserving bits above the lane). A chunk's epilogue writes
+//          its [32, 128] distances into one of two tiles (by chunk parity),
+//          an entrant's value where the lane is valid, not above FLT_MAX and
+//          at most its slot's kb-th value as last merged (a stale bound is
+//          only looser), NaN elsewhere. No barrier follows: the warp that
+//          owns a slot merges the tile row during the next chunk's first
+//          step, beside that step's products, and after the last chunk
+//          (exact_merge). A merge rechecks the entrants against the list's
+//          kb-th key; none: nothing to do; up to 32 / ceil(kb / 32): one a
+//          lane, each placed by counting the list's keys and the other
+//          entrants below it (n broadcast steps); more: a bitonic sort of
+//          the chunk's 128 keys, its minimum against the list read
+//          backwards and a half cleaner.
+//          So a merge costs what enters the list, never kb rounds. seg is
+//          not bounded: a segment is never held whole.
 // wgmma and TMA staging are left for later work.
 
 #include <cuda_bf16.h>
@@ -136,7 +148,6 @@
 #include <type_traits>
 
 #include "bitonic.cuh"
-#include "lex_min.cuh"
 #include "mma_terms.cuh"
 
 namespace {
@@ -148,8 +159,14 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStepBytes = 128;        // source bytes of a cell row per step
 constexpr int kNarrowSmem = 110 * 1024;  // largest block with its query terms whole
 constexpr int kTileStride = kLanes + 8;  // exact: floats of a distance-tile row
+constexpr int kTile = kSlots * kTileStride;  // exact: floats of one distance tile
+// exact: a merge takes its entrants one a lane while their count times the
+// list's keys a lane (ceil(kb / 32)) is at most this, else it sorts
+constexpr int kFew = 32;
 constexpr float kBig = 3.0e38f;
-constexpr float kEmpty = FLT_MAX;       // an empty exact slot
+// exact: the key of an empty list entry, exact_key(FLT_MAX, INT_MAX); every
+// valid lane whose value is at most FLT_MAX ranks below it
+constexpr uint64_t kEmptyKey = 0xFF7FFFFFFFFFFFFEull;
 constexpr uint32_t kNoChunk = 0xFFFFu;  // fold: a runner-up that is still lane 0
 
 enum Epilogue { kL2 = 0, kCosPlain = 1, kCosQnorm = 2, kCosRenorm = 3 };
@@ -340,18 +357,146 @@ __device__ __forceinline__ void fold_select(const float* sv, const int* si, int 
   }
 }
 
-// dynamic shared memory of an instance: the staged cell terms, the query
-// terms (whole, or one step's columns when wide) and the exact lists; a
-// fold's survivors reuse it after the scan
-template <typename CellT, int kPro, int kSel, bool kSplit>
-size_t smem_bytes(int dp, bool wide) {
+// -- the exact selection: sorted lists of (value, lane) keys ------------------
+
+// The key of (v, lane): the value's order-preserving bits above the lane
+// shifted left by one, whose low bit marks a -0. Key order is the
+// lexicographic (value, lane) order with -0 ranking as +0 (lanes are
+// unique, so the mark never decides), and a -0 comes back as it went in.
+__device__ __forceinline__ uint64_t exact_key(float v, int lane) {
+  uint32_t b = __float_as_uint(v);
+  const uint32_t neg0 = b == 0x80000000u;
+  b = neg0 ? 0u : b;
+  b ^= (b >> 31) ? 0xFFFFFFFFu : 0x80000000u;
+  return ((uint64_t)b << 32) | ((uint32_t)lane << 1) | neg0;
+}
+
+__device__ __forceinline__ float exact_value(uint64_t key) {
+  return (key & 1) ? -0.f : key_value(key);
+}
+
+__device__ __forceinline__ int exact_lane(uint64_t key) { return (int)((uint32_t)key >> 1); }
+
+// Merges one chunk's entrants of one slot into the slot's sorted list of kb
+// keys, warp-wide. `trow` is the slot's row of the chunk's tile (an
+// entrant's value, NaN elsewhere), `lbase` the chunk's first lane, `ecomp`
+// 32 keys of this warp's own. The entrants are rechecked against the
+// list's kb-th key (the tile was filtered by an older one). None: nothing
+// to do. Few (n ceil(kb / 32) <= kFew): compacted one a lane in (lane,
+// element) order, each placed by the count of list keys and of other
+// entrants below it, and each list key moved up by the entrants below it
+// (n broadcast steps of ceil(kb / 32) compares and ballots). More: a
+// bitonic sort of the chunk's 128 keys (the empty key where no
+// entrant), their elementwise minimum with the list read backwards, and a
+// half cleaner, as fold_select at depth 2. Keys are unique, so both give
+// the kb smallest of the list and the entrants, in order.
+__device__ __forceinline__ void exact_merge(const float* trow, int lbase, uint64_t* list, int kb,
+                                            uint64_t* ecomp, int lane) {
+  const float4 v4 = *reinterpret_cast<const float4*>(trow + 4 * lane);
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+  const uint64_t kth = list[kb - 1];
+  const uint32_t lower = (1u << lane) - 1u;
+  uint64_t x[4];
+  bool in[4];
+  int n = 0, idx = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    x[u] = exact_key(v[u], lbase + 4 * lane + u);
+    in[u] = v[u] <= FLT_MAX && x[u] < kth;   // NaN: no entrant
+    const uint32_t b = __ballot_sync(0xffffffffu, in[u]);
+    n += __popc(b);
+    idx += __popc(b & lower);
+  }
+  if (n == 0) return;   // warp-uniform
+  if (n * ((kb + 31) / 32) > kFew) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = in[u] ? x[u] : kEmptyKey;
+    bitonic_sort<1, kLanes>(x, lane);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = kLanes - 1 - 4 * lane - u;
+      const uint64_t y = r < kb ? list[r] : kEmptyKey;
+      x[u] = y < x[u] ? y : x[u];
+    }
+    bitonic_merge<1, 2 * kLanes, kLanes / 2>(x, lane);
+    __syncwarp();   // every lane has read the list
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (4 * lane + u < kb) list[4 * lane + u] = x[u];
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (in[u]) ecomp[idx++] = x[u];
+    }
+    __syncwarp();
+    const uint64_t e = lane < n ? ecomp[lane] : kEmptyKey;
+    uint64_t lk[4];
+    int up[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      lk[u] = lane + 32 * u < kb ? list[lane + 32 * u] : kEmptyKey;
+      up[u] = 0;
+    }
+    int rank = 0, pos = 0;
+    for (int j = 0; j < n; ++j) {
+      const uint64_t ej = ecomp[j];
+      rank += ej < e;
+      int below = 0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (32 * u >= kb) break;   // warp-uniform
+        up[u] += ej < lk[u];
+        below += __popc(__ballot_sync(0xffffffffu, lk[u] < ej));
+      }
+      if (lane == j) pos = below;
+    }
+    pos += rank;
+    __syncwarp();   // every lane has read the list and the entrants
+    if (lane < n && pos < kb) list[pos] = e;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lane + 32 * u;
+      if (p < kb && p + up[u] < kb) list[p + up[u]] = lk[u];
+    }
+  }
+  __syncwarp();
+}
+
+// shared memory of an instance's stage: the staged cell terms and the query
+// terms (whole, or one step's columns when wide)
+template <typename CellT, int kPro, bool kSplit>
+size_t stage_bytes(int dp, bool wide) {
   using TT = Terms<CellT, kPro, kSplit>;
   const size_t dkq = (size_t)(dp + TT::kKStep - 1) / TT::kKStep * TT::kKStep;
   const size_t qstride = wide ? TT::kRow : dkq * TT::kES + 16;
-  size_t stage = (size_t)TT::kXT * TT::kCellTerm + (size_t)TT::kQT * kSlots * qstride;
-  if (kSel == kExactSel) stage += (size_t)kSlots * kLanes * 8;
-  const size_t surv = kSel == kExactSel ? 0 : (size_t)kSlots * kSel * kLanes * 8;
+  return (size_t)TT::kXT * TT::kCellTerm + (size_t)TT::kQT * kSlots * qstride;
+}
+
+// dynamic shared memory of an instance: the stage, then for the exact
+// selection its two distance tiles, the lists of kb keys and each warp's
+// 32 compacted entrants; a fold's survivors reuse it after the scan
+template <typename CellT, int kPro, int kSel, bool kSplit>
+size_t smem_bytes(int dp, bool wide, int kb) {
+  const size_t stage = stage_bytes<CellT, kPro, kSplit>(dp, wide);
+  if (kSel == kExactSel) {
+    return stage + 2 * kTile * sizeof(float) + (size_t)kSlots * kb * 8 + kWarps * 32 * 8;
+  }
+  const size_t surv = (size_t)kSlots * kSel * kLanes * 8;
   return stage > surv ? stage : surv;
+}
+
+// whether an instance forms its query terms a step at a time: the block
+// with the query terms whole and 32 KB of selection state (a fold's
+// survivors, or the exact lists as they were at 128 entries a slot) would
+// pass kNarrowSmem. The rule predates the exact selection's smaller state
+// and stays, so that every input takes the variant it took before.
+template <typename CellT, int kPro, int kSel, bool kSplit>
+bool wide_rows(int dp) {
+  const size_t stage = stage_bytes<CellT, kPro, kSplit>(dp, false);
+  const size_t sel = kSel == kExactSel ? stage + (size_t)kSlots * kLanes * 8
+                                       : smem_bytes<CellT, kPro, kSel, kSplit>(dp, false, 0);
+  return sel > (size_t)kNarrowSmem;
 }
 
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
@@ -398,15 +543,16 @@ ivf_scan_kernel(const int* __restrict__ lists,
   const int s = task_seg[r];
 
   // shared memory: staged cell terms [kXT][128][kRow], query terms
-  // [kQT][32][qstride], then the exact lists [32][128] (values, lanes)
+  // [kQT][32][qstride], then (exact) the distance tiles [2][32][kTileStride],
+  // the lists [32][kb] and the warps' compacted entrants [8][32]
   const int dkq = (dp + TT::kKStep - 1) / TT::kKStep * TT::kKStep;
   const int qstride = kWide ? TT::kRow : dkq * TT::kES + 16;
   const int q_term = kSlots * qstride;
   unsigned char* cell_s = smem;
   unsigned char* q_s = smem + kXT * TT::kCellTerm;
-  float* list_v = reinterpret_cast<float*>(q_s + kQT * q_term);
-  int* list_i = reinterpret_cast<int*>(list_v + kSlots * kLanes);
-  float* tile_s = reinterpret_cast<float*>(smem);   // exact, over the cells
+  float* tile_s = reinterpret_cast<float*>(q_s + kQT * q_term);
+  uint64_t* list_s = reinterpret_cast<uint64_t*>(tile_s + 2 * kTile);
+  uint64_t* ecomp_s = list_s + kSlots * kb + warp * 32;
 
   // prologue: each warp forms the query terms and qadd of its 4 slots,
   // the 4 side by side column by column so that their loads overlap
@@ -448,11 +594,17 @@ ivf_scan_kernel(const int* __restrict__ lists,
     }
   }
   if constexpr (kExact) {
-    for (int i = tid; i < kSlots * kLanes; i += kThreads) {
-      list_v[i] = kEmpty;
-      list_i[i] = INT_MAX;
-    }
+    for (int i = tid; i < kSlots * kb; i += kThreads) list_s[i] = kEmptyKey;
   }
+  // exact: this warp's 4 slots merge chunk c's tile
+  auto merge_chunk = [&](int c) {
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int slot = warp * kPerWarp + i;
+      if (qid_s[slot] < 0) continue;   // warp-uniform
+      exact_merge(tile_s + (c & 1) * kTile + slot * kTileStride, c * kLanes,
+                  list_s + slot * kb, kb, ecomp_s, lane);
+    }
+  };
 
   // fold state of the thread's 16 elements: element e of n-tile nb at
   // 4 nb + e is slot 16 wm + g + 8 (e / 2), stride class 32 wn + 8 nb +
@@ -533,6 +685,11 @@ ivf_scan_kernel(const int* __restrict__ lists,
     }
     __syncthreads();
     if (t + 1 < nsteps) load(t + 1);
+    if constexpr (kExact) {
+      // the previous chunk's tile, written before the barriers above; the
+      // next write of it (chunk ch + 1) comes after at least one more
+      if (cb == 0 && ch > 0) merge_chunk(ch - 1);
+    }
     if (cb == 0) {
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
@@ -635,90 +792,50 @@ ivf_scan_kernel(const int* __restrict__ lists,
         }
       }
     } else {
-      __syncthreads();  // every warp's products are done with the staged cells
+      // the chunk's tile (by parity): an entrant's value where the lane is
+      // valid, the value at most FLT_MAX (no inf, no NaN) and its key's
+      // value bits at most those of the slot's kb-th key as last merged
+      // (read as one word: a concurrent merge leaves the old or the new)
+      float* tile = tile_s + (ch & 1) * kTile;
+      uint32_t thr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        thr[h] = reinterpret_cast<const volatile uint32_t*>(
+            list_s + (wm * 16 + g + 8 * h) * kb + kb - 1)[1];
+      }
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+          float w[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int l = ch * kLanes + wn * 32 + nb * 8 + 2 * t4 + e;
+            const float dv = dist[nb * 4 + 2 * h + e];
+            const bool in = l < n_valid && dv <= FLT_MAX &&
+                            (uint32_t)(exact_key(dv, l) >> 32) <= thr[h];
+            w[e] = in ? dv : __int_as_float(0x7fffffff);
+          }
           const int slot = wm * 16 + g + 8 * h;
-          *reinterpret_cast<float2*>(tile_s + slot * kTileStride + wn * 32 + nb * 8 + 2 * t4) =
-              make_float2(dist[nb * 4 + 2 * h], dist[nb * 4 + 2 * h + 1]);
+          *reinterpret_cast<float2*>(tile + slot * kTileStride + wn * 32 + nb * 8 + 2 * t4) =
+              make_float2(w[0], w[1]);
         }
-      }
-      __syncthreads();
-      // each warp merges the tile rows of its 4 slots into their lists:
-      // candidates are the chunk's valid lanes; the rest never enter
-      for (int i = 0; i < kPerWarp; ++i) {
-        const int slot = warp * kPerWarp + i;
-        if (qid_s[slot] < 0) continue;   // warp-uniform
-        float* lv = list_v + slot * kLanes;
-        int* li = list_i + slot * kLanes;
-        const float tv = lv[kb - 1];
-        const int ti = li[kb - 1];
-        float cv[4];
-        int ci[4];
-        bool beats = false;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int l = ch * kLanes + lane + 32 * u;
-          cv[u] = l < n_valid ? tile_s[slot * kTileStride + lane + 32 * u] : kEmpty;
-          ci[u] = l < n_valid ? l : INT_MAX;
-          beats |= lex_less(cv[u], ci[u], tv, ti);
-        }
-        if (!__any_sync(0xffffffffu, beats)) continue;
-        float ev[4], nv[4];
-        int ei[4], ni[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          ev[u] = lv[lane + 32 * u];
-          ei[u] = li[lane + 32 * u];
-          nv[u] = kEmpty;
-          ni[u] = INT_MAX;
-        }
-        for (int t2 = 0; t2 < kb; ++t2) {
-          float bv = ev[0];
-          int bi = ei[0];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (lex_less(ev[u], ei[u], bv, bi)) { bv = ev[u]; bi = ei[u]; }
-            if (lex_less(cv[u], ci[u], bv, bi)) { bv = cv[u]; bi = ci[u]; }
-          }
-          warp_lex_min(bv, bi);
-          if (bi == INT_MAX) break;  // warp-uniform: nothing left to take
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (t2 == lane + 32 * u) { nv[u] = bv; ni[u] = bi; }
-            // lanes are unique: exactly one entry holds the winner
-            if (ei[u] == bi) { ev[u] = kEmpty; ei[u] = INT_MAX; }
-            if (ci[u] == bi) { cv[u] = kEmpty; ci[u] = INT_MAX; }
-          }
-        }
-        __syncwarp();   // every lane has read lv[kb - 1]
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          lv[lane + 32 * u] = nv[u];
-          li[lane + 32 * u] = ni[u];
-        }
-        __syncwarp();
       }
     }
   }
 
   if constexpr (kExact) {
-    __syncthreads();
+    __syncthreads();   // the last chunk's tile is written
+    merge_chunk(nchunks - 1);
     for (int i = 0; i < kPerWarp; ++i) {
       const int slot = warp * kPerWarp + i;
       if (qid_s[slot] < 0) continue;
       const size_t ob = ((size_t)r * maxq + j0 + slot) * kb;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t2 = lane + 32 * u;
-        if (t2 < kb) {
-          const int e = list_i[slot * kLanes + t2];
-          const bool real = e != INT_MAX;
-          out_d[ob + t2] = real ? list_v[slot * kLanes + t2] : kBig;
-          out_i[ob + t2] = real ? e : 0;
-        }
+      for (int p = lane; p < kb; p += 32) {
+        const uint64_t key = list_s[slot * kb + p];
+        const bool real = key != kEmptyKey;
+        out_d[ob + p] = real ? exact_value(key) : kBig;
+        out_i[ob + p] = real ? exact_lane(key) : 0;
       }
     }
   } else {
@@ -751,16 +868,31 @@ ivf_scan_kernel(const int* __restrict__ lists,
   }
 }
 
+// the last launch: blocks an SM (the occupancy calculator), dynamic shared
+// memory, whether its rows were wide, and its stage's shared memory
+int g_last_launch[4];
+
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
 int launch_impl(const void* lists, const void* task_seg, const void* cnt,
                 const void* queries, const void* cents, const void* scales,
                 const void* cells, const void* sn, void* out_d, void* out_i,
                 int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
   auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kSel, kSplit, kWide>;
-  const size_t smem = smem_bytes<CellT, kPro, kSel, kSplit>(dp, kWide);
+  const size_t smem = smem_bytes<CellT, kPro, kSel, kSplit>(dp, kWide, kb);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  static size_t seen = 0;   // the occupancy of this instance at `seen` bytes
+  static int blocks = 0;
+  if (smem != seen) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    seen = smem;
+  }
+  g_last_launch[0] = blocks;
+  g_last_launch[1] = (int)smem;
+  g_last_launch[2] = kWide;
+  g_last_launch[3] = (int)stage_bytes<CellT, kPro, kSplit>(dp, kWide);
   const dim3 grid(R, (maxq + kSlots - 1) / kSlots);
   kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)lists, (const int*)task_seg, (const int*)cnt,
@@ -771,13 +903,13 @@ int launch_impl(const void* lists, const void* task_seg, const void* cnt,
 }
 
 // one variant at any width: the query terms held whole where the block
-// fits kNarrowSmem, in column blocks beside the cells' past it
+// fits kNarrowSmem (wide_rows), in column blocks beside the cells' past it
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit = false>
 int launch(const void* lists, const void* task_seg, const void* cnt,
            const void* queries, const void* cents, const void* scales,
            const void* cells, const void* sn, void* out_d, void* out_i,
            int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  const bool wide = smem_bytes<CellT, kPro, kSel, kSplit>(dp, false) > (size_t)kNarrowSmem;
+  const bool wide = wide_rows<CellT, kPro, kSel, kSplit>(dp);
   auto run = wide ? &launch_impl<CellT, kPro, kEpi, kSel, kSplit, true>
                   : &launch_impl<CellT, kPro, kEpi, kSel, kSplit, false>;
   return run(lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
@@ -842,6 +974,13 @@ int bad_sel(int sel, int seg) {
 // Launches on `stream`; each returns the launch's cudaError_t (0 on
 // success). The caller validates shapes, types, contiguity and alignment.
 // `sel` is the selection: 0 exact, 1 or 2 the fold at that depth.
+
+// The last launch of any entry below: (blocks an SM, dynamic shared memory
+// in bytes, 1 if its rows were wide, its stage's bytes) into out[0..3]
+extern "C" int annsearch_ivf_scan_last_launch(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = g_last_launch[i];
+  return 0;
+}
 
 // K1a: int8 residual cells, l2, one bf16 query term (sel 0: K1-exact-i8)
 extern "C" int annsearch_ivf_scan_k1a(

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + [_P],
     "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + [_P],
+    "annsearch_ivf_scan_last_launch": [_P],
     "annsearch_flat_scan": [_P] * 10 + [_I] * 8 + [_P],
     "annsearch_flat_scan_plan": [_I, _I, _P],
     "annsearch_flat_extract": [_P] * 5 + [_I] * 3 + [_P],

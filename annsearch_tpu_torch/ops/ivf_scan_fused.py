@@ -68,7 +68,8 @@ R·maxq·seg·d (1.3e11 at the 1M×128d main path, nprobe 16), times its
 passes, at the tensor cores' rate: each block stages a segment's rows in
 shared memory once for 32 query slots, converted once into the terms the
 products take, and the selection stays in registers (the fold) or in
-shared memory (the exact lists), so the [maxq, seg] distance tile never
+shared memory (the exact selection's sorted lists of kb keys, each chunk
+merged by what enters them), so the [maxq, seg] distance tile never
 reaches device memory. See the kernel source for the layout.
 
 ``fused_ivf_scan`` is the host side around the kernels: per task row, the
@@ -86,7 +87,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.dist import Dist, fp32_matmul, mantissa_split
+from ..utils.dist import Dist, _sqrt_f32, fp32_matmul, mantissa_split
 
 __all__ = [
     "fused_eligible",
@@ -281,7 +282,7 @@ def ivf_cell_scan_plain(
         with fp32_matmul():
             dots = torch.bmm(qk, cells[s].float().transpose(1, 2))
         if cosine:  # cos_renorm: IEEE square root and quotient, as the kernel
-            rsn = 1.0 / torch.sqrt(torch.clamp(sn[s][:, None, :], min=1e-12))
+            rsn = 1.0 / _sqrt_f32(torch.clamp(sn[s][:, None, :], min=1e-12))
             dist = 1.0 - (dots + qadd[:, :, None]) * rsn
         else:
             dist = torch.clamp(qadd[:, :, None] + sn[s][:, None, :] - 2.0 * dots, min=0.0)
@@ -323,8 +324,8 @@ def _dense_plain(
             dist = 1.0 - dots
         else:  # cos_qnorm: IEEE square roots and quotients, as the kernel
             q_sq = (qg * qg).sum(dim=-1)
-            qadd = torch.where(q_sq > 0, 1.0 / torch.sqrt(torch.clamp(q_sq, min=1e-12)), 0.0)
-            rsn = 1.0 / torch.sqrt(torch.clamp(snr, min=1e-12))
+            qadd = torch.where(q_sq > 0, 1.0 / _sqrt_f32(torch.clamp(q_sq, min=1e-12)), 0.0)
+            rsn = 1.0 / _sqrt_f32(torch.clamp(snr, min=1e-12))
             dist = 1.0 - dots * qadd[:, :, None] * rsn
         dist = torch.where(lane < cnt[rs].long()[:, None, None], dist, BIG)
         if exact:
@@ -551,7 +552,7 @@ def ivf_cell_scan_i8_exact(
     cosine: bool = False, q_split: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1-exact-i8: the int8-decode prologues with the exact selection
-    (K1c's sorted per-warp list): mode ``i8dec_residual`` with ``cent_x``
+    (K1c's sorted key lists): mode ``i8dec_residual`` with ``cent_x``
     (K1a's, K1b-l2's or K1b-cos's prologue), mode ``i8dec`` with ``cent_x``
     None (K1d-i8dec's); ``cosine`` takes ``cos_renorm``, ``q_split`` two
     bf16 query terms. Per task row and slot, the kb lexicographically

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.dist import Dist, fp32_matmul, sq_norms
+from ..utils.dist import Dist, _sqrt_f32, fp32_matmul, sq_norms
 from .topk import merge_topk, topk_smallest
 
 __all__ = ["chunked_topk_bf16", "chunked_topk_sq8", "chunked_topk_pq", "pq_decode_tile"]
@@ -97,11 +97,6 @@ def _int8_dots(q_i8: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                     @ codes[:, c : c + SQ8_EXACT_COLS].float().T).long()
         out = part if out is None else out + part
     return out
-
-
-def _sqrt_f32(v: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root of the f32 value of ``v``."""
-    return torch.sqrt(v.float().double()).float()
 
 
 def chunked_topk_sq8(

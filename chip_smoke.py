@@ -162,6 +162,17 @@ call that launches a kernel in turns with both libraries (parent, this,
 this, parent), printing both readings; the inputs and the checks are this
 checkout's.
 
+Each exact-selection row (K1c-f32, K1c-bf16, K1c-sq8, K1-exact-i8, the
+wide rows) also prints ptxas's registers and spills of the instance it
+launches and its blocks an SM (the occupancy calculator), the fold
+instance of the same products on the same task lists (f32, sq8, int8
+decode), and a yardstick of two library calls on its inputs
+(``torch.bmm`` of the same products in f32, then ``torch.topk(k=kb,
+largest=False)``: its ``library_ms``); under ``--parent`` every exact
+call of phases 2b, 2c, 2f, 2g, 4, 6 and 7 is held to the parent's kernel
+bit for bit. Phase 4 sweeps K1c-f32's kb on its captured call and splits
+one exact-tier batch's device time by kernel under ``torch.profiler``.
+
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
 on its path, its error against the plain version, both times and its
@@ -468,7 +479,7 @@ def _load_parent() -> None:
     own_log = _cuda.build_log
     _cuda.build_log = lambda: (Path(lib_path).parent / "build.log").read_text()
     try:
-        theirs = dict(_cuda.kernel_resources())
+        theirs = _PARENT["ptxas"] = dict(_cuda.kernel_resources())
     finally:
         _cuda.build_log = own_log
     for kernel, used in _cuda.kernel_resources():
@@ -817,6 +828,10 @@ def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exa
         truth = _k1_truth(a, not cosine, bf16_query=wrapper.__name__ == "ivf_scan_bf16_fold")
     err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, cosine),
                  exact=exact, truth=truth)
+    selection = "exact" in wrapper.__name__
+    if selection:
+        _parent_same(name, lambda: wrapper(*a, **kw))
+        _exact_launch(name, wrapper, a, kw)
     ms = _cuda_ms(lambda: wrapper(*a, **kw))
     plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=5)
     bound_ms, bound_by, macs = _bound(a, kb, cell_bytes, peak, seg_bytes)
@@ -826,11 +841,155 @@ def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exa
           f"{2 * macs / ms / 1e9:.2f} TFLOP/s of this run's work; the kernel "
           f"computes all {a[0].numel() * cells.shape[1] * cells.shape[2]:.4e} "
           "slot × lane × column multiply-adds", flush=True)
+    library_ms = None
+    if selection:
+        twin = _fold_twin(wrapper, a, kw)
+        if twin is not None:
+            print(f"    {name}: the fold instance of the same products on the same task lists "
+                  f"(what the exact selection still costs): {_cuda_ms(twin, reps=5):.3f} ms",
+                  flush=True)
+        library_ms = _exact_yardstick(name, (a, kw), kb)
     return {"name": name, "route": "cuda",
             "source": "annsearch_tpu_torch/csrc/ivf_scan.cu",
             "replaces": "annsearch_tpu/ops/ivf_scan_pallas.py:130",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _parent_same(name, fn) -> None:
+    """Under ``--parent``: ``fn()``, a call of an exact-selection wrapper,
+    gives the same outputs bit for bit through the parent's kernels and
+    through this tree's."""
+    if "lib" not in _PARENT:
+        return
+    from annsearch_tpu_torch.ops import _cuda
+
+    own = _cuda.load_library
+    _cuda.load_library = lambda: _PARENT["lib"]
+    try:
+        pd, pi = fn()
+    finally:
+        _cuda.load_library = own
+    kd, ki = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(kd.view(torch.int32), pd.view(torch.int32)) and torch.equal(ki, pi)
+    print(f"    {name}: against the parent's kernel "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: the exact selection differs from the parent's kernel")
+
+
+def _k1_instance(wrapper, a, kw, wide) -> str:
+    """The K1 template instance that an exact-selection wrapper's call
+    launches, as ptxas names it (``ivf_scan_kernelI<cell type><Li
+    prologue><Li epilogue><Li sel 0><Lb split><Lb wide>``)."""
+    cosine = bool(kw.get("cosine", False))
+    if wrapper.__name__ == "ivf_cell_scan_i8_exact":
+        cell, split = "a", int(bool(kw.get("q_split", False)))
+        pro, epi = (3, 3 if cosine else 0) if a[4] is None else ((4, 3) if cosine else (0, 0))
+    else:
+        mode = wrapper.__name__.split("_")[2]
+        cell = {"f32": "f", "bf16": "13__nv_bfloat16", "sq8": "a"}[mode]
+        pro, epi, split = 1, ((2 if mode == "sq8" else 1) if cosine else 0), 0
+    return f"ivf_scan_kernelI{cell}Li{pro}ELi{epi}ELi0ELb{split}ELb{int(wide)}EE"
+
+
+def _blocks_per_sm(regs, smem) -> int:
+    """Blocks of 256 threads an SM holds by the H100's rules: registers
+    allocated 256 to a warp at a time out of 65,536, shared memory (the
+    dynamic bytes, 256 static, 1 KB reserved a block) out of 228 KB, at
+    most 64 warps."""
+    by_regs = 65536 // (8 * -(-regs * 32 // 256) * 256)
+    return min(by_regs, 228 * 1024 // (smem + 256 + 1024), 8)
+
+
+def _exact_launch(name, wrapper, a, kw) -> None:
+    """ptxas's registers and spills of the exact instance this call
+    launches and its blocks an SM (the occupancy calculator, at the
+    launch's shared memory), and under ``--parent`` the same for the
+    parent's instance (its registers; its shared memory was the stage and
+    32 KB of lists)."""
+    import ctypes
+    import re
+
+    from annsearch_tpu_torch.ops import _cuda
+
+    wrapper(*a, **kw)
+    last = (ctypes.c_int * 4)()
+    _cuda.load_library().annsearch_ivf_scan_last_launch(ctypes.addressof(last))
+    blocks, smem, wide, stage = list(last)
+    inst = _k1_instance(wrapper, a, kw, wide)
+    used = dict(_cuda.kernel_resources()).get(inst, "not in the build log")
+    regs = re.search(r"(\d+) registers", used)
+    rule = f", {_blocks_per_sm(int(regs.group(1)), smem)} by the rules" if regs else ""
+    line = (f"    {name}: {inst}: ptxas {used}; {blocks} blocks an SM at {smem:,} bytes of "
+            f"shared memory{rule}{' (wide rows)' if wide else ''}")
+    theirs = _PARENT.get("ptxas", {}).get(inst)
+    if theirs:
+        pregs = re.search(r"(\d+) registers", theirs)
+        psmem = stage + 32 * 1024
+        line += (f"; the parent's: ptxas {theirs}; "
+                 f"{_blocks_per_sm(int(pregs.group(1)), psmem) if pregs else '?'} blocks an SM "
+                 f"by the rules at {psmem:,} bytes")
+    print(line, flush=True)
+
+
+def _fold_twin(wrapper, a, kw):
+    """The fold instance (depth 2) of the same products as an exact
+    wrapper's call, on the same arguments; None for K1c-bf16, whose fold
+    scores one bf16 query pass against its three."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    name = wrapper.__name__
+    if name in ("ivf_scan_f32_exact", "ivf_scan_sq8_exact"):
+        fold = getattr(tsf, f"ivf_cell_scan_{name.split('_')[2]}_fold")
+        return lambda: fold(*a, **kw)
+    if name != "ivf_cell_scan_i8_exact":
+        return None
+    cosine, split = bool(kw.get("cosine", False)), bool(kw.get("q_split", False))
+    if a[4] is None:
+        return lambda: tsf.ivf_cell_scan_i8dec(*a[:4], *a[5:], cosine=cosine, q_split=split)
+    if cosine:
+        return lambda: tsf.ivf_cell_scan_cos(*a, q_split=split)
+    return lambda: (tsf.ivf_cell_scan_split if split else tsf.ivf_cell_scan)(*a)
+
+
+def _exact_yardstick(name, call, kb) -> float:
+    """The two-call yardstick of an exact row on its own inputs:
+    ``torch.bmm`` of the same products (the plain version's: the query, or
+    the int8-decode prologue's bf16 terms, against every lane of each task
+    row's segment, f32 with TF32 off), then ``torch.topk(k=kb,
+    largest=False)`` over each slot's segment. Returns both calls'
+    milliseconds together."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+    from annsearch_tpu_torch.utils.dist import fp32_matmul
+
+    a, kw = call
+    lists, task_seg, _, queries_x = a[:4]
+    cells = next(t for t in a[4:] if torch.is_tensor(t) and t.ndim == 3)
+    dp = cells.shape[2]
+    if cells is a[4]:
+        q = torch.nn.functional.pad(queries_x[lists.long()], (0, dp - queries_x.shape[1]))
+    else:
+        q = tsf._query_terms(lists, task_seg, queries_x, a[4], a[5], dp,
+                             bool(kw.get("cosine", False)), bool(kw.get("q_split", False)))[1]
+    try:
+        x = cells[task_seg.long()].float().transpose(1, 2)
+        with fp32_matmul():
+            prod = torch.bmm(q, x)
+            bmm_ms = _cuda_ms(lambda: torch.bmm(q, x, out=prod), reps=5)
+        topk_ms = _cuda_ms(lambda: torch.topk(prod, kb, dim=-1, largest=False), reps=5)
+    except torch.cuda.OutOfMemoryError:
+        print(f"    {name}: yardstick not measured: its f32 operands do not fit the card",
+              flush=True)
+        torch.cuda.empty_cache()
+        return None
+    print(f"    {name}: yardstick of two library calls: torch.bmm {tuple(q.shape)} x "
+          f"{tuple(x.shape)} f32 {bmm_ms:.3f} ms, then torch.topk(k={kb}, largest=False) "
+          f"{topk_ms:.3f} ms: {bmm_ms + topk_ms:.3f} ms together", flush=True)
+    del q, x, prod
+    torch.cuda.empty_cache()
+    return bmm_ms + topk_ms
 
 
 # -- phase 2 / 2b: kernels against their plain versions -----------------------
@@ -922,6 +1081,8 @@ def phase_dense_kernels(dev, modes, dims, seed) -> None:
                         k_out = wrapper(*t, kb, cosine=cosine)
                         p_out = plain(*t, kb, cosine, exact=exact)
                         _agree(name, *k_out, *p_out, exact=mode == "sq8")
+                        if exact:
+                            _parent_same(name, lambda: wrapper(*t, kb, cosine=cosine))
                         if mode == "f32" or (mode == "bf16" and exact):
                             _grade(name, k_out, p_out,
                                    lambda tw: _k1_truth(t, not cosine, two_way=tw))
@@ -1189,13 +1350,40 @@ def phase_exact_tier(dev) -> dict:
         raise AssertionError("exact-tier distances disagree with an f32 recomputation")
     if s_max <= 1 or launches == 0:
         raise AssertionError("the compact path or the K1c-f32 kernel did not run")
+    call = cap.args["ivf_cell_scan_f32_exact"]
     entry = _kernel_entry(
         "ivf_scan_f32_exact", tsf.ivf_cell_scan_f32_exact,
-        lambda *a, **kw: tsf.ivf_cell_scan_f32_plain(*a, exact=True, **kw),
-        cap.args["ivf_cell_scan_f32_exact"], 4, F32_TC_FLOP_S,
+        lambda *a, **kw: tsf.ivf_cell_scan_f32_plain(*a, exact=True, **kw), call, 4,
+        F32_TC_FLOP_S,
     )
     entry["launches"] = launches
+    _exact_kb_sweep(call)
+    # the batch, not one launch alone: a window holding no PyTorch op
+    # recorded no device time on the card
+    _device_split("the f32 exact-tier batch", lambda: index.query(q, EX_K, nprobe=EX_NPROBE),
+                  ("ivf_scan_kernel", "other"),
+                  lambda k: "ivf_scan_kernel" if "ivf_scan_kernel" in k else "other")
     return entry
+
+
+#: phase 4: kb of K1c-f32's sweep on its captured call
+EXACT_SWEEP = (8, 16, 24, 32, 64, 128)
+
+
+def _exact_kb_sweep(call) -> None:
+    """K1c-f32 on phase 4's captured call at each kb of EXACT_SWEEP: the
+    time that grows with kb is the selection's (a merge by kb dependent
+    rounds grows with it; one that costs what enters the list, little)."""
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
+
+    a, kw = call
+    i = next(j for j, v in enumerate(a) if isinstance(v, int))
+    times = [_cuda_ms(lambda: tsf.ivf_cell_scan_f32_exact(*a[:i], kb, *a[i + 1:], **kw), reps=5)
+             for kb in EXACT_SWEEP]
+    slope = (times[-1] - times[0]) / (EXACT_SWEEP[-1] - EXACT_SWEEP[0])
+    print("  K1c-f32 kb sweep on phase 4's call: "
+          + ", ".join(f"kb {kb} {ms:.3f} ms" for kb, ms in zip(EXACT_SWEEP, times))
+          + f"; slope {slope * 1e3:.2f} us per unit of kb", flush=True)
 
 
 def _probed_truth(index, xd, qd, probes, k, block=1024):
@@ -1900,13 +2088,11 @@ def _k2_entry(name, q, x, sn, k, metric, launches) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _k2_split(name, call) -> None:
-    """Where one K2 call's device time goes: ``torch.profiler``'s kernel sums
-    over a second run (after a warm one) of ``call``: the scan
-    (``flat_scan_kernel``, or the streamed ``flat_scan_streamed_kernel``),
-    the extraction (``flat_extract_kernel``), the merge of runs, and the
-    wrapper's tensor code (the split into bf16 terms, the padded norms, the
-    clamps). Under ``--parent`` the same with the parent's kernels."""
+def _device_split(name, call, parts, part_of) -> None:
+    """Where one call's device time goes: ``torch.profiler``'s kernel sums
+    over a second run (after a warm one) of ``call``, each kernel counted
+    under ``part_of(its name)``, one of ``parts``. Under ``--parent`` the
+    same with the parent's kernels."""
     import tempfile
 
     from annsearch_tpu_torch.ops import _cuda
@@ -1929,16 +2115,24 @@ def _k2_split(name, call) -> None:
                 torch.cuda.synchronize()
         finally:
             _cuda.load_library = own
-        parts = {"scan": 0.0, "extraction": 0.0, "merge": 0.0, "tensor code": 0.0}
+        split = dict.fromkeys(parts, 0.0)
         for e in prof.key_averages():
             if not str(getattr(e, "device_type", "")).endswith("CUDA") or e.key == (
                     "Command Buffer Full"):
                 continue
-            part = ("scan" if "flat_scan" in e.key else "extraction" if "flat_extract" in e.key
-                    else "merge" if "flat_merge" in e.key else "tensor code")
-            parts[part] += dev_us(e) / 1e3
+            split[part_of(e.key)] += dev_us(e) / 1e3
         print(f"    {name}, device time by kernel ({who}'s kernels, torch.profiler): "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
+
+
+def _k2_split(name, call) -> None:
+    """K2's device time: the scan (``flat_scan_kernel``, or the streamed
+    ``flat_scan_streamed_kernel``), the extraction (``flat_extract_kernel``),
+    the merge of runs, and the wrapper's tensor code (the split into bf16
+    terms, the padded norms, the clamps)."""
+    _device_split(name, call, ("scan", "extraction", "merge", "tensor code"),
+                  lambda k: "scan" if "flat_scan" in k else "extraction" if "flat_extract" in k
+                  else "merge" if "flat_merge" in k else "tensor code")
 
 
 def phase_knn_graph(dev):
@@ -2195,6 +2389,8 @@ def phase_new_variants(dev) -> None:
         _agree(f"K1-exact-i8 {name} nq_t {1 + split} {shapes}",
                *tsf.ivf_cell_scan_i8_exact(*a, **kw), *plain(*a, exact=True, **kw),
                scale=_l2_scale(a, cosine))
+        _parent_same(f"K1-exact-i8 {name} nq_t {1 + split}",
+                     lambda: tsf.ivf_cell_scan_i8_exact(*a, **kw))
         ms = _cuda_ms(lambda: tsf.ivf_cell_scan_i8_exact(*a, **kw), reps=3)
         pms = _cuda_ms(lambda: plain(*a, exact=True, **kw), reps=3)
         bound = _bound(a, kb, 1, BF16_FLOP_S / (1 + split), 0)[0]
@@ -2238,6 +2434,8 @@ def phase_new_variants(dev) -> None:
                 p_out = tsf.ivf_cell_scan_f32_plain(*ti, kb, cosine, exact=exact)
                 _agree(name, *k_out, *p_out, scale=_l2_scale((*ti, kb), cosine))
                 _grade(name, k_out, p_out, lambda tw: _k1_truth(ti, not cosine, two_way=tw))
+                if exact:
+                    _parent_same(name, lambda: wrapper(*ti, kb, cosine=cosine))
             ms = _cuda_ms(lambda: wrapper(*t, kb), reps=3)
             pms = _cuda_ms(lambda: tsf.ivf_cell_scan_f32_plain(*t, kb, False, exact=exact),
                            reps=3)

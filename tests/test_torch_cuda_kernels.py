@@ -1161,6 +1161,92 @@ def test_fold_selection_is_the_rounds_bit_for_bit(dev, kb, fold_depth):
     assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
+#: the exact wrappers of the edge-case test: dense cells of each type, and the
+#: int8-decode prologues with centroids (K1a's) and without (K1d-i8dec's)
+EXACT_KINDS = ["f32", "bf16", "sq8", "i8-residual", "i8dec"]
+#: per segment of the "entrants" case: the keys that enter its lists in chunk 1
+ENTRANTS = (0, 1, 2, 31, 32, 33, 128)
+
+
+def _edge_sn(case, nseg, seg, seed):
+    """Row norms that are the distances themselves (every query is zero, so
+    ``l2`` gives ``max(0 + sn − 0, 0) = sn`` exactly on both sides)."""
+    rng = np.random.default_rng(seed)
+    if case == "entrants":   # chunk 0 fills the lists; chunk 1 brings m keys below them
+        sn = np.full((nseg, seg), 5000.0, dtype=np.float32)
+        for s in range(nseg):
+            m = ENTRANTS[s % len(ENTRANTS)]
+            sn[s, :128] = 1000 + rng.permutation(128)
+            sn[s, 128 + rng.permutation(128)[:m]] = 500 + rng.permutation(m)
+        return sn
+    sn = rng.integers(0, 10 if case != "fltmax" else 40, (nseg, seg)).astype(np.float32)
+    if case == "equal":
+        sn[:] = 7.0
+    elif case == "fltmax":
+        sn[rng.random(sn.shape) < 0.3] = np.finfo(np.float32).max
+        sn[rng.random(sn.shape) < 0.05] = np.float32(3e38)
+    elif case == "inf":
+        sn[rng.random(sn.shape) < 0.2] = np.inf
+    return sn
+
+
+def _selection_reference(dist, cnt, kb):
+    """The exact selection's contract on CPU tensors ``dist [R, maxq, seg]``:
+    the kb smallest (value, lane) pairs over the valid lanes whose value is
+    at most FLT_MAX (an inf or NaN distance never enters), then (3e38, 0)."""
+    lane = torch.arange(dist.shape[-1])
+    ok = (lane < cnt.long()[:, None, None]) & (dist <= np.finfo(np.float32).max)
+    vals, idx = torch.sort(torch.where(ok, dist, float("inf")), dim=-1, stable=True)
+    vals, idx = vals[..., :kb], idx[..., :kb].int()
+    real = vals != float("inf")
+    return torch.where(real, vals, np.float32(3e38)), torch.where(real, idx, 0)
+
+
+@pytest.mark.parametrize("case", ["ties", "equal", "entrants", "fltmax", "inf"])
+@pytest.mark.parametrize("kb", [8, 24, 128])
+@pytest.mark.parametrize("kind", EXACT_KINDS)
+def test_exact_selection_edge_cases_bit_for_bit(dev, kind, kb, case):
+    """Every exact wrapper on distances it computes exactly (zero queries,
+    distances = sn): many ties, every lane equal, chunks in which 0, 1, 2,
+    31, 32, 33 and 128 keys enter a list, FLT_MAX and 3e38 on valid lanes,
+    inf on valid lanes; rows of 0, 1, kb − 1, kb, 200 and a whole segment
+    of valid lanes; 40 query slots (the second block's slots past maxq are
+    not written). Bit for bit against the selection's contract, and against
+    the plain version where the two agree (F15: the plain version lets inf
+    in and ranks values above 3e38 after the lanes it masks)."""
+    nseg, seg, d, maxq, R = 7, 1024, 32, 40, 28
+    gen = torch.Generator(device=dev).manual_seed(kb)
+    sn = torch.zeros((nseg + 1, seg), device=dev)
+    sn[:-1] = torch.tensor(_edge_sn(case, nseg, seg, kb), device=dev)
+    task_seg = (torch.arange(R, device=dev) % nseg).int()
+    cnt = torch.tensor([seg, 0, 1, kb - 1, kb, 200, seg - 37] * 4, device=dev).int()[:R]
+    lists = torch.randint(0, 51, (R, maxq), generator=gen, device=dev).int()
+    queries = torch.zeros((51, d), device=dev)
+    if kind in ("f32", "bf16", "sq8"):
+        cells = torch.randn((nseg + 1, seg, d), generator=gen, device=dev)
+        cells = {"f32": cells, "bf16": cells.to(torch.bfloat16),
+                 "sq8": (cells * 40).to(torch.int8)}[kind]
+        out = getattr(tsf, f"ivf_cell_scan_{kind}_exact")(lists, task_seg, cnt, queries,
+                                                           cells, sn, kb)
+        plain = getattr(tsf, f"ivf_cell_scan_{kind}_plain")(lists, task_seg, cnt, queries,
+                                                             cells, sn, kb, False, exact=True)
+    else:
+        cells = torch.randint(-127, 128, (nseg + 1, seg, d), generator=gen, device=dev,
+                              dtype=torch.int8)
+        cents = torch.zeros((nseg + 1, d), device=dev) if kind == "i8-residual" else None
+        a = (lists, task_seg, cnt, queries, cents, torch.ones(d, device=dev), cells, sn, kb)
+        out = tsf.ivf_cell_scan_i8_exact(*a)
+        plain = tsf.ivf_cell_scan_plain(*a, exact=True)
+    torch.cuda.synchronize()
+    kd, ki = (t.cpu() for t in out)
+    dist = sn.cpu()[task_seg.long().cpu()][:, None, :].expand(R, maxq, seg)
+    rd, ri = _selection_reference(dist, cnt.cpu(), kb)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ki, ri)
+    if case in ("ties", "equal", "entrants"):
+        pd, pi = (t.cpu() for t in plain)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
 def test_k1a_bf16_rejects_what_it_cannot_take(dev):
     gen = torch.Generator(device=dev).manual_seed(22)
     args = _rabitq_tasks(gen, dev, R=8)
