@@ -699,43 +699,7 @@ int launch_extract(const float* bins_v, const int* bins_i, const float* qadd, fl
   return (int)cudaGetLastError();
 }
 
-// -- host: tensor maps and launches ---------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (the library
-// links no libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// a tensor map of `rank` dims (innermost first), strides in bytes of dims 1..
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// -- host: launches (tensor maps: hopper.cuh) ---------------------------------------
 
 struct Maps {
   CUtensorMap q, x, sn;
@@ -858,12 +822,12 @@ extern "C" int annsearch_flat_scan(
     const cuuint64_t sn_dims[2] = {(cuuint64_t)B, (cuuint64_t)tiles};
     const cuuint64_t sn_strides[1] = {(cuuint64_t)B * 4};
     const cuuint32_t sn_box[2] = {kCS, 1};
-    if (!make_map(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q_terms, q_dims, q_strides,
-                  q_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-        !make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x_terms, x_dims, x_strides,
-                  x_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-        !make_map(&maps.sn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sn, sn_dims, sn_strides,
-                  sn_box, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    if (!hopper::make_map(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q_terms, q_dims,
+                          q_strides, q_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !hopper::make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x_terms, x_dims,
+                          x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !hopper::make_map(&maps.sn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sn, sn_dims,
+                          sn_strides, sn_box, CU_TENSOR_MAP_SWIZZLE_NONE)) {
       return (int)cudaErrorInvalidValue;
     }
   }

@@ -1,6 +1,7 @@
-// Hopper's own means for K2's scan (flat_scan.cu) and the wgmma probe
-// (mma_probe.cu): mbarriers, TMA tile loads, wgmma with A from registers,
-// setmaxnreg. sm_90a only.
+// Hopper's own means for the scans (K2's flat_scan.cu, K1's ivf_scan.cu)
+// and the wgmma probe (mma_probe.cu): mbarriers, TMA tile and bulk loads,
+// wgmma with A from registers, setmaxnreg, named barriers, and on the host
+// the tensor maps. sm_90a only.
 //
 // wgmma.mma_async m64nNk16 .f32.bf16.bf16, A from registers: a warpgroup
 // (four warps) multiplies 64 rows x 16 (k) of A by 16 x N of B, B read from
@@ -13,6 +14,8 @@
 // columns), the 16-byte units of row r XORed with (r / 2) mod 4, in atoms of
 // 8 rows (512 bytes, aligned); the descriptor's stride between 8-row groups
 // is 512 bytes, and the k16 step at byte 32 of a row adds 32 to its start.
+// m64n32k32 .s32.s8.s8 takes the same bytes: A's registers hold four int8
+// a word where the bf16 form holds two, and a k32 step is 32 bytes of B.
 
 #pragma once
 
@@ -83,6 +86,35 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// `bytes` contiguous bytes from global memory into shared memory at dst,
+// completing on bar (both 16-byte aligned, bytes a multiple of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// arrives on bar once this thread's earlier cp.async copies have landed
+// (the barrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// orders this thread's earlier generic writes of shared memory before later
+// reads by the async proxy (a wgmma's B operand)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `count` threads (whole warps) under id `id` (0 is
+// __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // the descriptor of a K-major B operand at p in the 64-byte swizzle
@@ -109,6 +141,46 @@ template <int kN>
 __device__ __forceinline__ void fence_operands(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_operands(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d = a . b (+ d where accumulate): one m64n32k16, A from registers
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// the same in int8: one m64n32k32 .s32.s8.s8, exact int32 sums
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // d = a . b (+ d where accumulate): one m64n64k16, A from registers
@@ -146,6 +218,45 @@ __device__ __forceinline__ void regs_lower() {
 // byte offset of the 16-byte unit `unit` of row `row` in the 64-byte swizzle
 __host__ __device__ constexpr int sw64(int row, int unit) {
   return row * 64 + ((unit ^ ((row >> 1) & 3)) << 4);
+}
+
+// -- host: tensor maps -------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// links no libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a tensor map of `rank` dims (innermost first), strides in bytes of dims
+// 1..; boxes past the tensor read as zeros
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

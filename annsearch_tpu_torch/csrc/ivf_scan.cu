@@ -1,6 +1,6 @@
 // IVF cell scan: one kernel template, every variant of the Pallas kernel
 // annsearch_tpu/ops/ivf_scan_pallas.py (_scan_kernel / _scan_body, launched
-// by _fused_cell_scan), its products on the tensor cores:
+// by _fused_cell_scan), on Hopper's wgmma fed by a TMA ring:
 //
 //   K1a       int8 residual cells ("i8dec_residual"), l2, depth-2 fold, one
 //             bf16 query term (the IVF-PQ main path);
@@ -30,7 +30,7 @@
 //             exact selection, _scan_body's selection="exact" over int8
 //             decode cells;
 //   wide rows every variant whose query terms do not fit the block whole:
-//             the query terms are staged in column blocks beside the cells'
+//             the query terms come a stage at a time beside the cells'
 //             (below).
 //
 // What it computes, for task row r (segment s = task_seg[r], n = cnt[r]
@@ -43,7 +43,7 @@
 //         |q|^2 and qadd = 1 / sqrt(q_sq), 0 for a zero query (cos_qnorm)
 //   dot_l = sum over the pairs (a, b) of q_a . x_b[s, l]   l < seg
 //         where q_a are the terms of v and x_b those of the cell row
-//         (mma_terms.cuh), every pair and column into one accumulator:
+//         (mma_terms.cuh):
 //           int8 decode cells: x as bf16 (exact), v as one bf16 term
 //             (bf16_rne) or two (q_split: hi by add-then-mask, lo =
 //             bf16_rne(v - hi)): one or two passes, as the Pallas kernel;
@@ -85,60 +85,84 @@
 // Bound on the H100: the multiply-adds, about (real query slots) x n x d per
 // task row, times the passes of the variant, at the tensor-core peak of
 // their type (bf16; int8 for sq8). Each cell row is read from device
-// memory once per block of 32 slots; f32 rows are 4x the bytes of int8
-// ones, bf16 rows 2x.
-// Design: one block per (task row, 32 query slots), eight warps. The
-// segment's rows go 128 at a time (a chunk) and 128 source bytes of a row
-// at a time (a step: 32 f32, 64 bf16 or 128 int8 columns) through shared
-// memory, converted once per block into the bf16 terms the products take
-// (int8 widened exactly, f32 split in three, bf16 and sq8 as they are);
-// the next step's 16 KB are loaded into registers while the tensor cores
-// work on this one. The slots' query terms come from the per-element
-// prologue into shared memory as bf16 (int8 for sq8), whole when the block
-// fits 110 KB (two blocks an SM); otherwise (kWide) each step's query
-// columns are formed anew beside its cells, and qadd is summed once over
-// all columns. Warp w takes slots 16 (w mod 2) .. +15 x lanes 32 (w / 2) ..
-// +31 of a chunk: four m16n8 tiles, fed by ldmatrix, one mma.sync per
-// (term pair, tile) per 16 columns (32 for int8), the accumulators carried
-// over the steps of a chunk, so a wide row's sums run over all its columns
-// before the epilogue, as a narrow row's do. The cross terms go smallest
-// first; for f32 cells, the f32 query in three terms (K1c-bf16) and wide
-// rows each 16 columns sum apart and join the chunk's sums by one IEEE
-// add: an mma chops its sum to 24 bits of its largest term (mma_terms.cuh),
-// and one accumulator over many steps gathers those chops, all leaning one
-// way (hundreds of ulps over thousands of columns). Chunks wholly past the
+// memory once per block of 32 slots (the blocks of a task row are adjacent
+// in the grid, so the others read it from L2); f32 rows are 4x the bytes of
+// int8 ones, bf16 rows 2x. Beside the products every (slot, lane) costs the
+// CUDA cores the conversion of its cells' share and about ten instructions
+// of epilogue and selection, which at d 32-128 is as much time as the
+// tensor cores' share.
+//
+// Design: one block per (task row, 32 query slots): a producer warp and two
+// consumer warpgroups; the blocks of a task row are adjacent in the grid,
+// so they read its segment from L2. The segment's rows go 128 at a time (a
+// chunk) and 128 source bytes of a row at a time (a stage: 32 f32, 64 bf16
+// or 128 int8 columns) through a ring of 2-4 stages in shared memory: the
+// producer issues one TMA load of a [128 rows][64 bytes] box (64-byte
+// swizzle) per half stage and, with a chunk's last stage, a bulk copy of
+// its 128 norms, onto the stage's full mbarrier (the first stages while the
+// consumers still form the query terms); the consumers release a stage on
+// its empty mbarrier, one arrival a warp, once they have read it. No block
+// barrier runs in the main loop. Consumer warpgroup w takes rows 64 w ..
+// 64 w + 63 of each chunk as the A operand of wgmma.mma_async m64n32k16
+// (m64n32k32 s8 for sq8), from registers: each thread reads its rows' cells
+// from the landed stage (ldmatrix for bf16 and int8, 16-byte loads for f32)
+// and converts them there (int8 widened exactly to bf16, f32 split in three
+// terms by the masked split, bf16 and sq8 as they are). B is the 32 slots'
+// query terms, K-major in the 64-byte swizzle that the descriptor reads:
+// formed once by the consumers' prologue and held whole in shared memory
+// where the block fits (plan_of), else (kWide) a stage's share at a time
+// beside the stage's cells: copied by the producer warp (cp.async, one
+// lane a slot) from query_terms_kernel's [nq1][kQT][dk] buffer, formed once
+// per launch (the slots are gathered query rows, which one tensor-map box
+// cannot land), or for the residual prologue, whose terms depend on the
+// segment, formed by the producer warp; qadd is summed once over all
+// columns. For f32 and int8-decode cells a thread reads columns 4t ..
+// 4t + 3 of each 16 (one 16-byte or 4-byte load a row), so its k positions
+// hold the columns in the order 0 1 4 5 8 9 12 13 2 3 6 7 10 11 14 15 and
+// the query terms are written in that order too (q_offset). The f32-grade
+// products (f32 cells, the f32 query in three terms) and wide rows sum
+// each k step into a fresh `part` (the step's first wgmma with scale-d 0),
+// the cross terms smallest first, joined to the chunk's sums by one IEEE
+// add: a tensor-core sum keeps 24 bits of its largest term (mma_terms.cuh),
+// and one accumulator over many steps would gather those chops, all
+// leaning one way. The other products chain into `acc`, a group of k steps
+// (one load's worth) a commit, and the next group's A fragments are loaded
+// and converted while this group's products run. Chunks wholly past the
 // row's valid rows are skipped (their lanes are 3e38 and change no
-// selection).
-//   fold:  by the fragment map a thread holds the same 16 (slot, stride
-//          class) elements in every chunk, and keeps their (best,
-//          runner-up) in registers; after the last chunk the survivors go
-//          to shared memory and each warp selects for its 4 slots, one at a
-//          time: a bitonic sort of the slot's 128 (256) survivors in
-//          registers, 4 (8) keys a lane, which gives the kb rounds' result
-//          at once (fold_select); each lane stores its own 4 outputs. The
-//          rounds themselves (kb dependent warp-wide arg-mins of 5 shuffles
-//          each, one lane storing each winner) cost K1a-bf16 about 0.25 ms
-//          per unit of kb on RaBitQ's 1M-row batch, where the sort costs
-//          the same at every kb (PERF.md, the kb sweep).
+// selection). At 288 threads and two blocks an SM ptxas gives a thread 96
+// registers (allocated per quarter SM), and the fold-2 instances spill a
+// few dozen bytes.
+//   The accumulator map: a consumer thread holds d[4 i + e] at stride class
+//   64 w + 16 (warp mod 4) + g + 8 (e / 2) and slot 8 i + 2 t + e % 2 (lane
+//   = 4 g + t), the same 16 (slot, class) elements in every chunk.
+//   fold:  those elements' (best, runner-up) stay in registers; after the
+//          last chunk the survivors go to shared memory and each consumer
+//          warp selects for its 4 slots, one at a time: a bitonic sort of
+//          the slot's 128 (256) survivors in registers, 4 (8) keys a lane,
+//          which gives the kb rounds' result at once (fold_select); each
+//          lane stores its own 4 outputs.
 //   exact: each slot keeps its kb smallest (value, lane) pairs as a sorted
 //          list of 64-bit keys in shared memory (exact_key: the value's
 //          order-preserving bits above the lane). A chunk's epilogue writes
-//          its [32, 128] distances into one of two tiles (by chunk parity),
-//          an entrant's value where the lane is valid, not above FLT_MAX and
-//          at most its slot's kb-th value as last merged (a stale bound is
-//          only looser), NaN elsewhere. No barrier follows: the warp that
-//          owns a slot merges the tile row during the next chunk's first
-//          step, beside that step's products, and after the last chunk
-//          (exact_merge). A merge rechecks the entrants against the list's
-//          kb-th key; none: nothing to do; up to 32 / ceil(kb / 32): one a
-//          lane, each placed by counting the list's keys and the other
-//          entrants below it (n broadcast steps); more: a bitonic sort of
-//          the chunk's 128 keys, its minimum against the list read
+//          its [32, 128] distances into a tile, an entrant's value where the
+//          lane is valid, not above FLT_MAX and at most its slot's kb-th
+//          value, NaN elsewhere. The warp that owns a slot merges the tile
+//          row between the commit and the wait of the next chunk's first
+//          products (exact_merge), after a barrier of the consumers (every
+//          warp has written the tile), and the next chunk's epilogue
+//          overwrites the tile after a second (every owner has merged it);
+//          the last chunk's tile is merged after the loop. One tile, not
+//          one a chunk parity, keeps the instances with three query terms at
+//          d 256 at two blocks an SM. A merge rechecks the entrants against
+//          the list's kb-th key; none: nothing to do; up to 32 / ceil(kb /
+//          32): one a lane, each placed by counting the list's keys and the
+//          other entrants below it (n broadcast steps); more: a bitonic sort
+//          of the chunk's 128 keys, its minimum against the list read
 //          backwards and a half cleaner.
 //          So a merge costs what enters the list, never kb rounds. seg is
 //          not bounded: a segment is never held whole.
-// wgmma and TMA staging are left for later work.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,18 +172,29 @@
 #include <type_traits>
 
 #include "bitonic.cuh"
+#include "hopper.cuh"
 #include "mma_terms.cuh"
 
 namespace {
 
 constexpr int kLanes = 128;    // chunk width: stride classes per query
-constexpr int kSlots = 32;     // query slots per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kStepBytes = 128;        // source bytes of a cell row per step
-constexpr int kNarrowSmem = 110 * 1024;  // largest block with its query terms whole
-constexpr int kTileStride = kLanes + 8;  // exact: floats of a distance-tile row
+constexpr int kSlots = 32;     // query slots per block: the products' N
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;   // two consumer warpgroups, the producer warp
+constexpr int kPerWarp = kSlots / kConsumerWarps;   // slots a consumer warp forms and selects
+constexpr int kBox = 64;                 // bytes of a cell row per TMA box: the swizzle's row
+constexpr int kBoxBytes = kLanes * kBox;            // one box: 128 rows
+constexpr int kSnOff = 2 * kBoxBytes;               // a stage: two boxes, then 128 norms
+constexpr int kStageHead = 33 * 512;                // ... rounded up to 512 (the swizzle atom)
+constexpr int kMaxStages = 4;
+constexpr int kQBlock = kSlots * 64;     // 64 bytes of K of each slot's query term
+constexpr int kTileStride = kLanes + 4;  // exact: floats of a distance-tile row
 constexpr int kTile = kSlots * kTileStride;  // exact: floats of one distance tile
+// dynamic shared memory of a block when two share an SM (228 KB, 1 KB
+// reserved a block, the static part), and of a block alone
+constexpr int kTwoBlocks = 115200;
+constexpr int kOneBlock = 231424;
 // exact: a merge takes its entrants one a lane while their count times the
 // list's keys a lane (ceil(kb / 32)) is at most this, else it sorts
 constexpr int kFew = 32;
@@ -179,20 +214,23 @@ enum Prologue { kResidual = 0, kPlain = 1, kBf16Query = 2, kScaled = 3, kScaledC
 enum Selection { kExactSel = 0, kFold1 = 1, kFold2 = 2 };
 
 // the arithmetic of an instance: which products, how many terms, and how a
-// step is staged
+// stage is split into the products' k steps
 template <typename CellT, int kPro, bool kSplit>
 struct Terms {
-  static constexpr bool kInt8 = std::is_same<CellT, int8_t>::value && kPro == kPlain;
-  static constexpr int kXT = std::is_same<CellT, float>::value ? 3 : 1;   // cell terms
+  static constexpr bool kF32 = std::is_same<CellT, float>::value;
+  static constexpr bool kI8Cells = std::is_same<CellT, int8_t>::value;
+  static constexpr bool kInt8 = kI8Cells && kPro == kPlain;   // sq8: int8 products
+  static constexpr int kXT = kF32 ? 3 : 1;   // cell terms
   static constexpr int kQT = kInt8 ? 1
                              : kPro == kPlain ? 3
                              : (kSplit && kPro != kBf16Query) ? 2 : 1;  // query terms
-  static constexpr int kES = kInt8 ? 1 : 2;              // bytes of a term element
-  static constexpr int kKStep = kInt8 ? 32 : 16;         // columns of one mma
-  static constexpr int kCols = kStepBytes / (int)sizeof(CellT);   // columns of a step
-  static constexpr int kRow = kCols * kES + 16;          // bytes of a staged row
-  static constexpr int kCellTerm = kLanes * kRow;        // bytes of a staged cell term
-  static constexpr int kMaxKs = kCols * kES / 32;        // mma steps of a step
+  static constexpr int kES = kInt8 ? 1 : 2;                  // bytes of a term element
+  static constexpr int kKStep = kInt8 ? 32 : 16;             // columns of one product
+  static constexpr int kCols = 2 * kBox / (int)sizeof(CellT);   // columns of a stage
+  static constexpr int kSteps = kCols / kKStep;              // k steps of a stage
+  static constexpr int kQStage = kSteps / 2;                 // query blocks of a stage
+  // A holds columns 4t .. 4t + 3 of each 16 in thread t (f32, widened int8)
+  static constexpr bool kPerm = kF32 || (kI8Cells && !kInt8);
 };
 
 // the query value of column c of a slot (0 past d), before the split, and
@@ -221,60 +259,127 @@ __device__ __forceinline__ float query_value(const float* qrow, const float* cen
   }
 }
 
-// element c of a slot's query row in shared memory: the kQT bf16 terms of
-// v at `term` bytes apart, or v as an int8 code
-template <int kQT, bool kInt8>
-__device__ __forceinline__ void put_query(unsigned char* row, int term, int c, float v) {
+// The byte offset of column c of a slot's query term in the products' B
+// layout: K-major, 64 bytes of K a row, the 32 slots' rows of each 64 bytes
+// a 2048-byte block in the 64-byte swizzle (hopper.cuh); with kPerm the
+// columns of each 16 in A's order (0 1 4 5 8 9 12 13 2 3 6 7 10 11 14 15)
+template <int kES, bool kPerm>
+__device__ __forceinline__ int q_offset(int slot, int c) {
+  int k = c;
+  if constexpr (kPerm) {
+    const int w = c & 15, e = w & 3;
+    k = (c & ~15) | ((e & 2) << 2) | ((w >> 2) << 1) | (e & 1);
+  }
+  const int byte = k * kES;
+  return (byte >> 6) * kQBlock + hopper::sw64(slot, (byte >> 4) & 3) + (byte & 15);
+}
+
+// column c of a slot's query as the kQT bf16 terms of v, `term` bytes
+// apart, or as an int8 code
+template <int kQT, bool kInt8, bool kPerm>
+__device__ __forceinline__ void put_query(unsigned char* q, int term, int slot, int c,
+                                          float v) {
+  const int o = q_offset<kInt8 ? 1 : 2, kPerm>(slot, c);
   if constexpr (kInt8) {
-    row[c] = (unsigned char)(int8_t)__float2int_rn(v);
+    q[o] = (unsigned char)(int8_t)__float2int_rn(v);
   } else {
     uint16_t t[kQT];
     mma::split<kQT>(v, t);
 #pragma unroll
-    for (int i = 0; i < kQT; ++i) *reinterpret_cast<uint16_t*>(row + i * term + 2 * c) = t[i];
+    for (int i = 0; i < kQT; ++i) *reinterpret_cast<uint16_t*>(q + i * term + o) = t[i];
   }
 }
 
-// a staged 16-byte source vector (row `row`, vector `vec` of the step) as
-// the cell terms in shared memory
-__device__ __forceinline__ void put_cells(unsigned char* cs, int row, int vec,
-                                          const uint4& raw, const float*) {
-  // f32: four values, three bf16 terms each
-  const float* f = reinterpret_cast<const float*>(&raw);
-  uint16_t t[4][3];
+// Wide rows whose query terms depend on the query alone (every prologue
+// but the residual's): one pass forms each query's terms once, [nq1][kQT]
+// rows of dk columns in the products' order of K (q_offset's), so that the
+// producer copies a slot's share of a stage as 16-byte units.
+template <int kPro, int kEpi, int kQT, bool kInt8, bool kPerm>
+__global__ void query_terms_kernel(const float* __restrict__ queries,
+                                   const float* __restrict__ scales,
+                                   unsigned char* __restrict__ out, int d, int dk) {
+  constexpr int kES = kInt8 ? 1 : 2;
+  const int qid = blockIdx.y;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= dk) return;
+  float unused = 0.f;
+  // K1b-cos's value is the scaled query (its qadd, q . centroid, is summed
+  // in the block)
+  constexpr int kValue = kPro == kScaledCent ? kScaled : kPro;
+  const float v = query_value<kValue, kEpi>(queries + (size_t)qid * d, nullptr, scales, c, d,
+                                             unused);
+  int k = c;
+  if constexpr (kPerm) {
+    const int w = c & 15, e = w & 3;
+    k = (c & ~15) | ((e & 2) << 2) | ((w >> 2) << 1) | (e & 1);
+  }
+  unsigned char* row = out + (size_t)qid * kQT * dk * kES;
+  if constexpr (kInt8) {
+    row[k] = (unsigned char)(int8_t)__float2int_rn(v);
+  } else {
+    uint16_t t[kQT];
+    mma::split<kQT>(v, t);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) mma::split<3>(f[e], t[e]);
-  constexpr int kRow = Terms<float, kPlain, false>::kRow;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    *reinterpret_cast<uint2*>(cs + i * Terms<float, kPlain, false>::kCellTerm + row * kRow +
-                              vec * 8) =
-        make_uint2(mma::pack2(t[0][i], t[1][i]), mma::pack2(t[2][i], t[3][i]));
+    for (int i = 0; i < kQT; ++i) reinterpret_cast<uint16_t*>(row + (size_t)i * dk * 2)[k] = t[i];
   }
 }
-__device__ __forceinline__ void put_cells(unsigned char* cs, int row, int vec,
-                                          const uint4& raw, const __nv_bfloat16*) {
-  constexpr int kRow = Terms<__nv_bfloat16, kPlain, false>::kRow;
-  *reinterpret_cast<uint4*>(cs + row * kRow + vec * 16) = raw;
+
+// bytes 2h and 2h + 1 of x, int8, as two bf16 values (exact)
+__device__ __forceinline__ uint32_t widen2(uint32_t x, int h) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn((float)(int8_t)(x >> (16 * h)),
+                                                 (float)(int8_t)(x >> (16 * h + 8)));
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
-// int8: as it is for the integer products (sq8), else widened to bf16
-template <bool kInt8>
-__device__ __forceinline__ void put_cells_i8(unsigned char* cs, int row, int vec,
-                                             const uint4& raw) {
-  constexpr int kRow = Terms<int8_t, kInt8 ? kPlain : kResidual, false>::kRow;
-  if constexpr (kInt8) {
-    *reinterpret_cast<uint4*>(cs + row * kRow + vec * 16) = raw;
-  } else {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t w[8];
+
+// The A fragments of k step ls of a landed stage for the thread's rows
+// row0 + g and row0 + 8 + g (the mma.sync fragment of its warp's 16 rows):
+// f32: both rows' 16-byte unit t of box ls (columns 4t .. 4t + 3) split in
+// three terms; bf16: one ldmatrix.x4 of the step's 32 bytes; int8: one
+// ldmatrix.x4 of 32 bytes (`r4`, kept) serves two k16 steps widened, or one
+// k32 step of sq8.
+template <typename CellT, bool kInt8, int kXT>
+__device__ __forceinline__ void frag(const unsigned char* stage, int row0, int lane, int ls,
+                                     uint32_t (&r4)[4], uint32_t (&a)[kXT][4]) {
+  if constexpr (std::is_same<CellT, float>::value) {
+    const int g = lane >> 2, t = lane & 3;
+    const unsigned char* box = stage + ls * kBoxBytes;
+    const float4 lo = *reinterpret_cast<const float4*>(box + hopper::sw64(row0 + g, t));
+    const float4 hi = *reinterpret_cast<const float4*>(box + hopper::sw64(row0 + g + 8, t));
+    uint16_t tl[4][3], th[4][3];
+    mma::split<3>(lo.x, tl[0]);
+    mma::split<3>(lo.y, tl[1]);
+    mma::split<3>(lo.z, tl[2]);
+    mma::split<3>(lo.w, tl[3]);
+    mma::split<3>(hi.x, th[0]);
+    mma::split<3>(hi.y, th[1]);
+    mma::split<3>(hi.z, th[2]);
+    mma::split<3>(hi.w, th[3]);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      w[e] = mma::pack2(__bfloat16_as_ushort(__float2bfloat16_rn((float)b[2 * e])),
-                        __bfloat16_as_ushort(__float2bfloat16_rn((float)b[2 * e + 1])));
+    for (int i = 0; i < 3; ++i) {
+      a[i][0] = mma::pack2(tl[0][i], tl[1][i]);
+      a[i][1] = mma::pack2(th[0][i], th[1][i]);
+      a[i][2] = mma::pack2(tl[2][i], tl[3][i]);
+      a[i][3] = mma::pack2(th[2][i], th[3][i]);
     }
-    uint4* dst = reinterpret_cast<uint4*>(cs + row * kRow + vec * 32);
-    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  } else {
+    // matrices (rows 0-7, the step's first 16 bytes), (rows 8-15, first),
+    // (rows 0-7, second), (rows 8-15, second) of the warp's 16 rows
+    const int row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const bool bf16 = std::is_same<CellT, __nv_bfloat16>::value;
+    const int j = bf16 || kInt8 ? ls : ls >> 1;   // the 32-byte step
+    if (bf16 || kInt8 || (ls & 1) == 0) {
+      mma::ldsm_x4(r4, stage + (j >> 1) * kBoxBytes + hopper::sw64(row, 2 * (j & 1) + (lane >> 4)));
+    }
+    if (bf16 || kInt8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[0][i] = r4[i];
+    } else {   // r4: (row g, columns 4t..4t+3), (row g+8, same), then 16 columns on
+      const int h = ls & 1;
+      a[0][0] = widen2(r4[2 * h], 0);
+      a[0][1] = widen2(r4[2 * h + 1], 0);
+      a[0][2] = widen2(r4[2 * h], 1);
+      a[0][3] = widen2(r4[2 * h + 1], 1);
+    }
   }
 }
 
@@ -463,70 +568,82 @@ __device__ __forceinline__ void exact_merge(const float* trow, int lbase, uint64
   __syncwarp();
 }
 
-// shared memory of an instance's stage: the staged cell terms and the query
-// terms (whole, or one step's columns when wide)
-template <typename CellT, int kPro, bool kSplit>
-size_t stage_bytes(int dp, bool wide) {
-  using TT = Terms<CellT, kPro, kSplit>;
-  const size_t dkq = (size_t)(dp + TT::kKStep - 1) / TT::kKStep * TT::kKStep;
-  const size_t qstride = wide ? TT::kRow : dkq * TT::kES + 16;
-  return (size_t)TT::kXT * TT::kCellTerm + (size_t)TT::kQT * kSlots * qstride;
-}
+// -- the scan ------------------------------------------------------------------
 
-// dynamic shared memory of an instance: the stage, then for the exact
-// selection its two distance tiles, the lists of kb keys and each warp's
-// 32 compacted entrants; a fold's survivors reuse it after the scan
-template <typename CellT, int kPro, int kSel, bool kSplit>
-size_t smem_bytes(int dp, bool wide, int kb) {
-  const size_t stage = stage_bytes<CellT, kPro, kSplit>(dp, wide);
-  if (kSel == kExactSel) {
-    return stage + 2 * kTile * sizeof(float) + (size_t)kSlots * kb * 8 + kWarps * 32 * 8;
+// The shared memory of an instance on rows of dp columns: the query terms
+// held whole (`q_bytes`, 0 when wide), then the ring of `stages` stages of
+// `stage_bytes` (each the cells' two boxes and the chunk's norms, rounded to
+// 512, then when wide the stage's query terms), then for the exact
+// selection its distance tile, the lists of kb keys and each warp's 32
+// compacted entrants (at `exact_off`); a fold's survivors reuse the start
+// after the scan. `smem` includes 512 bytes of alignment slack (every
+// region starts on a 512-byte swizzle atom).
+struct Plan {
+  int wide, stages, stage_bytes, q_bytes, exact_off, smem;
+};
+
+// The plan of an instance (cells of `cell_bytes`, `qt` query terms, int8
+// products for sq8, selection `sel`) on rows of dp columns: the query terms
+// held whole with as many stages (4 down to 2) as keep two blocks an SM,
+// else at one block an SM; else the same with the query terms a stage at a
+// time (wide). ops/ivf_scan_fused.py::scan_plan mirrors it.
+Plan plan_of(int cell_bytes, int qt, bool int8, int sel, int dp, int kb) {
+  const int cols = 2 * kBox / cell_bytes;          // Terms::kCols
+  const int es = int8 ? 1 : 2;                     // Terms::kES
+  const int qstage = cols / (int8 ? 32 : 16) / 2;  // Terms::kQStage
+  const int dk = (dp + cols - 1) / cols * cols;
+  const int surv = sel == kExactSel ? 0 : kSlots * sel * kLanes * 8;
+  const int exact = sel == kExactSel
+                        ? kTile * 4 + kSlots * kb * 8 + kConsumerWarps * 32 * 8
+                        : 0;
+  const int caps[2] = {kTwoBlocks, kOneBlock};
+  for (int wide = 0; wide < 2; ++wide) {
+    const int q_bytes = wide ? 0 : qt * (dk * es / 64) * kQBlock;
+    const int stage = kStageHead + (wide ? qt * qstage * kQBlock : 0);
+    for (int cap : caps) {
+      for (int stages = kMaxStages; stages >= 2; --stages) {
+        const int scan = q_bytes + stages * stage;
+        const int exact_off = scan > surv ? scan : surv;
+        const int smem = 512 + exact_off + exact;
+        if (smem <= cap) return Plan{wide, stages, stage, q_bytes, exact_off, smem};
+      }
+    }
   }
-  const size_t surv = (size_t)kSlots * kSel * kLanes * 8;
-  return stage > surv ? stage : surv;
-}
-
-// whether an instance forms its query terms a step at a time: the block
-// with the query terms whole and 32 KB of selection state (a fold's
-// survivors, or the exact lists as they were at 128 entries a slot) would
-// pass kNarrowSmem. The rule predates the exact selection's smaller state
-// and stays, so that every input takes the variant it took before.
-template <typename CellT, int kPro, int kSel, bool kSplit>
-bool wide_rows(int dp) {
-  const size_t stage = stage_bytes<CellT, kPro, kSplit>(dp, false);
-  const size_t sel = kSel == kExactSel ? stage + (size_t)kSlots * kLanes * 8
-                                       : smem_bytes<CellT, kPro, kSel, kSplit>(dp, false, 0);
-  return sel > (size_t)kNarrowSmem;
+  return Plan{0, 0, 0, 0, 0, 0};
 }
 
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
-ivf_scan_kernel(const int* __restrict__ lists,
+ivf_scan_kernel(const __grid_constant__ CUtensorMap cmap,   // cells [nblk * seg, dp]
+                const int* __restrict__ lists,
                 const int* __restrict__ task_seg,
                 const int* __restrict__ cnt,
                 const float* __restrict__ queries,
                 const float* __restrict__ cents,   // kResidual, kScaledCent
                 const float* __restrict__ scales,  // the int8-decode variants
-                const CellT* __restrict__ cells,
                 const float* __restrict__ sn,
+                const unsigned char* __restrict__ qterms,   // wide: query_terms_kernel's
                 float* __restrict__ out_d, int* __restrict__ out_i,
-                int maxq, int seg, int d, int dp, int kb) {
+                int maxq, int seg, int d, int dk, int kb, int nyb,
+                int stages, int stage_bytes, int q_bytes, int exact_off) {
   using TT = Terms<CellT, kPro, kSplit>;
   constexpr int kQT = TT::kQT, kXT = TT::kXT;
   constexpr bool kInt8 = TT::kInt8;
   constexpr bool kExact = kSel == kExactSel;
   constexpr int kDepth = kExact ? 1 : kSel;
+  // wide rows: the producer copies each stage's query terms from the
+  // pre-pass, or (the residual prologue) forms them
+  constexpr bool kCopied = kWide && kPro != kResidual;
   using Acc = typename std::conditional<kInt8, int, float>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float qadd_s[kSlots];
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ __align__(16) float qadd_s[kSlots];
   __shared__ int qid_s[kSlots];   // a slot's query row, -1 past maxq
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int r = blockIdx.x;
-  const int j0 = blockIdx.y * kSlots;
+  const int r = blockIdx.x / nyb;
+  const int j0 = (blockIdx.x - r * nyb) * kSlots;
   const int n_valid = cnt[r];
 
   if (n_valid == 0) {  // block-uniform: no thread reaches a barrier
@@ -542,24 +659,56 @@ ivf_scan_kernel(const int* __restrict__ lists,
   }
   const int s = task_seg[r];
 
-  // shared memory: staged cell terms [kXT][128][kRow], query terms
-  // [kQT][32][qstride], then (exact) the distance tiles [2][32][kTileStride],
-  // the lists [32][kb] and the warps' compacted entrants [8][32]
-  const int dkq = (dp + TT::kKStep - 1) / TT::kKStep * TT::kKStep;
-  const int qstride = kWide ? TT::kRow : dkq * TT::kES + 16;
-  const int q_term = kSlots * qstride;
-  unsigned char* cell_s = smem;
-  unsigned char* q_s = smem + kXT * TT::kCellTerm;
-  float* tile_s = reinterpret_cast<float*>(q_s + kQT * q_term);
-  uint64_t* list_s = reinterpret_cast<uint64_t*>(tile_s + 2 * kTile);
+  unsigned char* smem = smem_raw + ((512 - (hopper::smem_addr(smem_raw) & 511)) & 511);
+  unsigned char* q_s = smem;                      // the query terms held whole
+  unsigned char* ring = smem + q_bytes;
+  float* tile_s = reinterpret_cast<float*>(smem + exact_off);
+  uint64_t* list_s = reinterpret_cast<uint64_t*>(tile_s + kTile);
   uint64_t* ecomp_s = list_s + kSlots * kb + warp * 32;
-
-  // prologue: each warp forms the query terms and qadd of its 4 slots,
-  // the 4 side by side column by column so that their loads overlap
-  constexpr int kPerWarp = kSlots / kWarps;
+  // one term's bytes: whole, or a stage's columns
+  const int q_term = kWide ? TT::kQStage * kQBlock : dk * TT::kES / 64 * kQBlock;
   const float* cent = nullptr;
   if constexpr (kPro == kResidual || kPro == kScaledCent) cent = cents + (size_t)s * d;
-  {
+  const int nchunks = (n_valid + kLanes - 1) / kLanes;   // chunks past the valid rows: skipped
+  const int ncb = dk / TT::kCols;
+  const int nsteps = nchunks * ncb;
+
+  // the producer's lane 0: the cells (and a chunk's norms with its last
+  // column block) of step t = (chunk t / ncb, column block t mod ncb) into
+  // stage st
+  auto load_stage = [&](int t, int st) {
+    const int ch = t / ncb, cb = t - ch * ncb;
+    unsigned char* stage = ring + st * stage_bytes;
+    const bool last = cb == ncb - 1;
+    const int row = s * seg + ch * kLanes;
+    hopper::bar_expect(&full[st], 2 * kBoxBytes + (last ? kLanes * 4 : 0));
+    hopper::tma_load(stage, &cmap, &full[st], cb * TT::kCols, row);
+    hopper::tma_load(stage + kBoxBytes, &cmap, &full[st], cb * TT::kCols + TT::kCols / 2, row);
+    if (last) {
+      hopper::bulk_load(stage + kSnOff, sn + (size_t)s * seg + ch * kLanes, kLanes * 4,
+                        &full[st]);
+    }
+  };
+  // the producer sets the barriers up and, where the query terms are held
+  // whole, starts the ring's first stages while the consumers form them
+  int preloaded = 0;
+  if (warp == kConsumerWarps && lane == 0) {
+    for (int i = 0; i < stages; ++i) {
+      // the TMA's arrival; wide rows: and the query terms' (the copying
+      // lanes' 32 or the forming warp's one)
+      hopper::bar_init(&full[i], 1 + (kCopied ? 32 : kWide ? 1 : 0));
+      hopper::bar_init(&empty[i], kConsumerWarps);
+    }
+    hopper::bar_init_fence();
+    if constexpr (!kWide) {
+      for (; preloaded < stages && preloaded < nsteps; ++preloaded) {
+        load_stage(preloaded, preloaded);
+      }
+    }
+  }
+  if (warp < kConsumerWarps) {
+    // prologue: each consumer warp forms the query terms and qadd of its 4
+    // slots, the 4 side by side column by column so that their loads overlap
     int qid[kPerWarp];
     float qadd[kPerWarp];
 #pragma unroll
@@ -568,17 +717,18 @@ ivf_scan_kernel(const int* __restrict__ lists,
       qid[i] = j < maxq ? lists[(size_t)r * maxq + j] : -1;   // warp-uniform
       qadd[i] = 0.f;
     }
-    for (int c = lane; c < (kWide ? d : dkq); c += 32) {
+    for (int c = lane; c < (kWide ? d : dk); c += 32) {
 #pragma unroll
       for (int i = 0; i < kPerWarp; ++i) {
         const float v = qid[i] >= 0 ? query_value<kPro, kEpi>(queries + (size_t)qid[i] * d,
                                                               cent, scales, c, d, qadd[i])
                                     : 0.f;
         if constexpr (!kWide) {
-          put_query<kQT, kInt8>(q_s + (warp * kPerWarp + i) * qstride, q_term, c, v);
+          put_query<kQT, kInt8, TT::kPerm>(q_s, q_term, warp * kPerWarp + i, c, v);
         }
       }
     }
+    hopper::fence_proxy_async();   // the terms are read by wgmma
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
       float qa = qadd[i];
@@ -592,173 +742,200 @@ ivf_scan_kernel(const int* __restrict__ lists,
         qid_s[warp * kPerWarp + i] = qid[i];
       }
     }
+    if constexpr (kExact) {
+      for (int i = tid; i < kSlots * kb; i += kConsumers) list_s[i] = kEmptyKey;
+    }
   }
-  if constexpr (kExact) {
-    for (int i = tid; i < kSlots * kb; i += kThreads) list_s[i] = kEmptyKey;
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // the producer: step t into stage t mod stages once the consumers have
+    // released it (the held-whole rows: lane 0 alone, past the preloaded)
+    if (!kWide && lane != 0) return;
+    int st = preloaded % stages, ph = preloaded >= stages ? 0 : 1;
+    for (int t = preloaded; t < nsteps; ++t) {
+      const int cb = t - t / ncb * ncb;
+      unsigned char* stage = ring + st * stage_bytes;
+      hopper::bar_wait(&empty[st], ph);
+      if (lane == 0) load_stage(t, st);
+      if constexpr (kCopied) {
+        // lane j copies slot j's share of the stage, 16 bytes at a time,
+        // into the swizzled B layout; the copies arrive on the stage's full
+        // barrier when they have landed
+        constexpr int kUnits = TT::kCols * TT::kES / 16;
+        const int qid = qid_s[lane];
+        const unsigned char* src = qterms + (size_t)(qid < 0 ? 0 : qid) * kQT * dk * TT::kES +
+                                   cb * TT::kCols * TT::kES;
+        unsigned char* qst = stage + kStageHead;
+#pragma unroll
+        for (int i = 0; i < kQT; ++i) {
+#pragma unroll
+          for (int u = 0; u < kUnits; ++u) {
+            mma::cp_async16(qst + i * q_term + (u >> 2) * kQBlock + hopper::sw64(lane, u & 3),
+                            src + (size_t)i * dk * TT::kES + 16 * u, 16);
+          }
+        }
+        hopper::cp_async_arrive(&full[st]);
+      } else if constexpr (kWide) {
+        // the residual prologue: the stage's query columns of every slot,
+        // lane by lane along them
+        unsigned char* qst = stage + kStageHead;
+        for (int slot = 0; slot < kSlots; ++slot) {
+          const int qid = qid_s[slot];
+          const float* qrow = queries + (size_t)(qid < 0 ? 0 : qid) * d;
+#pragma unroll
+          for (int m = 0; m < TT::kCols / 32; ++m) {
+            const int lc = lane + 32 * m;
+            float unused = 0.f;
+            const float v = qid >= 0 ? query_value<kPro, kEpi>(qrow, cent, scales,
+                                                               cb * TT::kCols + lc, d, unused)
+                                     : 0.f;
+            put_query<kQT, kInt8, TT::kPerm>(qst, q_term, slot, lc, v);
+          }
+        }
+        hopper::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) hopper::bar_arrive(&full[st]);
+      }
+      if (++st == stages) { st = 0; ph ^= 1; }
+    }
+    return;
   }
+
+  // the consumers
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = 64 * wg + 16 * (warp & 3);   // the warp's 16 rows of a chunk
+  const int c0 = row0 + g;                      // the thread's classes: c0, c0 + 8
   // exact: this warp's 4 slots merge chunk c's tile
   auto merge_chunk = [&](int c) {
     for (int i = 0; i < kPerWarp; ++i) {
       const int slot = warp * kPerWarp + i;
       if (qid_s[slot] < 0) continue;   // warp-uniform
-      exact_merge(tile_s + (c & 1) * kTile + slot * kTileStride, c * kLanes,
+      exact_merge(tile_s + slot * kTileStride, c * kLanes,
                   list_s + slot * kb, kb, ecomp_s, lane);
     }
   };
 
-  // fold state of the thread's 16 elements: element e of n-tile nb at
-  // 4 nb + e is slot 16 wm + g + 8 (e / 2), stride class 32 wn + 8 nb +
-  // 2 t4 + e % 2. A survivor's lane is chunk * 128 + its class, so one
-  // register holds both survivors' chunks: the best's in the low 16 bits,
-  // the runner-up's in the high 16 (kNoChunk: the runner-up's initial
-  // lane 0); the C entries refuse segments of 65,535 chunks or more
+  // fold state of the thread's 16 elements, element e of n-tile i at 4 i +
+  // e: slot 8 i + 2 t4 + e % 2, stride class c0 + 8 (e / 2). A survivor's
+  // lane is chunk * 128 + its class, so one register holds both survivors'
+  // chunks: the best's in the low 16 bits, the runner-up's in the high 16
+  // (kNoChunk: the runner-up's initial lane 0); the C entries refuse
+  // segments of 65,535 chunks or more
   float v1[16], v2[16];
   uint32_t ic[16];
-  Acc acc[4][4];
+  Acc acc[16];
   // f32-grade products (f32 cells, the f32 query in three terms) and wide
-  // rows: each 16 (32) columns' products sum into a fresh `part`, smallest
-  // cross terms first, which joins `acc` by one IEEE add. An mma chops its
-  // sum to 24 bits of its largest term, so one accumulator over many steps
-  // gathers chops that all lean one way
+  // rows: each k step's products sum into a fresh `part`, smallest cross
+  // terms first, which joins `acc` by one IEEE add
   constexpr bool kStepSums = !kInt8 && (kXT == 3 || kQT == 3 || kWide);
-  Acc part[4][4];
-  Acc(&sum)[4][4] = kStepSums ? part : acc;
+  Acc part[16];
+  Acc(&sum)[16] = kStepSums ? part : acc;
 
-  const CellT* blk = cells + (size_t)s * seg * dp;
-  const float* snr = sn + (size_t)s * seg;
-  // chunks past the valid rows hold only 3e38 lanes: skipped
-  const int nchunks = (n_valid + kLanes - 1) / kLanes;
-  const int ncb = (dkq + TT::kCols - 1) / TT::kCols;
-  const int nsteps = nchunks * ncb;
-  constexpr int kVE = 16 / (int)sizeof(CellT);   // elements of a 16-byte vector
-
-  // step t = (chunk, column block): the thread's up to 4 source vectors
-  uint4 pre[4];
-  auto load = [&](int t) {
-    const int ch = t / ncb, c0 = (t - ch * ncb) * TT::kCols;
-    const int vpr = min(TT::kCols, dkq - c0) / kVE;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = tid + kThreads * i;
-      const int row = v / vpr, col = c0 + (v - row * vpr) * kVE;
-      pre[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (v < kLanes * vpr && col < dp) {
-        pre[i] = *reinterpret_cast<const uint4*>(blk + ((size_t)ch * kLanes + row) * dp + col);
+  for (int ch = 0, st = 0, ph = 0; ch < nchunks; ++ch) {
+    float sn0 = 0.f, sn1 = 0.f;
+    for (int cb = 0; cb < ncb; ++cb) {
+      const unsigned char* stage = ring + st * stage_bytes;
+      hopper::bar_wait(&full[st], ph);
+      // the copied query terms were written through the generic proxy
+      if constexpr (kCopied) hopper::fence_proxy_async();
+      if (cb == ncb - 1) {
+        const float* sns = reinterpret_cast<const float*>(stage + kSnOff);
+        sn0 = sns[c0];
+        sn1 = sns[c0 + 8];
       }
-    }
-  };
-  auto store = [&](int t) {
-    const int c0 = (t - t / ncb * ncb) * TT::kCols;
-    const int vpr = min(TT::kCols, dkq - c0) / kVE;
+      // this stage's query blocks: whole terms at column block cb, or the
+      // stage's own
+      const unsigned char* qb = kWide ? stage + kStageHead : q_s + cb * TT::kQStage * kQBlock;
+      // the stage's k steps in groups of one load each (an int8 ldmatrix
+      // serves two widened k16 steps), the next group's fragments loaded
+      // and converted while this group's products run; f32-grade and wide
+      // sums wait for each step's `part`, the others chain their products
+      // into `acc` and wait for the group before last
+      constexpr int kPerGroup = TT::kI8Cells && !kInt8 && !kStepSums ? 2 : 1;
+      constexpr int kGroups = TT::kSteps / kPerGroup;
+      uint32_t r4[4];
+      uint32_t a[2][kPerGroup][kXT][4];
+      auto load_group = [&](int gi, uint32_t (&ag)[kPerGroup][kXT][4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = tid + kThreads * i;
-      if (v >= kLanes * vpr) continue;
-      const int row = v / vpr, vec = v - row * vpr;
-      if constexpr (std::is_same<CellT, int8_t>::value) {
-        put_cells_i8<kInt8>(cell_s, row, vec, pre[i]);
-      } else {
-        put_cells(cell_s, row, vec, pre[i], static_cast<const CellT*>(nullptr));
-      }
-    }
-  };
-
-  const int a_base = mma::a_offset(lane, qstride) + wm * 16 * qstride;
-  const int b_base = mma::b_offset(lane, TT::kRow) + wn * 32 * TT::kRow;
-  load(0);
-  for (int t = 0; t < nsteps; ++t) {
-    const int ch = t / ncb, cb = t - ch * ncb;
-    const int c0 = cb * TT::kCols;
-    const int w = min(TT::kCols, dkq - c0);
-    __syncthreads();  // the previous step's reads of the staged terms are done
-    store(t);
-    if constexpr (kWide) {  // this step's query columns, beside the cells'
-      for (int i = tid; i < kSlots * w; i += kThreads) {
-        const int slot = i / w, c = i - slot * w;
-        const int qid = qid_s[slot];
-        float unused = 0.f;
-        const float v = qid >= 0 ? query_value<kPro, kEpi>(queries + (size_t)qid * d, cent,
-                                                         scales, c0 + c, d, unused)
-                                 : 0.f;
-        put_query<kQT, kInt8>(q_s + slot * qstride, q_term, c, v);
-      }
-    }
-    __syncthreads();
-    if (t + 1 < nsteps) load(t + 1);
-    if constexpr (kExact) {
-      // the previous chunk's tile, written before the barriers above; the
-      // next write of it (chunk ch + 1) comes after at least one more
-      if (cb == 0 && ch > 0) merge_chunk(ch - 1);
-    }
-    if (cb == 0) {
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nb][e] = 0;
-      }
-    }
-    const unsigned char* qa = q_s + a_base + (kWide ? 0 : c0 * TT::kES);
-    const unsigned char* xb = cell_s + b_base;
-    const int nks = w * TT::kES / 32;
-#pragma unroll
-    for (int ks = 0; ks < TT::kMaxKs; ++ks) {
-      if (ks >= nks) break;
-      uint32_t a[kQT][4];
-#pragma unroll
-      for (int i = 0; i < kQT; ++i) mma::ldsm_x4(a[i], qa + i * q_term + ks * 32);
-      if constexpr (kStepSums) {
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[nb][e] = 0;
+        for (int j = 0; j < kPerGroup; ++j) {
+          frag<CellT, kInt8, kXT>(stage, row0, lane, gi * kPerGroup + j, r4, ag[j]);
         }
-      }
-      // cell terms from the smallest; within one, query terms likewise
+      };
+      load_group(0, a[0]);
 #pragma unroll
-      for (int b = kXT - 1; b >= 0; --b) {
-        uint32_t b01[4], b23[4];
-        mma::ldsm_x4(b01, xb + b * TT::kCellTerm + ks * 32);
-        mma::ldsm_x4(b23, xb + b * TT::kCellTerm + 16 * TT::kRow + ks * 32);
+      for (int gi = 0; gi < kGroups; ++gi) {
+        hopper::wgmma_fence();
 #pragma unroll
-        for (int p = mma::cross_count(kQT, kXT) - 1; p >= 0; --p) {
-          if (mma::cross_b(kXT, p) != b) continue;
-          const int ai = mma::cross_a(kXT, p);
-          if constexpr (kInt8) {
-            mma::mma_s8(sum[0], a[ai], b01[0], b01[1]);
-            mma::mma_s8(sum[1], a[ai], b01[2], b01[3]);
-            mma::mma_s8(sum[2], a[ai], b23[0], b23[1]);
-            mma::mma_s8(sum[3], a[ai], b23[2], b23[3]);
-          } else {
-            mma::mma_bf16(sum[0], a[ai], b01[0], b01[1]);
-            mma::mma_bf16(sum[1], a[ai], b01[2], b01[3]);
-            mma::mma_bf16(sum[2], a[ai], b23[0], b23[1]);
-            mma::mma_bf16(sum[3], a[ai], b23[2], b23[3]);
+        for (int j = 0; j < kPerGroup; ++j) {
+          const int ls = gi * kPerGroup + j;
+          const unsigned char* qs = qb + (ls >> 1) * kQBlock;
+          bool first = true;
+          // cell terms from the smallest; within one, query terms likewise
+#pragma unroll
+          for (int b = kXT - 1; b >= 0; --b) {
+#pragma unroll
+            for (int p = mma::cross_count(kQT, kXT) - 1; p >= 0; --p) {
+              if (mma::cross_b(kXT, p) != b) continue;
+              const uint64_t desc = hopper::desc_sw64(qs + mma::cross_a(kXT, p) * q_term) +
+                                    2 * (ls & 1);   // 32 bytes on
+              const int keep = first ? (kStepSums ? 0 : (cb | ls)) : 1;
+              if constexpr (kInt8) {
+                hopper::wgmma_m64n32k32_s8(sum, a[gi & 1][j][b], desc, keep);
+              } else {
+                hopper::wgmma_m64n32k16(sum, a[gi & 1][j][b], desc, keep);
+              }
+              first = false;
+            }
           }
         }
-      }
-      if constexpr (kStepSums) {
+        hopper::wgmma_commit();
+        if constexpr (kExact) {
+          // every warp has written the previous chunk's tile: merge it
+          // beside the products
+          if (cb == 0 && gi == 0 && ch > 0) {
+            hopper::named_sync(1, kConsumers);
+            merge_chunk(ch - 1);
+          }
+        }
+        if (gi + 1 < kGroups) {
+          if constexpr (!kStepSums) hopper::wgmma_wait<1>();   // the group before is done
+          load_group(gi + 1, a[(gi + 1) & 1]);
+          if (!kWide && gi + 2 == kGroups) {   // read: release the stage
+            __syncwarp();
+            if (lane == 0) hopper::bar_arrive(&empty[st]);
+          }
+        }
+        if constexpr (kStepSums) {
+          hopper::wgmma_wait<0>();
+          hopper::fence_operands(part);
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nb][e] = __fadd_rn(acc[nb][e], part[nb][e]);
+          for (int e = 0; e < 16; ++e) acc[e] = (cb | gi) ? __fadd_rn(acc[e], part[e]) : part[e];
         }
       }
+      if constexpr (!kStepSums) {
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc);
+      }
+      if (kWide) {   // the products have read the stage's query terms
+        __syncwarp();
+        if (lane == 0) hopper::bar_arrive(&empty[st]);
+      }
+      if (++st == stages) { st = 0; ph ^= 1; }
     }
-    if (cb != ncb - 1) continue;
 
-    // epilogue of chunk ch on the fragment
-    const float qa0 = qadd_s[wm * 16 + g], qa1 = qadd_s[wm * 16 + g + 8];
+    // epilogue of chunk ch on the accumulator map
     float dist[16];
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const int l0 = ch * kLanes + wn * 32 + nb * 8 + 2 * t4;
-      const float2 sv = *reinterpret_cast<const float2*>(snr + l0);
+    for (int i = 0; i < 4; ++i) {
+      const float2 qa = *reinterpret_cast<const float2*>(qadd_s + 8 * i + 2 * t4);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int l = l0 + (e & 1);
-        const float snl = (e & 1) ? sv.y : sv.x;
-        const float qadd = (e >> 1) ? qa1 : qa0;
-        const float dot = (float)acc[nb][e];
+        const int l = ch * kLanes + c0 + 8 * (e >> 1);
+        const float snl = (e >> 1) ? sn1 : sn0;
+        const float qadd = (e & 1) ? qa.y : qa.x;
+        const float dot = (float)acc[4 * i + e];
         float dv;
         if constexpr (kEpi == kL2) {
           dv = fmaxf(__fsub_rn(__fadd_rn(qadd, snl), 2.f * dot), 0.f);
@@ -772,7 +949,7 @@ ivf_scan_kernel(const int* __restrict__ lists,
             dv = __fsub_rn(1.f, __fmul_rn(__fadd_rn(dot, qadd), rs));
           }
         }
-        dist[nb * 4 + e] = l >= n_valid ? kBig : dv;
+        dist[4 * i + e] = l >= n_valid ? kBig : dv;
       }
     }
 
@@ -792,40 +969,35 @@ ivf_scan_kernel(const int* __restrict__ lists,
         }
       }
     } else {
-      // the chunk's tile (by parity): an entrant's value where the lane is
-      // valid, the value at most FLT_MAX (no inf, no NaN) and its key's
-      // value bits at most those of the slot's kb-th key as last merged
-      // (read as one word: a concurrent merge leaves the old or the new)
-      float* tile = tile_s + (ch & 1) * kTile;
-      uint32_t thr[2];
+      // the chunk's tile, once every owner has merged the previous one: an
+      // entrant's value where the lane is valid, the value at most FLT_MAX
+      // (no inf, no NaN) and its key's value bits at most those of the
+      // slot's kb-th key
+      if (ch > 0) hopper::named_sync(1, kConsumers);
+      float* tile = tile_s;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        thr[h] = reinterpret_cast<const volatile uint32_t*>(
-            list_s + (wm * 16 + g + 8 * h) * kb + kb - 1)[1];
-      }
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int slot = 8 * i + 2 * t4 + e1;
+          const uint32_t thr =
+              reinterpret_cast<const volatile uint32_t*>(list_s + slot * kb + kb - 1)[1];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float w[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int l = ch * kLanes + wn * 32 + nb * 8 + 2 * t4 + e;
-            const float dv = dist[nb * 4 + 2 * h + e];
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int cls = c0 + 8 * e2;
+            const int l = ch * kLanes + cls;
+            const float dv = dist[4 * i + 2 * e2 + e1];
             const bool in = l < n_valid && dv <= FLT_MAX &&
-                            (uint32_t)(exact_key(dv, l) >> 32) <= thr[h];
-            w[e] = in ? dv : __int_as_float(0x7fffffff);
+                            (uint32_t)(exact_key(dv, l) >> 32) <= thr;
+            tile[slot * kTileStride + cls] = in ? dv : __int_as_float(0x7fffffff);
           }
-          const int slot = wm * 16 + g + 8 * h;
-          *reinterpret_cast<float2*>(tile + slot * kTileStride + wn * 32 + nb * 8 + 2 * t4) =
-              make_float2(w[0], w[1]);
         }
       }
     }
   }
 
   if constexpr (kExact) {
-    __syncthreads();   // the last chunk's tile is written
+    hopper::named_sync(1, kConsumers);   // the last chunk's tile is written
     merge_chunk(nchunks - 1);
     for (int i = 0; i < kPerWarp; ++i) {
       const int slot = warp * kPerWarp + i;
@@ -840,15 +1012,15 @@ ivf_scan_kernel(const int* __restrict__ lists,
     }
   } else {
     // the survivors of every slot to shared memory ([32][kDepth * 128]),
-    // then each warp selects for its 4 slots (fold_select)
+    // then each consumer warp selects for its 4 slots (fold_select)
     constexpr int kSurv = kDepth * kLanes;
     float* sv_s = reinterpret_cast<float*>(smem);
     int* si_s = reinterpret_cast<int*>(sv_s + kSlots * kSurv);
-    __syncthreads();  // every warp is done with the staged terms
+    hopper::named_sync(1, kConsumers);   // every consumer is done with the ring
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
-      const int slot = wm * 16 + g + 8 * ((k & 3) >> 1);
-      const int cls = wn * 32 + (k >> 2) * 8 + 2 * t4 + (k & 1);
+      const int slot = 8 * (k >> 2) + 2 * t4 + (k & 1);
+      const int cls = c0 + 8 * ((k & 3) >> 1);
       sv_s[slot * kSurv + cls] = v1[k];
       si_s[slot * kSurv + cls] = (int)(ic[k] & 0xFFFFu) * kLanes + cls;
       if constexpr (kSel == kFold2) {
@@ -857,7 +1029,7 @@ ivf_scan_kernel(const int* __restrict__ lists,
         si_s[slot * kSurv + kLanes + cls] = c2 == kNoChunk ? 0 : (int)c2 * kLanes + cls;
       }
     }
-    __syncthreads();
+    hopper::named_sync(1, kConsumers);
     for (int i = 0; i < kPerWarp; ++i) {
       const int slot = warp * kPerWarp + i;
       if (qid_s[slot] < 0) continue;   // warp-uniform
@@ -869,51 +1041,87 @@ ivf_scan_kernel(const int* __restrict__ lists,
 }
 
 // the last launch: blocks an SM (the occupancy calculator), dynamic shared
-// memory, whether its rows were wide, and its stage's shared memory
-int g_last_launch[4];
+// memory, whether its rows were wide, its stage's bytes and stages; then
+// the launches since the library was loaded with the query terms whole and
+// a stage at a time
+int g_last_launch[7];
+
+template <typename CellT>
+constexpr CUtensorMapDataType cell_type() {
+  return std::is_same<CellT, float>::value            ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<CellT, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
 
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit, bool kWide>
-int launch_impl(const void* lists, const void* task_seg, const void* cnt,
-                const void* queries, const void* cents, const void* scales,
-                const void* cells, const void* sn, void* out_d, void* out_i,
-                int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
+int launch_impl(const Plan& p, const CUtensorMap& cmap, const void* lists,
+                const void* task_seg, const void* cnt, const void* queries, const void* cents,
+                const void* scales, const void* sn, void* out_d, void* out_i, int R, int maxq,
+                int seg, int d, int dp, int kb, void* stream, int nq1, void* scratch,
+                size_t scratch_bytes) {
+  using TT = Terms<CellT, kPro, kSplit>;
   auto kern = ivf_scan_kernel<CellT, kPro, kEpi, kSel, kSplit, kWide>;
-  const size_t smem = smem_bytes<CellT, kPro, kSel, kSplit>(dp, kWide, kb);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int dk = (dp + TT::kCols - 1) / TT::kCols * TT::kCols;
+  if (kWide && kPro != kResidual) {   // the pre-pass: every query's terms once
+    if (scratch == nullptr || scratch_bytes < (size_t)nq1 * TT::kQT * dk * TT::kES) {
+      return (int)cudaErrorInvalidValue;
+    }
+    query_terms_kernel<kPro, kEpi, TT::kQT, TT::kInt8, TT::kPerm>
+        <<<dim3((dk + 255) / 256, nq1), 256, 0, (cudaStream_t)stream>>>(
+            (const float*)queries, (const float*)scales, (unsigned char*)scratch, d, dk);
+    const cudaError_t perr = cudaGetLastError();
+    if (perr != cudaSuccess) return (int)perr;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  static size_t seen = 0;   // the occupancy of this instance at `seen` bytes
+  static int seen = 0;   // the occupancy of this instance at `seen` bytes
   static int blocks = 0;
-  if (smem != seen) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem);
+  if (p.smem != seen) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, p.smem);
     if (err != cudaSuccess) return (int)err;
-    seen = smem;
+    seen = p.smem;
   }
   g_last_launch[0] = blocks;
-  g_last_launch[1] = (int)smem;
+  g_last_launch[1] = p.smem;
   g_last_launch[2] = kWide;
-  g_last_launch[3] = (int)stage_bytes<CellT, kPro, kSplit>(dp, kWide);
-  const dim3 grid(R, (maxq + kSlots - 1) / kSlots);
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)lists, (const int*)task_seg, (const int*)cnt,
-      (const float*)queries, (const float*)cents, (const float*)scales,
-      (const CellT*)cells, (const float*)sn, (float*)out_d, (int*)out_i,
-      maxq, seg, d, dp, kb);
+  g_last_launch[3] = p.stage_bytes;
+  g_last_launch[4] = p.stages;
+  ++g_last_launch[kWide ? 6 : 5];
+  const int nyb = (maxq + kSlots - 1) / kSlots;
+  kern<<<(unsigned)R * nyb, kThreads, p.smem, (cudaStream_t)stream>>>(
+      cmap, (const int*)lists, (const int*)task_seg, (const int*)cnt, (const float*)queries,
+      (const float*)cents, (const float*)scales, (const float*)sn,
+      (const unsigned char*)scratch, (float*)out_d, (int*)out_i, maxq, seg, d, dk, kb, nyb,
+      p.stages, p.stage_bytes, p.q_bytes, p.exact_off);
   return (int)cudaGetLastError();
 }
 
-// one variant at any width: the query terms held whole where the block
-// fits kNarrowSmem (wide_rows), in column blocks beside the cells' past it
+// one variant at any width: the tensor map of the cells ([nblk * seg, dp],
+// boxes of 128 rows x 64 bytes, 64-byte swizzle), the plan, and the
+// instance with the query terms whole or a stage at a time
 template <typename CellT, int kPro, int kEpi, int kSel, bool kSplit = false>
 int launch(const void* lists, const void* task_seg, const void* cnt,
            const void* queries, const void* cents, const void* scales,
            const void* cells, const void* sn, void* out_d, void* out_i,
-           int R, int maxq, int seg, int d, int dp, int kb, void* stream) {
-  const bool wide = wide_rows<CellT, kPro, kSel, kSplit>(dp);
-  auto run = wide ? &launch_impl<CellT, kPro, kEpi, kSel, kSplit, true>
-                  : &launch_impl<CellT, kPro, kEpi, kSel, kSplit, false>;
-  return run(lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
-             R, maxq, seg, d, dp, kb, stream);
+           int R, int maxq, int seg, int d, int dp, int kb, void* stream, int nblk, int nq1,
+           void* scratch, size_t scratch_bytes) {
+  if (R <= 0 || maxq <= 0) return 0;
+  using TT = Terms<CellT, kPro, kSplit>;
+  const Plan p = plan_of((int)sizeof(CellT), TT::kQT, TT::kInt8, kSel, dp, kb);
+  if (p.stages == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap cmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)dp, (cuuint64_t)nblk * seg};
+  const cuuint64_t strides[1] = {(cuuint64_t)dp * sizeof(CellT)};
+  const cuuint32_t box[2] = {(cuuint32_t)(kBox / sizeof(CellT)), (cuuint32_t)kLanes};
+  if (!hopper::make_map(&cmap, cell_type<CellT>(), 2, cells, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto run = p.wide ? &launch_impl<CellT, kPro, kEpi, kSel, kSplit, true>
+                    : &launch_impl<CellT, kPro, kEpi, kSel, kSplit, false>;
+  return run(p, cmap, lists, task_seg, cnt, queries, cents, scales, sn, out_d, out_i, R, maxq,
+             seg, d, dp, kb, stream, nq1, scratch, scratch_bytes);
 }
 
 // Every instance's launcher has one signature
@@ -949,12 +1157,8 @@ const Launch* const kResidualL2[2] = {kBySel<int8_t, kResidual, kL2, false>,
 const Launch* const kResidualCos[2] = {kBySel<int8_t, kScaledCent, kCosRenorm, false>,
                                        kBySel<int8_t, kScaledCent, kCosRenorm, true>};
 // K1a-bf16: bf16 residual cells, l2, two query terms (RaBitQ's estimator
-// takes fused_ivf_scan's q_split=True; one term is refused): [sel]. The
-// staged row of a bf16 step holds 64 columns (kCols), so d 128 and 256 take two
-// and four steps a chunk (64 KB of shared memory at fold depth 2, the
-// survivors' share; 58 / 67 KB exact at d 128 / 256); the query terms stay
-// whole up to a padded d of 1,464 (fold) or 952 (exact) under
-// kNarrowSmem, past which the kWide instances take them
+// takes fused_ivf_scan's q_split=True; one term is refused): [sel]. A bf16
+// stage holds 64 columns, so d 128 and 256 take two and four stages a chunk
 const Launch* const kResidualBf16 = kBySel<__nv_bfloat16, kResidual, kL2, true>;
 // K1d-i8dec: int8 decode cells, l2 or cos_renorm: [cosine][split][sel]
 const Launch* const kI8dec[2][2] = {
@@ -973,12 +1177,31 @@ int bad_sel(int sel, int seg) {
 
 // Launches on `stream`; each returns the launch's cudaError_t (0 on
 // success). The caller validates shapes, types, contiguity and alignment.
-// `sel` is the selection: 0 exact, 1 or 2 the fold at that depth.
+// `sel` is the selection: 0 exact, 1 or 2 the fold at that depth; `nblk`
+// the blocks of `cells` ([nblk, seg, dp]: the tensor map's extent), `nq1`
+// the rows of `queries`; `scratch` (`scratch_bytes`) holds the query terms
+// of wide rows (ops/ivf_scan_fused.py::_query_scratch; unused otherwise).
 
 // The last launch of any entry below: (blocks an SM, dynamic shared memory
-// in bytes, 1 if its rows were wide, its stage's bytes) into out[0..3]
+// in bytes, 1 if its rows were wide, a stage's bytes, stages) into
+// out[0..4], and the launches of every entry since the library was loaded
+// with the query terms whole (out[5]) and a stage at a time (out[6])
 extern "C" int annsearch_ivf_scan_last_launch(int* out) {
-  for (int i = 0; i < 4; ++i) out[i] = g_last_launch[i];
+  for (int i = 0; i < 7; ++i) out[i] = g_last_launch[i];
+  return 0;
+}
+
+// The plan of a launch (cells of `cell_bytes` bytes, `query_terms` query
+// terms, int8 products for sq8, selection `sel`, rows of dp columns, kb):
+// out[0..3] = wide (the query terms a stage at a time), stages, bytes a
+// stage, dynamic shared memory. Returns 0.
+extern "C" int annsearch_ivf_scan_plan(int cell_bytes, int query_terms, int int8, int sel,
+                                       int dp, int kb, int* out) {
+  const Plan p = plan_of(cell_bytes, query_terms, int8 != 0, sel, dp, kb);
+  out[0] = p.wide;
+  out[1] = p.stages;
+  out[2] = p.stage_bytes;
+  out[3] = p.smem;
   return 0;
 }
 
@@ -987,11 +1210,12 @@ extern "C" int annsearch_ivf_scan_k1a(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
+    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualL2[0][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+      R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1b-l2: int8 residual cells, l2, two bf16 query terms
@@ -999,11 +1223,12 @@ extern "C" int annsearch_ivf_scan_k1b_l2(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
+    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualL2[1][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+      R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1b-cos: int8 residual cells, cos_renorm, one or two query terms
@@ -1011,11 +1236,12 @@ extern "C" int annsearch_ivf_scan_k1b_cos(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, int split, int sel, void* stream) {
+    int R, int maxq, int seg, int d, int dp, int kb, int split, int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualCos[split != 0][sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+      R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1a-bf16: bf16 residual cells, l2, two bf16 query terms (RaBitQ's
@@ -1024,11 +1250,12 @@ extern "C" int annsearch_ivf_scan_k1a_bf16(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cents, const void* scales,
     const void* cells, const void* sn, void* out_d, void* out_i,
-    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream) {
+    int R, int maxq, int seg, int d, int dp, int kb, int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kResidualBf16[sel](
       lists, task_seg, cnt, queries, cents, scales, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+      R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1d-i8dec: int8 decode cells (no centroids), l2 or cos_renorm, one or two
@@ -1037,11 +1264,12 @@ extern "C" int annsearch_ivf_scan_i8dec(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* scales, const void* cells,
     const void* sn, void* out_d, void* out_i, int R, int maxq, int seg, int d,
-    int dp, int kb, int cosine, int split, int sel, void* stream) {
+    int dp, int kb, int cosine, int split, int sel, void* stream, int nblk, int nq1,
+    void* scratch, size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kI8dec[cosine != 0][split != 0][sel](
       lists, task_seg, cnt, queries, nullptr, scales, cells, sn, out_d, out_i,
-      R, maxq, seg, d, dp, kb, stream);
+      R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1c-f32 / K1d-f32: f32 cells (f32 queries)
@@ -1049,10 +1277,11 @@ extern "C" int annsearch_ivf_scan_f32(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-    int sel, void* stream) {
+    int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kF32[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
-                                sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
+                                sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1c-bf16 / K1d-bf16: bf16 cells (f32 queries)
@@ -1060,10 +1289,11 @@ extern "C" int annsearch_ivf_scan_bf16(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-    int sel, void* stream) {
+    int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kBf16[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
-                                 sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
+                                 sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
 
 // K1c-sq8 / K1d-sq8: int8 cells (f32 queries holding int8 codes)
@@ -1071,8 +1301,9 @@ extern "C" int annsearch_ivf_scan_sq8(
     const void* lists, const void* task_seg, const void* cnt,
     const void* queries, const void* cells, const void* sn, void* out_d,
     void* out_i, int R, int maxq, int seg, int d, int dp, int kb, int cosine,
-    int sel, void* stream) {
+    int sel, void* stream, int nblk, int nq1, void* scratch,
+    size_t scratch_bytes) {
   if (bad_sel(sel, seg)) return bad_sel(sel, seg);
   return kSq8[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
-                                sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream);
+                                sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }

@@ -5,8 +5,9 @@
 // (annsearch_tpu/utils/dist.py::mantissa_split) and the kernel sums chosen
 // cross terms into one f32 accumulator (flat_scan_pallas.py::_CROSS,
 // ivf_scan_pallas.py::_scan_body). The port does the same on Hopper's
-// tensor cores with mma.sync: this header holds the split, the fragment
-// loads (ldmatrix) and the two products the scans use.
+// tensor cores: this header holds the split, the fragment loads (ldmatrix)
+// and the mma.sync product of K2's streamed scan and the probe (the wgmma
+// products are in hopper.cuh).
 //
 // Split. Term i < kTerms - 1 is the residual rounded to bf16 by integer
 // add-then-mask ((bits + 0x8000) & 0xFFFF0000: half-way cases away from
@@ -25,11 +26,11 @@
 // test_mma_sync_keeps_24_bits_of_the_largest_term holds it). So six cross
 // terms of a three-way split sum to f32 grade in one mma chain, and a long
 // accumulation is cut into fresh per-step sums joined by IEEE adds, so that
-// the chops do not gather. For int8 operands (SQ8),
-// m16n8k32.row.col.s32.s8.s8.s32 sums exactly in int32. In bytes both
-// take A as 16 rows x 32 bytes and B as 8 rows ("n") x 32 bytes, stored
-// row by row (B transposed: the database rows themselves), so one loader
-// serves both: ldmatrix.x4 of four 8 x 16-byte matrices.
+// the chops do not gather. For int8 operands (SQ8) K1 takes wgmma's
+// .s32.s8.s8 (hopper.cuh), which sums exactly in int32. In bytes an A
+// fragment is 16 rows x 32 bytes in either type (four int8 a register
+// where bf16 puts two), so one loader serves both: ldmatrix.x4 of four 8 x
+// 16-byte matrices.
 //
 // Accumulator fragment (f32 or s32), lane = 4 g + t (g = lane / 4,
 // t = lane % 4):
@@ -40,8 +41,8 @@
 // state there.
 //
 // Shared-memory rows are 16-byte aligned with a stride of an odd number of
-// 16-byte units, so the eight rows of one ldmatrix matrix fall in distinct
-// banks.
+// 16-byte units (or in the 64-byte swizzle, hopper.cuh), so the eight rows
+// of one ldmatrix matrix fall in distinct banks.
 
 #pragma once
 
@@ -112,16 +113,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b over k 32 (int8 operands, exact int32 sums)
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

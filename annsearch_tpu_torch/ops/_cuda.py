@@ -35,19 +35,24 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: the stream, then nblk, nq1, scratch and its bytes
+_K1_TAIL = [_P, _I, _I, _P, ctypes.c_size_t]
 #: C entry points: name → argtypes (every pointer and the stream as
 #: c_void_p, so ctypes does not cut them to 32 bits); each returns the
 #: launch's cudaError_t
 _SIGNATURES = {
-    "annsearch_ivf_scan_k1a": [_P] * 10 + [_I] * 7 + [_P],
-    "annsearch_ivf_scan_k1b_l2": [_P] * 10 + [_I] * 7 + [_P],
-    "annsearch_ivf_scan_k1a_bf16": [_P] * 10 + [_I] * 7 + [_P],
-    "annsearch_ivf_scan_k1b_cos": [_P] * 10 + [_I] * 8 + [_P],
-    "annsearch_ivf_scan_i8dec": [_P] * 9 + [_I] * 9 + [_P],
-    "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + [_P],
-    "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + [_P],
-    "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + [_P],
+    # the K1 entries end with the blocks of `cells` (the tensor map's
+    # extent), the rows of `queries` and the wide rows' query-term scratch
+    "annsearch_ivf_scan_k1a": [_P] * 10 + [_I] * 7 + _K1_TAIL,
+    "annsearch_ivf_scan_k1b_l2": [_P] * 10 + [_I] * 7 + _K1_TAIL,
+    "annsearch_ivf_scan_k1a_bf16": [_P] * 10 + [_I] * 7 + _K1_TAIL,
+    "annsearch_ivf_scan_k1b_cos": [_P] * 10 + [_I] * 8 + _K1_TAIL,
+    "annsearch_ivf_scan_i8dec": [_P] * 9 + [_I] * 9 + _K1_TAIL,
+    "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + _K1_TAIL,
+    "annsearch_ivf_scan_bf16": [_P] * 8 + [_I] * 8 + _K1_TAIL,
+    "annsearch_ivf_scan_sq8": [_P] * 8 + [_I] * 8 + _K1_TAIL,
     "annsearch_ivf_scan_last_launch": [_P],
+    "annsearch_ivf_scan_plan": [_I] * 6 + [_P],
     "annsearch_flat_scan": [_P] * 10 + [_I] * 8 + [_P],
     "annsearch_flat_scan_plan": [_I, _I, _P],
     "annsearch_flat_extract": [_P] * 5 + [_I] * 3 + [_P],
@@ -114,7 +119,7 @@ def kernel_resources() -> list[tuple[str, str]]:
 
 def mma_counts() -> tuple[str, dict[str, tuple[int, int, int, int]]]:
     """Tensor-core and TMA instructions of each kernel of the built library:
-    ``("sass", {kernel: (HMMA, IMMA, HGMMA, UTMALDG)})`` counted in
+    ``("sass", {kernel: (HMMA, IMMA, HGMMA or IGMMA, UTMALDG)})`` counted in
     ``cuobjdump -sass`` where the toolkit has it, else ``("ptx", {kernel:
     (mma.sync with bf16 operands, with s8 operands, wgmma.mma_async,
     cp.async.bulk.tensor)})`` counted in the PTX that ``nvcc -ptx`` makes of
@@ -125,7 +130,7 @@ def mma_counts() -> tuple[str, dict[str, tuple[int, int, int, int]]]:
     if os.path.exists(tool):
         text = subprocess.run([tool, "-sass", str(_build_dir() / _LIB_NAME)],
                               capture_output=True, text=True, check=True).stdout
-        head, marks, kind = r"Function : (\S+)", ("HMMA", "IMMA", "HGMMA", "UTMALDG"), "sass"
+        head, marks, kind = r"Function : (\S+)", ("HMMA", "IMMA", "GMMA", "UTMALDG"), "sass"
     else:
         text = ""
         for p in _sources():

@@ -46,7 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.dist import Dist, fp32_matmul, sq_norms
+from ..utils.dist import Dist, _sqrt_f32, fp32_matmul, sq_norms
 from .binary import unpack_pm1
 from .ivf_scan_fused import regroup_topk
 from .quantised import pq_decode_tile
@@ -250,7 +250,7 @@ def ivf_cluster_scan(
             else:
                 dec = pq_decode_tile(cells.reshape(-1, cells.shape[-1]), codebooks)
                 dec = dec.reshape(cells.shape[0], cap, -1)
-            rsn = torch.sqrt(torch.clamp(sn, min=1e-12))[:, None, :]
+            rsn = _sqrt_f32(torch.clamp(sn, min=1e-12))[:, None, :]
             if residual and cosine:
                 cent = centroids_x[c]
                 num = _dots(qg, dec) + (qg * cent[:, None, :]).sum(dim=-1)[:, :, None]
@@ -278,7 +278,7 @@ def ivf_cluster_scan(
                 d = -_dots(qg.to(torch.bfloat16).float(), x_pm)
             else:  # rabitq: the unbiased estimator (its reference's, non-squared)
                 rqr = qg - centroids_x[c][:, None, :]
-                q_dist = torch.sqrt((rqr * rqr).sum(dim=-1))                  # [s, maxq]
+                q_dist = _sqrt_f32((rqr * rqr).sum(dim=-1))                   # [s, maxq]
                 qru = rqr / torch.clamp(q_dist, min=1e-12)[:, :, None]
                 inner = _dots(qru.to(torch.bfloat16).float(), x_pm)
                 corr = aux[rows][:, None, :]                                  # [s, 1, cap]
@@ -288,11 +288,11 @@ def ivf_cluster_scan(
                     0.0,
                 )
                 snr, qd = sn[:, None, :], q_dist[:, :, None]
-                d = torch.sqrt(torch.clamp(snr ** 2 + qd ** 2 - 2.0 * snr * qd * est, min=0.0))
+                d = _sqrt_f32(torch.clamp(snr ** 2 + qd ** 2 - 2.0 * snr * qd * est, min=0.0))
         elif mode == "sq8":
             dots = _dots(qg.to(acc), cells.to(acc)).float()
             if cosine:
-                denom = torch.sqrt(q_sq[q_ids])[:, :, None] * torch.sqrt(sn)[:, None, :]
+                denom = _sqrt_f32(q_sq[q_ids])[:, :, None] * _sqrt_f32(sn)[:, None, :]
                 d = torch.where(denom > 0, 1.0 - dots / denom, 1.0)
             else:
                 d = torch.clamp(q_sq[q_ids][:, :, None] + sn[:, None, :] - 2.0 * dots, min=0.0)

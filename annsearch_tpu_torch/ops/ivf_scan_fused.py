@@ -45,16 +45,17 @@ version here:
   ``i8dec_residual`` cells). No index routes to it, as in the JAX
   package: the exact tier of those modes is the cluster scan;
 * rows of any width: a block holds its 32 slots' query terms whole in
-  shared memory while the block fits 110 KB (two blocks an SM: a padded d
-  of about 400 for f32 cells, 1,200 for K1a); past it each variant forms
-  its query terms a column block at a time beside the cells'
-  (``csrc/ivf_scan.cu``), so ``fused_eligible`` is the JAX package's
-  rule, with no width limit.
+  shared memory where the block fits (:func:`scan_plan`: at two blocks an
+  SM while they fit, else at one); past it the kernel's producer warp
+  brings them a stage at a time beside the cells, copied from a pre-pass
+  that forms each query's terms once (the residual prologue's, which
+  depend on the segment, it forms itself; ``csrc/ivf_scan.cu``), so
+  ``fused_eligible`` is the JAX package's rule, with no width limit.
 
 A wrapper launches its kernel on CUDA tensors (or raises) and runs the
 plain version on CPU tensors; there is no fallback between the two. The
 kernels take their products on the tensor cores as the Pallas kernel takes
-them on the MXU: bf16 terms of a mantissa split (``mma.sync``, f32 sums),
+them on the MXU: bf16 terms of a mantissa split (``wgmma``, f32 sums),
 int8 × int8 for SQ8 (int32 sums). f32 cells are split in three on both
 sides and summed over six cross terms, where the JAX package keeps two
 terms (about 16 mantissa bits) and the ``packed2`` lane layout: three terms
@@ -65,12 +66,14 @@ FFMA loop's it replaced, PERF.md §6).
 
 On the H100 every variant is bound by its multiply-adds, about
 R·maxq·seg·d (1.3e11 at the 1M×128d main path, nprobe 16), times its
-passes, at the tensor cores' rate: each block stages a segment's rows in
-shared memory once for 32 query slots, converted once into the terms the
-products take, and the selection stays in registers (the fold) or in
-shared memory (the exact selection's sorted lists of kb keys, each chunk
-merged by what enters them), so the [maxq, seg] distance tile never
-reaches device memory. See the kernel source for the layout.
+passes, at the tensor cores' rate: each block streams a segment's rows
+through a TMA ring once for 32 query slots, its consumer warpgroups
+convert them in registers into the terms the products take, and the
+selection stays in registers (the fold) or in shared memory (the exact
+selection's sorted lists of kb keys, each chunk merged by what enters
+them), so the [maxq, seg] distance tile never reaches device memory. Every
+launch is counted by its route (:func:`scan_routes`). See the kernel
+source for the layout.
 
 ``fused_ivf_scan`` is the host side around the kernels: per task row, the
 segment and its valid-row count; after it, the lane → storage-row remap,
@@ -111,6 +114,8 @@ __all__ = [
     "ivf_cell_scan_sq8_plain",
     "fused_ivf_scan",
     "regroup_topk",
+    "scan_plan",
+    "scan_routes",
 ]
 
 LANES = 128
@@ -121,6 +126,14 @@ _D_ALIGN = 16
 #: task rows per step of the plain versions (bounds their [rows, maxq, seg]
 #: tiles)
 _PLAIN_ROWS = 64
+#: the scan's plan (``csrc/ivf_scan.cu::plan_of``): a stage's head (two
+#: boxes of 128 rows × 64 bytes of cells and the chunk's 128 norms, rounded
+#: up to the 512-byte swizzle atom), a block of query terms (64 bytes of K
+#: of 32 slots), the dynamic shared memory of a block when two share an SM
+#: and of one alone, the stages of the ring, the exact distance tile (floats)
+_STAGE_HEAD, _QBLOCK = 33 * 512, 2048
+_TWO_BLOCKS, _ONE_BLOCK, _MAX_STAGES = 115_200, 231_424, 4
+_TILE = 32 * (LANES + 4)
 #: storage modes with a ported fused kernel
 _FUSED_MODES = ("i8dec", "i8dec_residual", "f32", "bf16", "sq8")
 #: of them, the int8-decode modes: scaled query terms, ``q_split``
@@ -146,6 +159,71 @@ def fold_kb(k: int) -> int:
     k rounded up to a power of two in [8, 128] (the tree and LSH indexes'
     rule)."""
     return min(LANES, max(8, 1 << (max(k, 8) - 1).bit_length()))
+
+
+def scan_plan(
+    cell_bytes: int, query_terms: int, int8: bool, sel: int, dp: int, kb: int,
+) -> tuple[int, int, int, int]:
+    """The K1 scan's plan of one launch, as ``csrc/ivf_scan.cu::plan_of``
+    makes it (the C entry ``annsearch_ivf_scan_plan`` gives the same):
+    ``(wide, stages, bytes a stage, dynamic shared memory)``. The 32 slots'
+    query terms are held whole in shared memory with as many ring stages (4
+    down to 2) as keep two blocks an SM, else at one block an SM; past that
+    (``wide``) the producer warp brings them a stage at a time beside the
+    cells (:func:`_query_scratch`). ``cell_bytes`` 4 (f32), 2 (bf16) or 1 (int8); ``query_terms`` 1
+    to 3; ``int8``: sq8's int8 products; ``sel`` 0 (exact) or the fold's
+    depth; ``dp`` the cells' padded width."""
+    cols = 128 // cell_bytes
+    es = 1 if int8 else 2
+    qstage = cols // (32 if int8 else 16) // 2
+    dk = -(-dp // cols) * cols
+    surv = 0 if sel == 0 else 32 * sel * LANES * 8
+    exact = _TILE * 4 + 32 * kb * 8 + 8 * 32 * 8 if sel == 0 else 0
+    for wide in (0, 1):
+        q_bytes = 0 if wide else query_terms * (dk * es // 64) * _QBLOCK
+        stage = _STAGE_HEAD + (query_terms * qstage * _QBLOCK if wide else 0)
+        for cap in (_TWO_BLOCKS, _ONE_BLOCK):
+            for stages in range(_MAX_STAGES, 1, -1):
+                smem = 512 + max(q_bytes + stages * stage, surv) + exact
+                if smem <= cap:
+                    return wide, stages, stage, smem
+    raise ValueError(f"no K1 plan fits shared memory at dp={dp}, kb={kb}")
+
+
+def scan_routes() -> tuple[int, int]:
+    """K1 launches since the kernel library was loaded, by the plan's route:
+    ``(query terms held whole, a stage at a time)``. Every K1 launch runs
+    the ``wgmma`` scan; no instance keeps ``mma.sync``."""
+    import ctypes
+
+    from ._cuda import load_library
+
+    out = (ctypes.c_int * 7)()
+    load_library().annsearch_ivf_scan_last_launch(ctypes.addressof(out))
+    return out[5], out[6]
+
+
+def _query_scratch(cells, queries_x, terms, int8, residual, sel, kb):
+    """The wide rows' query terms, ``[nq+1, terms, dk]`` bf16 (int8 codes
+    for sq8), which the kernel's pre-pass forms once per launch where the
+    plan holds the query terms a stage at a time and the prologue is not
+    the residual's (whose terms the producer forms per segment); else
+    None."""
+    nbytes = cells.element_size()
+    if residual or not scan_plan(nbytes, terms, int8, sel, cells.shape[2], kb)[0]:
+        return None
+    cols = 128 // nbytes
+    dk = -(-cells.shape[2] // cols) * cols
+    return torch.empty(queries_x.shape[0] * terms * dk * (1 if int8 else 2), dtype=torch.uint8,
+                       device=cells.device)
+
+
+def _tail(stream, cells, queries_x, scratch):
+    """The K1 entries' trailing arguments: the stream, the blocks of
+    ``cells``, the rows of ``queries_x``, the query-term scratch and its
+    bytes."""
+    return (stream, cells.shape[0], queries_x.shape[0],
+            0 if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel())
 
 
 def repack_blocks(
@@ -242,14 +320,18 @@ def _fold_extract(
 def _exact_extract(
     dist: torch.Tensor, kb: int, cnt: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact selection from ``dist [rows, maxq, seg]``: the kb
-    lexicographically smallest (value, lane) pairs (a stable sort), and
-    (3e38, lane 0) in every slot at or past the row's ``cnt`` — the Pallas
-    extraction sets each emitted lane to 3e38, so once the valid lanes are
+    """Exact selection from ``dist [rows, maxq, seg]``, the kernels'
+    contract: the kb lexicographically smallest (value, lane) pairs over the
+    valid lanes (below the row's ``cnt``) whose value is at most FLT_MAX (a
+    stable sort: -0 ranks as +0 and keeps its sign; an inf or NaN distance
+    never enters), then (3e38, lane 0) in every slot past them — the Pallas
+    extraction sets each emitted lane to 3e38, so once the entrants are
     spent every round finds lane 0."""
-    vals, idx = torch.sort(dist, dim=-1, stable=True)
+    lane = torch.arange(dist.shape[-1], device=dist.device)
+    enters = (lane < cnt.long()[:, None, None]) & (dist <= torch.finfo(torch.float32).max)
+    vals, idx = torch.sort(torch.where(enters, dist, float("inf")), dim=-1, stable=True)
     vals, idx = vals[..., :kb], idx[..., :kb].int()
-    past = torch.arange(kb, device=dist.device) >= cnt.long()[:, None, None]
+    past = torch.arange(kb, device=dist.device) >= enters.sum(-1, keepdim=True)
     return torch.where(past, BIG, vals), torch.where(past, 0, idx)
 
 
@@ -416,10 +498,12 @@ def _sel(fold_depth: int) -> int:
 
 
 def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
-                  cells, sn, kb, flags=(), cell_dtype=torch.int8):
+                  cells, sn, kb, flags=(), cell_dtype=torch.int8, terms=1, residual=True):
     """Validate and launch one int8-decode variant (``cent_x`` None: the
-    entry takes no centroids); ``flags`` are its trailing int arguments,
-    ``cell_dtype`` the type its entry takes (bf16 for K1a-bf16)."""
+    entry takes no centroids); ``flags`` are its trailing int arguments (the
+    last is ``sel``), ``cell_dtype`` the type its entry takes (bf16 for
+    K1a-bf16), ``terms`` its query terms, ``residual`` whether its prologue
+    is the residual's."""
     from ._cuda import load_library
 
     specs = [("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
@@ -439,9 +523,10 @@ def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
     tensors = [lists, task_seg, cnt, queries_x]
     tensors += [scales] if cent_x is None else [cent_x, scales]
     tensors += [cells, sn, out_d, out_i]
+    scratch = _query_scratch(cells, queries_x, terms, False, residual, flags[-1], kb)
     err = getattr(load_library(), entry)(
         *(t.data_ptr() for t in tensors), R, maxq, seg, d, dp, kb, *flags,
-        torch.cuda.current_stream(lists.device).cuda_stream,
+        *_tail(torch.cuda.current_stream(lists.device).cuda_stream, cells, queries_x, scratch),
     )
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -493,7 +578,7 @@ def ivf_cell_scan_split(
         )
     out = _launch_i8dec("ivf_cell_scan_split", "annsearch_ivf_scan_k1b_l2", lists,
                         task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
-                        (_sel(fold_depth),))
+                        (_sel(fold_depth),), terms=2)
     ivf_cell_scan_split.launches += 1
     return out
 
@@ -516,7 +601,7 @@ def ivf_cell_scan_cos(
         )
     out = _launch_i8dec("ivf_cell_scan_cos", "annsearch_ivf_scan_k1b_cos", lists,
                         task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
-                        (int(q_split), _sel(fold_depth)))
+                        (int(q_split), _sel(fold_depth)), terms=1 + q_split, residual=False)
     ivf_cell_scan_cos.launches += 1
     return out
 
@@ -539,7 +624,8 @@ def ivf_cell_scan_i8dec(
         )
     out = _launch_i8dec("ivf_cell_scan_i8dec", "annsearch_ivf_scan_i8dec", lists,
                         task_seg, cnt, queries_x, None, scales, cells, sn, kb,
-                        (int(cosine), int(q_split), _sel(fold_depth)))
+                        (int(cosine), int(q_split), _sel(fold_depth)), terms=1 + q_split,
+                        residual=False)
     ivf_cell_scan_i8dec.launches += 1
     return out
 
@@ -565,14 +651,16 @@ def ivf_cell_scan_i8_exact(
         )
     head = ("ivf_cell_scan_i8_exact",)
     tail = (lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb)
+    terms = 1 + q_split
     if cent_x is None:
         out = _launch_i8dec(*head, "annsearch_ivf_scan_i8dec", *tail,
-                            (int(cosine), int(q_split), 0))
+                            (int(cosine), int(q_split), 0), terms=terms, residual=False)
     elif cosine:
-        out = _launch_i8dec(*head, "annsearch_ivf_scan_k1b_cos", *tail, (int(q_split), 0))
+        out = _launch_i8dec(*head, "annsearch_ivf_scan_k1b_cos", *tail, (int(q_split), 0),
+                            terms=terms, residual=False)
     else:
         entry = "annsearch_ivf_scan_k1b_l2" if q_split else "annsearch_ivf_scan_k1a"
-        out = _launch_i8dec(*head, entry, *tail, (0,))
+        out = _launch_i8dec(*head, entry, *tail, (0,), terms=terms)
     ivf_cell_scan_i8_exact.launches += 1
     return out
 
@@ -598,7 +686,7 @@ def ivf_cell_scan_bf16_residual(
     out = _launch_i8dec("ivf_cell_scan_bf16_residual", "annsearch_ivf_scan_k1a_bf16", lists,
                         task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
                         (0 if exact else _sel(fold_depth),),
-                        cell_dtype=torch.bfloat16)
+                        cell_dtype=torch.bfloat16, terms=2)
     ivf_cell_scan_bf16_residual.launches += 1
     return out
 
@@ -610,6 +698,9 @@ def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
                   cells, sn, kb, cosine, sel):
     from ._cuda import load_library
 
+    # query terms: sq8's int8 codes, K1d-bf16's one bf16 term, else three
+    int8 = cell_dtype == torch.int8
+    terms = 1 if int8 or (cell_dtype == torch.bfloat16 and sel) else 3
     _check_inputs(
         (("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
          ("cnt", cnt, torch.int32, 1), ("queries_x", queries_x, torch.float32, 2),
@@ -620,12 +711,13 @@ def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
     R, maxq = lists.shape
     _, seg, dp = cells.shape
     out_d, out_i = _outputs(lists, kb)
+    scratch = _query_scratch(cells, queries_x, terms, int8, False, sel, kb)
     err = getattr(load_library(), entry)(
         lists.data_ptr(), task_seg.data_ptr(), cnt.data_ptr(),
         queries_x.data_ptr(), cells.data_ptr(), sn.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), R, maxq, seg, queries_x.shape[1],
         dp, kb, int(cosine), sel,
-        torch.cuda.current_stream(lists.device).cuda_stream,
+        *_tail(torch.cuda.current_stream(lists.device).cuda_stream, cells, queries_x, scratch),
     )
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

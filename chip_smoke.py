@@ -4,9 +4,10 @@
 
 Phase 1 builds the CUDA kernels from ``annsearch_tpu_torch/csrc``, prints
 ptxas's registers and spills of each instance and counts the tensor-core
-and TMA instructions in each scan instance's SASS (HMMA, IMMA; HGMMA and
-UTMALDG in K2's ``wgmma`` scan; or their PTX names where the toolkit has no
-``cuobjdump``), and fails where one lacks its own. Phase 1b runs one
+and TMA instructions in each scan instance's SASS (HGMMA or IGMMA and
+UTMALDG in every K1 instance and K2's ``wgmma`` scan, HMMA in K2's streamed
+scan; or their PTX names where the toolkit has no ``cuobjdump``), and
+fails where one lacks its own or a K1 instance holds an ``mma.sync``. Phase 1b runs one
 ``mma.sync`` of the scans and one ``wgmma`` as K2 issues it on chosen and
 random operands and prints what the tensor cores keep of a sum (24 bits of
 its largest term, chopped), failing if fewer. The f32-grade kernels (K2 at
@@ -162,16 +163,20 @@ call that launches a kernel in turns with both libraries (parent, this,
 this, parent), printing both readings; the inputs and the checks are this
 checkout's.
 
-Each exact-selection row (K1c-f32, K1c-bf16, K1c-sq8, K1-exact-i8, the
-wide rows) also prints ptxas's registers and spills of the instance it
-launches and its blocks an SM (the occupancy calculator), the fold
+Each K1 row on a path also prints ptxas's registers and spills of the
+instance it launches, its blocks an SM (the occupancy calculator), its
+plan (ring stages, the query terms whole or a stage at a time) held to
+``ivf_scan_fused.scan_plan``'s prediction from its shapes and the route
+counters moved by its one launch (every K1 launch runs the ``wgmma``
+scan; the run's totals are printed at the end), and a yardstick of two
+library calls on its inputs (``torch.bmm`` of the same products in f32,
+then ``torch.topk(k=kb, largest=False)``: the ``library_ms`` of the exact
+rows, which compute the same function); the exact rows also the fold
 instance of the same products on the same task lists (f32, sq8, int8
-decode), and a yardstick of two library calls on its inputs
-(``torch.bmm`` of the same products in f32, then ``torch.topk(k=kb,
-largest=False)``: its ``library_ms``); under ``--parent`` every exact
-call of phases 2b, 2c, 2f, 2g, 4, 6 and 7 is held to the parent's kernel
-bit for bit. Phase 4 sweeps K1c-f32's kb on its captured call and splits
-one exact-tier batch's device time by kernel under ``torch.profiler``.
+decode). Under ``--parent`` every sq8 call of phases 2c and 6 (integer
+sums) is held to the parent's kernel bit for bit. Phase 4 sweeps
+K1c-f32's kb on its captured call and splits one exact-tier batch's device
+time by kernel under ``torch.profiler``.
 
 Each kernel is timed and checked on the task inputs its path gave it (its
 last launch there). The line before the last lists each kernel's launches
@@ -829,9 +834,9 @@ def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exa
     err = _agree(name, *wrapper(*a, **kw), *plain(*a, **kw), scale=_l2_scale(a, cosine),
                  exact=exact, truth=truth)
     selection = "exact" in wrapper.__name__
-    if selection:
+    if "sq8" in wrapper.__name__:   # integer sums: the parent's outputs bit for bit
         _parent_same(name, lambda: wrapper(*a, **kw))
-        _exact_launch(name, wrapper, a, kw)
+    _k1_launch(name, wrapper, a, kw)
     ms = _cuda_ms(lambda: wrapper(*a, **kw))
     plain_ms = _cuda_ms(lambda: plain(*a, **kw), reps=5)
     bound_ms, bound_by, macs = _bound(a, kb, cell_bytes, peak, seg_bytes)
@@ -848,7 +853,11 @@ def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exa
             print(f"    {name}: the fold instance of the same products on the same task lists "
                   f"(what the exact selection still costs): {_cuda_ms(twin, reps=5):.3f} ms",
                   flush=True)
-        library_ms = _exact_yardstick(name, (a, kw), kb)
+    # the two-call yardstick: the same function for the exact rows (their
+    # library_ms), the exact top-kb beside a fold row's approximate one
+    yard = _yardstick(name, (a, kw), kb)
+    if selection:
+        library_ms = yard
     return {"name": name, "route": "cuda",
             "source": "annsearch_tpu_torch/csrc/ivf_scan.cu",
             "replaces": "annsearch_tpu/ops/ivf_scan_pallas.py:130",
@@ -857,9 +866,9 @@ def _kernel_entry(name, wrapper, plain, call, cell_bytes, peak, seg_bytes=0, exa
 
 
 def _parent_same(name, fn) -> None:
-    """Under ``--parent``: ``fn()``, a call of an exact-selection wrapper,
-    gives the same outputs bit for bit through the parent's kernels and
-    through this tree's."""
+    """Under ``--parent``: ``fn()``, a call of an sq8 wrapper (integer sums,
+    exact on both scans), gives the same outputs bit for bit through the
+    parent's kernels and through this tree's."""
     if "lib" not in _PARENT:
         return
     from annsearch_tpu_torch.ops import _cuda
@@ -876,62 +885,71 @@ def _parent_same(name, fn) -> None:
     print(f"    {name}: against the parent's kernel "
           f"{'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
     if not same:
-        raise AssertionError(f"{name}: the exact selection differs from the parent's kernel")
+        raise AssertionError(f"{name}: the outputs differ from the parent's kernel")
 
 
-def _k1_instance(wrapper, a, kw, wide) -> str:
-    """The K1 template instance that an exact-selection wrapper's call
-    launches, as ptxas names it (``ivf_scan_kernelI<cell type><Li
-    prologue><Li epilogue><Li sel 0><Lb split><Lb wide>``)."""
+def _k1_kind(wrapper, a, kw) -> tuple:
+    """The K1 template instance of a wrapper's call: (cell type as the
+    compiler mangles it, prologue, epilogue, selection, split) and its plan's
+    inputs (cell bytes, query terms, int8 products)."""
+    name = wrapper.__name__
     cosine = bool(kw.get("cosine", False))
-    if wrapper.__name__ == "ivf_cell_scan_i8_exact":
-        cell, split = "a", int(bool(kw.get("q_split", False)))
-        pro, epi = (3, 3 if cosine else 0) if a[4] is None else ((4, 3) if cosine else (0, 0))
+    split = int(bool(kw.get("q_split", False)))
+    sel = 0 if "exact" in name or kw.get("exact") else int(kw.get("fold_depth", 2))
+    if name.startswith("ivf_scan_"):   # the dense wrappers
+        mode = name.split("_")[2]
+        cell, nbytes = {"f32": ("f", 4), "bf16": ("13__nv_bfloat16", 2), "sq8": ("a", 1)}[mode]
+        pro = 2 if mode == "bf16" and sel else 1
+        epi = ((2 if mode == "sq8" else 1) if cosine else 0)
+        terms = 1 if mode == "sq8" or pro == 2 else 3
+        return (cell, pro, epi, sel, 0), (nbytes, terms, mode == "sq8")
+    if name == "ivf_cell_scan_bf16_residual":
+        return ("13__nv_bfloat16", 0, 0, sel, 1), (2, 2, False)
+    split = 1 if name == "ivf_cell_scan_split" else split
+    if name == "ivf_cell_scan_i8dec" or (name == "ivf_cell_scan_i8_exact" and a[4] is None):
+        pro, epi = 3, 3 if cosine else 0
+    elif name == "ivf_cell_scan_cos" or (name == "ivf_cell_scan_i8_exact" and cosine):
+        pro, epi = 4, 3
     else:
-        mode = wrapper.__name__.split("_")[2]
-        cell = {"f32": "f", "bf16": "13__nv_bfloat16", "sq8": "a"}[mode]
-        pro, epi, split = 1, ((2 if mode == "sq8" else 1) if cosine else 0), 0
-    return f"ivf_scan_kernelI{cell}Li{pro}ELi{epi}ELi0ELb{split}ELb{int(wide)}EE"
+        pro, epi = 0, 0
+    return ("a", pro, epi, sel, split), (1, 1 + split, False)
 
 
-def _blocks_per_sm(regs, smem) -> int:
-    """Blocks of 256 threads an SM holds by the H100's rules: registers
-    allocated 256 to a warp at a time out of 65,536, shared memory (the
-    dynamic bytes, 256 static, 1 KB reserved a block) out of 228 KB, at
-    most 64 warps."""
-    by_regs = 65536 // (8 * -(-regs * 32 // 256) * 256)
-    return min(by_regs, 228 * 1024 // (smem + 256 + 1024), 8)
-
-
-def _exact_launch(name, wrapper, a, kw) -> None:
-    """ptxas's registers and spills of the exact instance this call
-    launches and its blocks an SM (the occupancy calculator, at the
-    launch's shared memory), and under ``--parent`` the same for the
-    parent's instance (its registers; its shared memory was the stage and
-    32 KB of lists)."""
+def _k1_launch(name, wrapper, a, kw) -> None:
+    """One more call of a K1 wrapper on its row's inputs: the plan its
+    launch reports (blocks an SM by the occupancy calculator, shared memory,
+    stages, the query terms whole or a stage at a time) held to
+    ``scan_plan``'s prediction from the shapes, the route counters moved by
+    this one launch on that route, and ptxas's registers and spills of the
+    instance (and of the parent's under ``--parent``)."""
     import ctypes
-    import re
 
     from annsearch_tpu_torch.ops import _cuda
+    from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
 
+    (cell, pro, epi, sel, split), (nbytes, terms, int8) = _k1_kind(wrapper, a, kw)
+    cells = next(t for t in a[4:] if torch.is_tensor(t) and t.ndim == 3)
+    kb = next(v for v in a if isinstance(v, int))
+    plan = tsf.scan_plan(nbytes, terms, int8, sel, cells.shape[2], kb)
+    before = tsf.scan_routes()
     wrapper(*a, **kw)
-    last = (ctypes.c_int * 4)()
+    after = tsf.scan_routes()
+    last = (ctypes.c_int * 7)()
     _cuda.load_library().annsearch_ivf_scan_last_launch(ctypes.addressof(last))
-    blocks, smem, wide, stage = list(last)
-    inst = _k1_instance(wrapper, a, kw, wide)
+    blocks, smem, wide, stage, stages = list(last)[:5]
+    inst = f"ivf_scan_kernelI{cell}Li{pro}ELi{epi}ELi{sel}ELb{split}ELb{wide}EE"
     used = dict(_cuda.kernel_resources()).get(inst, "not in the build log")
-    regs = re.search(r"(\d+) registers", used)
-    rule = f", {_blocks_per_sm(int(regs.group(1)), smem)} by the rules" if regs else ""
-    line = (f"    {name}: {inst}: ptxas {used}; {blocks} blocks an SM at {smem:,} bytes of "
-            f"shared memory{rule}{' (wide rows)' if wide else ''}")
+    moved = (after[0] - before[0], after[1] - before[1])
+    print(f"    {name}: {inst}: ptxas {used}; {blocks} blocks an SM at {smem:,} bytes of "
+          f"shared memory, {stages} stages of {stage:,} bytes, the query terms "
+          f"{'a stage at a time' if wide else 'whole'} (wgmma + TMA; K1 launches so far "
+          f"{after[0]} whole, {after[1]} a stage at a time, none on mma.sync)", flush=True)
     theirs = _PARENT.get("ptxas", {}).get(inst)
     if theirs:
-        pregs = re.search(r"(\d+) registers", theirs)
-        psmem = stage + 32 * 1024
-        line += (f"; the parent's: ptxas {theirs}; "
-                 f"{_blocks_per_sm(int(pregs.group(1)), psmem) if pregs else '?'} blocks an SM "
-                 f"by the rules at {psmem:,} bytes")
-    print(line, flush=True)
+        print(f"    {name}: the parent's {inst}: ptxas {theirs}", flush=True)
+    if (wide, stages, stage, smem) != plan or moved != ((0, 1) if wide else (1, 0)):
+        raise AssertionError(f"{name}: the launch's plan {(wide, stages, stage, smem)} and "
+                             f"route {moved} are not scan_plan's {plan}")
 
 
 def _fold_twin(wrapper, a, kw):
@@ -954,8 +972,8 @@ def _fold_twin(wrapper, a, kw):
     return lambda: (tsf.ivf_cell_scan_split if split else tsf.ivf_cell_scan)(*a)
 
 
-def _exact_yardstick(name, call, kb) -> float:
-    """The two-call yardstick of an exact row on its own inputs:
+def _yardstick(name, call, kb) -> float:
+    """The two-call yardstick of a K1 row on its own inputs:
     ``torch.bmm`` of the same products (the plain version's: the query, or
     the int8-decode prologue's bf16 terms, against every lane of each task
     row's segment, f32 with TF32 off), then ``torch.topk(k=kb,
@@ -970,8 +988,9 @@ def _exact_yardstick(name, call, kb) -> float:
     dp = cells.shape[2]
     if cells is a[4]:
         q = torch.nn.functional.pad(queries_x[lists.long()], (0, dp - queries_x.shape[1]))
-    else:
-        q = tsf._query_terms(lists, task_seg, queries_x, a[4], a[5], dp,
+    else:   # the int8-decode prologue's terms (K1d-i8dec's call has no centroids)
+        cent, sc = (a[4], a[5]) if a[4] is None or a[4].ndim == 2 else (None, a[4])
+        q = tsf._query_terms(lists, task_seg, queries_x, cent, sc, dp,
                              bool(kw.get("cosine", False)), bool(kw.get("q_split", False)))[1]
     try:
         x = cells[task_seg.long()].float().transpose(1, 2)
@@ -1081,7 +1100,7 @@ def phase_dense_kernels(dev, modes, dims, seed) -> None:
                         k_out = wrapper(*t, kb, cosine=cosine)
                         p_out = plain(*t, kb, cosine, exact=exact)
                         _agree(name, *k_out, *p_out, exact=mode == "sq8")
-                        if exact:
+                        if mode == "sq8":
                             _parent_same(name, lambda: wrapper(*t, kb, cosine=cosine))
                         if mode == "f32" or (mode == "bf16" and exact):
                             _grade(name, k_out, p_out,
@@ -2389,8 +2408,6 @@ def phase_new_variants(dev) -> None:
         _agree(f"K1-exact-i8 {name} nq_t {1 + split} {shapes}",
                *tsf.ivf_cell_scan_i8_exact(*a, **kw), *plain(*a, exact=True, **kw),
                scale=_l2_scale(a, cosine))
-        _parent_same(f"K1-exact-i8 {name} nq_t {1 + split}",
-                     lambda: tsf.ivf_cell_scan_i8_exact(*a, **kw))
         ms = _cuda_ms(lambda: tsf.ivf_cell_scan_i8_exact(*a, **kw), reps=3)
         pms = _cuda_ms(lambda: plain(*a, exact=True, **kw), reps=3)
         bound = _bound(a, kb, 1, BF16_FLOP_S / (1 + split), 0)[0]
@@ -2434,8 +2451,6 @@ def phase_new_variants(dev) -> None:
                 p_out = tsf.ivf_cell_scan_f32_plain(*ti, kb, cosine, exact=exact)
                 _agree(name, *k_out, *p_out, scale=_l2_scale((*ti, kb), cosine))
                 _grade(name, k_out, p_out, lambda tw: _k1_truth(ti, not cosine, two_way=tw))
-                if exact:
-                    _parent_same(name, lambda: wrapper(*ti, kb, cosine=cosine))
             ms = _cuda_ms(lambda: wrapper(*t, kb), reps=3)
             pms = _cuda_ms(lambda: tsf.ivf_cell_scan_f32_plain(*t, kb, False, exact=exact),
                            reps=3)
@@ -3862,13 +3877,13 @@ def phase_sharded_flat_ivf(dev, x, q, ti) -> None:
 
 
 def _check_mma_counts(found) -> None:
-    """Phase 1: every scan instance holds tensor-core instructions: K2's scan
-    (``flat_scan_kernel``) wgmma (HGMMA) and TMA loads (UTMALDG); K2's
-    streamed scan (``flat_scan_streamed_kernel``) and each K1
-    ``ivf_scan_kernel`` HMMA (bf16), or IMMA for the sq8 instances (int8
-    cells under the plain prologue, ``ivf_scan_kernelIaLi1E...``); counted
-    in the SASS, or in the PTX (``mma.sync``, ``wgmma.mma_async``,
-    ``cp.async.bulk.tensor``) where the toolkit has no ``cuobjdump``."""
+    """Phase 1: every scan instance holds its tensor-core instructions: each
+    K1 ``ivf_scan_kernel`` and K2's scan (``flat_scan_kernel``) wgmma
+    (HGMMA, IGMMA for the sq8 instances) and TMA loads (UTMALDG), and no K1
+    instance an ``mma.sync`` (HMMA, IMMA); K2's streamed scan
+    (``flat_scan_streamed_kernel``) HMMA; counted in the SASS, or in the PTX
+    (``mma.sync``, ``wgmma.mma_async``, ``cp.async.bulk.tensor``) where the
+    toolkit has no ``cuobjdump``."""
     kind, counts = found
     scans = {k: v for k, v in counts.items() if k.startswith(("flat_scan_", "ivf_scan_kernel"))}
     for k, (bf16, s8, gmma, tma) in sorted(scans.items()):
@@ -3877,17 +3892,19 @@ def _check_mma_counts(found) -> None:
 
     def missing(k, v):
         bf16, s8, gmma, tma = v
+        if k.startswith("ivf_scan_kernel"):
+            return gmma == 0 or tma == 0 or bf16 + s8 > 0
         if k.startswith("flat_scan_kernel"):
             return gmma == 0 or tma == 0
-        return (s8 if k.startswith("ivf_scan_kernelIaLi1E") else bf16) == 0
+        return bf16 == 0
 
     bad = [k for k, v in scans.items() if missing(k, v)]
-    on_wgmma = sum(k.startswith("flat_scan_kernel") for k in scans)
+    on_wgmma = sum(k.startswith(("flat_scan_kernel", "ivf_scan_kernel")) for k in scans)
     print(f"  {len(scans)} scan instances ({on_wgmma} on wgmma and TMA), {len(bad)} without "
           "their tensor-core (and TMA) instructions", flush=True)
-    # 90 K1, 12 K2 wgmma (depth x terms x query fragments kept or reloaded)
-    # and 6 K2 streamed instances
-    if len(scans) < 108 or on_wgmma < 12 or bad:
+    # 90 K1 and 12 K2 instances on wgmma (K2: depth x terms x query
+    # fragments kept or reloaded), 6 K2 streamed instances on mma.sync
+    if len(scans) < 108 or on_wgmma < 102 or bad:
         raise AssertionError(f"scan instances without their tensor-core (and TMA) "
                              f"instructions: {bad} ({len(scans)} instances found, "
                              f"{on_wgmma} on wgmma)")
@@ -4042,6 +4059,12 @@ def main(argv=None) -> int:
 
     phase("k-means cluster sums")
     phase_kmeans_sums(dev)
+    from annsearch_tpu_torch.ops.ivf_scan_fused import scan_routes
+
+    whole, staged = scan_routes()
+    print(f"K1 launches of this run on wgmma: {whole} with the query terms whole, {staged} "
+          "a stage at a time; on mma.sync none (no K1 instance holds one: phase 1)",
+          flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"total {time.time() - t_start:.1f} s", flush=True)
 

@@ -26,7 +26,7 @@ from annsearch_tpu.utils.dist import Dist as JDist
 from annsearch_tpu.utils.dist import normalise as j_normalise
 from annsearch_tpu_torch.ops.ivf_scan import ivf_cluster_scan as t_scan
 from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
-from annsearch_tpu_torch.utils.dist import Dist
+from annsearch_tpu_torch.utils.dist import Dist, _sqrt_f32
 
 torch.set_num_threads(2)
 
@@ -218,3 +218,38 @@ def test_cluster_scan_k_cell_matches_jax(carried):
     full, _ = t_scan(_t(q_enc), *(_t(a) for a in lists), *(_t(a) for a in args), 12,
                      Dist.EUCLIDEAN, j.seg_size, "f32")
     assert (full.numpy() <= gd.numpy()).all() and (full.numpy() != gd.numpy()).any()
+
+
+def test_cluster_scan_roots_are_ieee():
+    """F16: the cluster scan takes its square roots as the f64 root rounded
+    once (``utils.dist._sqrt_f32``: IEEE, as the JAX package's and the
+    card's), where torch's CPU ``sqrt`` of f32 misrounds about 0.6% of its
+    inputs by an ulp. SQ8 codes under cosine have integer norms and dots,
+    exact in f32; every row's squared norm here is an integer whose torch
+    ``sqrt`` is off, and the distances equal the JAX scan's bit for bit."""
+    rng = np.random.default_rng(5)
+    ints = torch.arange(1000, 60000, dtype=torch.float32)
+    off = ints[torch.sqrt(ints) != _sqrt_f32(ints)].numpy()
+    n, cap, d, nq = 300, 128, 64, 12
+
+    def row_of(norm):   # int8 codes with this squared norm, greedily
+        x, left = np.zeros(d, np.int64), int(norm)
+        for i in range(d):
+            v = min(127, int(np.sqrt(left)))
+            x[i], left = v * rng.choice((-1, 1)), left - v * v
+        assert left == 0
+        return x
+
+    rows = np.stack([row_of(rng.choice(off)) for _ in range(n + cap)]).astype(np.int8)
+    sn = (rows.astype(np.int64) ** 2).sum(1).astype(np.float32)
+    offs, counts = np.array([0, 100, 200], np.int32), np.array([100, 100, 100], np.int32)
+    cents = np.zeros((3, d), np.float32)
+    lists = j_lists(np.repeat(np.arange(nq), 2), rng.integers(0, 3, 2 * nq), 3, nq)
+    q = rng.integers(-127, 128, (nq, d)).astype(np.float32)
+    args = (rows, sn, offs, counts, cents)
+    wd, wi = j_scan(jnp.asarray(q), *(jnp.asarray(a) for a in lists),
+                    *(jnp.asarray(a) for a in args), 60, JDist.COSINE, cap, "sq8")
+    gd, gi = t_scan(torch.tensor(q), *(_t(a) for a in lists), *(torch.tensor(a) for a in args),
+                    60, Dist.COSINE, cap, "sq8")
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    assert (gi.numpy() == np.asarray(wi)).mean() >= 0.98   # ties may order apart

@@ -4,7 +4,7 @@ instances, K1-exact-i8, K1a-bf16 and K2) against their plain PyTorch
 versions, on the card, and the IVF, graph, HNSW, Vamana, tree, LSH, kMkNN,
 flat quantised and binary paths on the card against the CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
 cores (int8 products in int32 for sq8); the cases cover each variant's term
-count, and rows whose query terms are held whole or formed per column block.
+count, and rows whose query terms are held whole or come a stage at a time.
 
 Marked ``cuda``: each test skips where no CUDA device is present. On a
 machine with a card and without JAX, run them with
@@ -1389,3 +1389,123 @@ def test_streaming_on_the_card_equals_the_cpu(dev, metric):
     assert gi.device.type == "cuda"
     assert (gi.cpu() == ci).float().mean() >= 0.999
     assert torch.all((gd.cpu() - cd).abs() <= 1e-4 * (1.0 + cd.abs()))
+
+
+# -- K1's scan on wgmma: every instance at the edges of its plan ---------------------
+
+#: (task shape, kb): seg 128 to 2,048; d 32 to 4,224 (whole query terms, then a
+#: stage at a time); maxq not a multiple of 32; rows of cnt 0 and partial last
+#: chunks (``_tasks``); d 40 (dp 48: not a multiple of sq8's 32-column k step)
+EDGE_SHAPES = [
+    (dict(R=40, maxq=36, seg=128, d=32), 8),
+    (dict(R=24, maxq=70, seg=256, d=64), 128),
+    (dict(R=24, maxq=33, seg=1024, d=128), 16),
+    (dict(R=12, maxq=40, seg=2048, d=256), 24),
+    (dict(R=16, maxq=64, seg=1024, d=40), 64),
+    (dict(R=8, maxq=36, seg=256, d=4224), 16),
+]
+EDGE_IDS = ["seg128-d32", "seg256-d64-kb128", "seg1024-d128", "seg2048-d256", "d40",
+            "d4224"]
+
+
+def _edge_call(kind, gen, dev, shape, kb):
+    """(kernel call, plain call) of one K1 instance kind on ``_tasks``-style
+    inputs of ``shape``."""
+    if kind.startswith(("f32", "bf16", "sq8")):
+        mode, sel, epi = kind.split("-")
+        args = (_f32_tasks(gen, dev, **shape) if mode == "f32"
+                else _quant_tasks(gen, dev, mode, **shape))
+        wrapper = getattr(tsf, f"ivf_cell_scan_{mode}_{'exact' if sel == 'exact' else 'fold'}")
+        plain = getattr(tsf, f"ivf_cell_scan_{mode}_plain")
+        cos = epi == "cos"
+        depth = 1 if sel == "fold1" else 2
+        if sel == "exact":
+            return (lambda: wrapper(*args, kb, cosine=cos),
+                    lambda: plain(*args, kb, cos, exact=True))
+        return (lambda: wrapper(*args, kb, cosine=cos, fold_depth=depth),
+                lambda: plain(*args, kb, cos, exact=False, fold_depth=depth))
+    if kind.startswith("k1a_bf16"):
+        args = list(_rabitq_tasks(gen, dev, **shape))
+        pad = -args[6].shape[-1] % 16   # repack_blocks pads rows to 16 columns
+        args[6] = torch.nn.functional.pad(args[6], (0, pad)).contiguous()
+        exact = kind.endswith("exact")
+        return (lambda: tsf.ivf_cell_scan_bf16_residual(*args, kb, exact=exact),
+                lambda: tsf.ivf_cell_scan_plain(*args, kb, q_split=True, exact=exact))
+    cosine = kind in ("cos", "i8dec_cos", "exact_i8_cos")
+    cents = not kind.startswith("i8dec")
+    args = _i8_args(gen, dev, cosine, cents, **shape)
+    plain_args = list(args)
+    if not cents:
+        plain_args[4] = None
+        del args[4]
+    split = kind in ("split", "cos", "i8dec_cos", "exact_i8_cos")
+    call = {
+        "k1a": lambda: tsf.ivf_cell_scan(*args, kb),
+        "split": lambda: tsf.ivf_cell_scan_split(*args, kb),
+        "cos": lambda: tsf.ivf_cell_scan_cos(*args, kb, q_split=True),
+        "i8dec_l2": lambda: tsf.ivf_cell_scan_i8dec(*args, kb),
+        "i8dec_cos": lambda: tsf.ivf_cell_scan_i8dec(*args, kb, cosine=True, q_split=True),
+        "exact_i8": lambda: tsf.ivf_cell_scan_i8_exact(*args, kb),
+        "exact_i8_cos": lambda: tsf.ivf_cell_scan_i8_exact(*args, kb, cosine=True,
+                                                           q_split=True),
+    }[kind]
+    exact = kind.startswith("exact")
+    return call, lambda: tsf.ivf_cell_scan_plain(*plain_args, kb, cosine=cosine,
+                                                  q_split=split, exact=exact)
+
+
+EDGE_KINDS = ["f32-exact-l2", "f32-fold-cos", "f32-fold1-l2", "bf16-exact-l2", "bf16-fold-cos",
+              "sq8-exact-cos", "sq8-fold-l2", "sq8-fold1-cos", "k1a", "split", "cos",
+              "i8dec_l2", "i8dec_cos", "exact_i8", "exact_i8_cos", "k1a_bf16_fold",
+              "k1a_bf16_exact"]
+
+
+@pytest.mark.parametrize("shape,kb", EDGE_SHAPES, ids=EDGE_IDS)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_wgmma_scan_edges_match_plain(dev, kind, shape, kb):
+    """Every kind of K1 instance on the wgmma scan against its plain
+    version at the edges of its plan: one chunk to sixteen, whole query
+    terms and terms a stage at a time, the last block's slots past maxq,
+    rows of no valid row and partial last chunks, kb 8 to 128; sq8 bit for
+    bit (integer sums), the rest at 1e-4·(1 + |d|) and 99.9% of ids."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    call, plain = _edge_call(kind, gen, dev, shape, kb)
+    kd, ki = call()
+    pd, pi = plain()
+    torch.cuda.synchronize()
+    if kind.startswith("sq8"):
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    else:
+        _assert_close(kd, ki, pd, pi)
+    assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+def test_k1_plans_agree_with_the_library(dev):
+    """``ivf_scan_fused.scan_plan`` (the query terms whole or a stage at a
+    time, stages, bytes a stage, shared memory) is the C entry's for every
+    cell kind, term count, selection, kb and row width, so the route counts
+    that ``chip_smoke.py`` predicts from shapes are the library's; and every
+    launch moves ``scan_routes`` by one on its plan's route."""
+    import ctypes
+
+    from annsearch_tpu_torch.ops import _cuda
+
+    lib = _cuda.load_library()
+    out = (ctypes.c_int * 4)()
+    for cell_bytes, terms, int8 in ((4, 3, 0), (2, 3, 0), (2, 1, 0), (2, 2, 0), (1, 1, 1),
+                                    (1, 1, 0), (1, 2, 0)):
+        for sel in (0, 1, 2):
+            for kb in (8, 24, 128):
+                for dp in (16, 48, 64, 128, 256, 400, 1024, 2048, 4224, 8192):
+                    assert lib.annsearch_ivf_scan_plan(cell_bytes, terms, int8, sel, dp, kb,
+                                                       ctypes.addressof(out)) == 0
+                    assert tuple(out) == tsf.scan_plan(cell_bytes, terms, bool(int8), sel, dp,
+                                                       kb), (cell_bytes, terms, sel, kb, dp)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    for d, wide in ((64, 0), (4224, 1)):
+        args = _f32_tasks(gen, dev, R=4, maxq=8, seg=256, d=d)
+        before = tsf.scan_routes()
+        tsf.ivf_cell_scan_f32_exact(*args, 16)
+        after = tsf.scan_routes()
+        assert (after[0] - before[0], after[1] - before[1]) == ((0, 1) if wide else (1, 0))
+        assert tsf.scan_plan(4, 3, False, 0, args[4].shape[2], 16)[0] == wide

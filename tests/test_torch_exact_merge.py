@@ -258,11 +258,8 @@ def test_merge_is_the_rounds_and_the_plain_version(kb, chunks, case):
         got = kernel(vals, n_valid, kb)
         _same(got, kernel(vals, n_valid, kb, stale=True))
         _same(got, rounds(vals, n_valid, kb))
-        if case != "fltmax" or n_valid == seg:
-            # values above 3e38 rank after the masked lanes in the plain
-            # version (F15); with no masked lane they agree
-            for s in range(vals.shape[0]):
-                _same((got[0][s], got[1][s]), plain(vals[s], n_valid, kb))
+        for s in range(vals.shape[0]):
+            _same((got[0][s], got[1][s]), plain(vals[s], n_valid, kb))
 
 
 @pytest.mark.parametrize("kb", [8, 24, 128])
@@ -312,30 +309,30 @@ def test_inf_and_nan_against_the_rounds(kb, n_valid):
     got = kernel(vals, n_valid, kb)
     _same(got, rounds(vals, n_valid, kb))
     _same(got, kernel(vals, n_valid, kb, stale=True))
+    for s in range(vals.shape[0]):
+        _same((got[0][s], got[1][s]), plain(vals[s], n_valid, kb))
     assert (got[0][3] == BIG).all() and (got[1][3] == 0).all()
     assert not np.isnan(got[0]).any() and not (got[0] == np.inf).any()
 
 
 def test_plain_version_differs_past_flt_max_and_3e38():
-    """F15, the plain side: ``_exact_extract`` sorts every valid lane, so a
-    valid inf (or NaN) distance comes out with its lane where the kernel,
-    as the rounds before it, writes (3e38, 0); and a valid distance above
-    3e38 ranks after the lanes past ``cnt``, which the plain version masks
-    to 3e38."""
+    """F15, repaired: ``_exact_extract`` once sorted every valid lane, so a
+    valid inf (or NaN) distance came out with its lane where the kernel, as
+    the rounds before it, writes (3e38, 0), and a valid distance above 3e38
+    ranked after the lanes past ``cnt``, which the plain version masks to
+    3e38. It now follows the kernel's contract (the kb smallest over the
+    valid lanes at most FLT_MAX, then (3e38, 0)) and agrees with it on
+    both."""
     vals = np.array([[1.0, np.inf, 2.0, np.nan] + [7.0] * (LANES - 4)], dtype=np.float32)
     kd, ki = kernel(vals, LANES, LANES)
-    pd, pi = plain(vals[0], LANES, LANES)
-    _same((kd[0, :126], ki[0, :126]), (pd[:126], pi[:126]))
+    _same((kd[0], ki[0]), plain(vals[0], LANES, LANES))
     np.testing.assert_array_equal(kd[0, 126:], [BIG, BIG])
     np.testing.assert_array_equal(ki[0, 126:], [0, 0])
-    assert pd[126] == np.inf and pi[126] == 1 and np.isnan(pd[127]) and pi[127] == 3
     vals = np.array([[1.0, FMAX] + [7.0] * (LANES - 2)], dtype=np.float32)
     kd, ki = kernel(vals, 2, 3)
-    pd, pi = plain(vals[0], 2, 3)
+    _same((kd[0], ki[0]), plain(vals[0], 2, 3))
     np.testing.assert_array_equal(kd[0], [1.0, FMAX, BIG])
     np.testing.assert_array_equal(ki[0], [0, 1, 0])
-    np.testing.assert_array_equal(pd, [1.0, BIG, BIG])   # a masked lane's 3e38 ...
-    np.testing.assert_array_equal(pi, [0, 2, 0])          # ... before FLT_MAX
 
 
 def test_keys_order_as_lex_less_and_come_back():
