@@ -72,9 +72,11 @@
 // longer databases in runs of tiles and merges each run's bins into the
 // earlier runs' (flat_merge_kernel). Rows so wide that the query terms and
 // two stages of two tiles do not fit shared memory (d > 128 at three terms,
-// d > 192 at two, d > 416 at one) take flat_scan_streamed_kernel (mma.sync,
-// the query streamed beside x through cp.async), chosen by shape alone
-// (annsearch_flat_scan_plan).
+// d > 192 at two, d > 416 at one) take flat_scan_wide_kernel, the same scan
+// K outer: each stage brings a 32-column chunk of the queries' terms beside
+// the same chunk of four tiles, whose sums stay in registers across the
+// chunks (m64n128k16 products); chosen by shape alone
+// (annsearch_flat_scan_plan). No K2 scan holds an mma.sync.
 //
 // Extraction (flat_extract_kernel), one block per query: the kb rounds
 // computed at once. Each warp sorts its 512 keys (value, col) (bitonic.cuh)
@@ -125,12 +127,29 @@ constexpr int kMaxStages = 8;
 // warpgroups ([2][nch][T][64][64 B]), and `stages` stages of `tps` tiles
 // each, tps even ([nch][T][tps][32][64 B]: a term's tiles adjacent, so that
 // one product reads two tiles' rows; then [tps][32] norms), each stage a
-// multiple of 1024 bytes. tps 0: the query terms and two stages of two
-// tiles do not fit (the streamed kernel). ops/flat_scan_fused.py::scan_plan
-// mirrors this.
+// multiple of 1024 bytes. Where the query terms and two stages of two tiles
+// do not fit, the wide scan's plan (flat_scan_wide_kernel: `wide` 1, tps
+// the tiles of a unit). ops/flat_scan_fused.py::scan_plan mirrors this.
 struct Plan {
-  int tps, stages, stage_bytes, smem;
+  int wide, tps, stages, stage_bytes, smem;
 };
+
+constexpr int kUnit = 4;                   // tiles of a wide unit: 128 rows, one product
+constexpr int kXUnit = kUnit * kBox;       // one term of a unit's chunk: 128 rows x 64 B
+// the wide scan's bins (m1, m2 and the tiles of each consumer thread's 16
+// (query, class) pairs) live in shared memory: in registers, beside the
+// unit's sums and a part, they spilled
+constexpr int kWideBins = 3 * 16 * kConsumerWarps * 32 * 4;
+
+// A wide stage: [T][kUnit][32][64 B] of x, [2][T][64][64 B] of the queries,
+// then [kUnit][32] norms, rounded up to 1024 bytes; up to 8 stages after
+// 1024 bytes of alignment slack, 1024 of barriers and the bins.
+Plan wide_plan(int terms) {
+  const int stage = (terms * (kXUnit + 2 * kQBox) + kUnit * kCS * 4 + 1023) / 1024 * 1024;
+  int stages = (kSmemMax - 2048 - kWideBins) / stage;
+  if (stages > kMaxStages) stages = kMaxStages;
+  return Plan{1, kUnit, stages, stage, 2048 + kWideBins + stages * stage};
+}
 
 Plan scan_plan(int dk, int terms) {
   const int nch = (dk + kChunk - 1) / kChunk;
@@ -140,9 +159,9 @@ Plan scan_plan(int dk, int terms) {
   int tps = kStageTarget / tile / 2 * 2;
   if (tps < 2) tps = 2;
   const int stages = (kSmemMax - fixed) / stage_of(tps * tile);
-  if (stages < 2) return Plan{0, 0, 0, 0};
+  if (stages < 2) return wide_plan(terms);
   const int s = stages > kMaxStages ? kMaxStages : stages;
-  return Plan{tps, s, stage_of(tps * tile), fixed + s * stage_of(tps * tile)};
+  return Plan{0, tps, s, stage_of(tps * tile), fixed + s * stage_of(tps * tile)};
 }
 
 template <int kDepth, int kTerms, bool kARegs>
@@ -378,174 +397,240 @@ flat_scan_kernel(const __grid_constant__ CUtensorMap qmap,   // [T][nq][dk] bf16
   }
 }
 
-// -- the streamed variant: rows too wide for the query terms to stay --------------
+// -- wide rows: the query terms a stage at a time ----------------------------------
 //
-// mma.sync: eight warps of 16 queries x the 32 classes (four m16n8 tiles),
-// the bins in registers as above; steps of 32 rows x 32 columns of every x
-// term and the 128 queries' 32 columns of every q term through a ring of
-// three stages filled by cp.async (rows of 80 bytes: an odd number of
-// 16-byte units, so ldmatrix's eight rows fall in distinct banks).
-
-constexpr int kStreamThreads = 256;
-constexpr int kStreamStages = 3;
-constexpr int kRow = kChunk * 2 + 16;   // bytes of a staged row
-
-template <int kTerms>
-__host__ __device__ constexpr int streamed_stage_bytes() {
-  return kTerms * kCS * kRow + kCS * 4 + kTerms * kQT * kRow;
-}
+// Rows so wide that the query terms and two stages do not fit shared memory
+// take this scan, K outer: a stage of the ring holds one 32-column chunk of
+// every term of kUnit tiles of x (128 rows: the 32 of tile j, then those of
+// tiles j + 1 .. j + 3, a term's rows adjacent), the same chunk of every
+// term of the block's 128 queries ([2][T][64][64 B], one TMA box a
+// warpgroup), and, with a unit's last chunk, the unit's 4 x 32 norms. So the
+// query crosses from L2 once per 128 rows, as many bytes as of x (once per
+// tile of 32 it would be four times as many), and a stage at three terms is
+// 6.3 Mflop of products for 49 KB.
+// Each k16 step is one chain of m64n128k16 products (A the query fragments
+// by ldmatrix, B the stage) summed into a fresh `part`, the smallest cross
+// terms first, and joined to the unit's sums by an IEEE add, as the narrow
+// scan joins its chunks' parts: the same adds in the same order, so the
+// same scores. The next step's chain is issued before this step's bins
+// update (after a unit's last chunk: per (query, class) pair its bins read
+// from shared memory, its 4 tiles in order, selects, no branch, written
+// back), which then overlaps the tensor cores. The unit's sums and a part
+// take 128 of the consumers' 232 registers; the bins stay in shared memory
+// ([3][16][256], a thread's own entries, no barrier), since in registers
+// beside them they spilled and the spills set the pace. The grid, the runs
+// of tiles and the output are the narrow scan's.
 
 template <int kDepth, int kTerms>
-__global__ void __launch_bounds__(kStreamThreads, 2)
-flat_scan_streamed_kernel(const uint16_t* __restrict__ q,   // [T][.., dk] bf16, this slab's rows
-                          size_t q_ts,                      // elements between q terms
-                          const uint16_t* __restrict__ x,   // [T][n, dk] bf16
-                          const float* __restrict__ sn,     // [NB * B], 3e38 past n_valid
-                          float* __restrict__ bins_v, int* __restrict__ bins_i,
-                          int nq, int n, int dk, int B, int tile0, int ntiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStage = streamed_stage_bytes<kTerms>();
-  constexpr int kXTerm = kCS * kRow, kQTerm = kQT * kRow;
-  constexpr int kQOff = kTerms * kXTerm + kCS * 4;   // the query within a stage
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+__global__ void __launch_bounds__(kScanThreads, 1)
+flat_scan_wide_kernel(const __grid_constant__ CUtensorMap qmap,   // [T][nq][dk] bf16
+                      const __grid_constant__ CUtensorMap xmap,   // [T][n][dk] bf16
+                      const __grid_constant__ CUtensorMap snmap,  // [NB][B] f32
+                      float* __restrict__ bins_v,                 // [nq, kDepth * B]
+                      int* __restrict__ bins_i,                   // [nq, kDepth * B]
+                      int nq, int B, int nch, int tile0, int ntiles, int stages,
+                      int stage_bytes) {
+  constexpr int kXBytes = kTerms * kXUnit;
+  constexpr int kLoad = kXBytes + 2 * kTerms * kQBox;   // a stage's bytes before the norms
+  constexpr int kCT = kConsumerWarps * 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  float* m1s = reinterpret_cast<float*>(smem + 1024);   // [16][kCT] each
+  float* m2s = m1s + 16 * kCT;
+  uint32_t* jts = reinterpret_cast<uint32_t*>(m2s + 16 * kCT);
+  unsigned char* ring = smem + 1024 + kWideBins;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * kQT;
   const int s0 = blockIdx.y * kCS;
-  const size_t x_ts = (size_t)n * dk;
-  const int nch = dk / kChunk;
-  const int total = ntiles * nch;
+  const int units = (ntiles + kUnit - 1) / kUnit;
 
-  // step t = (tile tile0 + t / nch, column chunk t mod nch) into stage t
-  // mod kStreamStages; rows and columns outside the matrices read as zeros
-  auto issue = [&](int t) {
-    unsigned char* st = smem + (t % kStreamStages) * kStage;
-    const int j = tile0 + t / nch, c0 = (t % nch) * kChunk;
-    for (int v = tid; v < kTerms * kCS * 4; v += kStreamThreads) {
-      const int term = v / (kCS * 4);
-      const int row = (v >> 2) & (kCS - 1), vec = v & 3;
-      const int xr = j * B + s0 + row;
-      const bool ok = xr < n;
-      mma::cp_async16(st + term * kXTerm + row * kRow + vec * 16,
-                      x + term * x_ts + (ok ? (size_t)xr * dk + c0 + vec * 8 : 0), ok ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::bar_init(&full[s], 1);
+      hopper::bar_init(&empty[s], kConsumerWarps);
     }
-    if (tid < kCS / 4) {   // the tile's 32 norms (sn holds whole tiles)
-      mma::cp_async16(st + kTerms * kXTerm + tid * 16, sn + (size_t)j * B + s0 + tid * 4, 16);
-    }
-    for (int v = tid; v < kTerms * kQT * 4; v += kStreamThreads) {
-      const int term = v / (kQT * 4);
-      const int row = (v >> 2) & (kQT - 1), vec = v & 3;
-      const bool ok = q0 + row < nq;
-      mma::cp_async16(st + kQOff + term * kQTerm + row * kRow + vec * 16,
-                      q + term * q_ts + (ok ? (size_t)(q0 + row) * dk + c0 + vec * 8 : 0),
-                      ok ? 16 : 0);
-    }
-  };
-
-  float m1[16], m2[16];
-  uint32_t jt[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    m1[e] = kBig;
-    m2[e] = kBig;
-    jt[e] = kNoTile | (kNoTile << 16);
+    hopper::bar_init_fence();
   }
-  float acc[4][4], part[4][4];
+  __syncthreads();
 
-#pragma unroll
-  for (int s = 0; s < kStreamStages - 1; ++s) {
-    if (s < total) issue(s);
-    mma::cp_async_commit();
-  }
-  const int a_off = mma::a_offset(lane, kRow) + warp * 16 * kRow;
-  const int b_off = mma::b_offset(lane, kRow);
-
-  for (int t = 0; t < total; ++t) {
-    mma::cp_async_wait<kStreamStages - 2>();
-    __syncthreads();   // step t landed; every warp is done with step t - 1
-    if (t + kStreamStages - 1 < total) issue(t + kStreamStages - 1);
-    mma::cp_async_commit();
-
-    const unsigned char* st = smem + (t % kStreamStages) * kStage;
-    const int j = t / nch, ch = t - j * nch;   // j: the tile within the launch
-    if (ch == 0) {
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  if (warp >= kConsumerWarps) {
+    // the producer: (unit u, chunk c) into the next stage once the consumers
+    // have released it; tiles past the database read as zeros (a unit's
+    // tiles past the launch are loaded and never scored)
+    hopper::regs_lower<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      for (int u = 0, st = 0, ph = 1; u < units; ++u) {
+        const int j0 = tile0 + u * kUnit;
+        for (int c = 0; c < nch; ++c) {
+          hopper::bar_wait(&empty[st], ph);
+          const bool last = c == nch - 1;
+          hopper::bar_expect(&full[st], kLoad + (last ? kUnit * kCS * 4 : 0));
+          unsigned char* sb = ring + st * stage_bytes;
+          for (int p = 0; p < kUnit; ++p) {
+            for (int b = 0; b < kTerms; ++b) {
+              hopper::tma_load(sb + b * kXUnit + p * kBox, &xmap, &full[st], c * kChunk,
+                               (j0 + p) * B + s0, b);
+            }
+          }
+          for (int wg = 0; wg < 2; ++wg) {
+            hopper::tma_load(sb + kXBytes + wg * kTerms * kQBox, &qmap, &full[st], c * kChunk,
+                             q0 + 64 * wg, 0);
+          }
+          if (last) {
+            for (int p = 0; p < kUnit; ++p) {
+              hopper::tma_load(sb + kLoad + p * kCS * 4, &snmap, &full[st], s0, j0 + p);
+            }
+          }
+          if (++st == stages) { st = 0; ph ^= 1; }
+        }
       }
     }
-    const unsigned char* qb = st + kQOff + a_off;
-    const unsigned char* xb = st + b_off;
+  } else {
+    hopper::regs_raise<kConsumerRegs>();
+    const int ct = threadIdx.x;
+    const int wg = warp >> 2, wl = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int a_row = wl * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int q_off = kXBytes + wg * kTerms * kQBox;
+
+    // the thread's bins, element 4 nb + e of each tile as in
+    // flat_scan_kernel at [4 nb + e][ct]; a tile entry holds the best's tile
+    // in its low 16 bits and the runner-up's in its high
 #pragma unroll
-    for (int ks = 0; ks < kChunk / 16; ++ks) {
-      uint32_t a[kTerms][4];
+    for (int e = 0; e < 16; ++e) {
+      m1s[e * kCT + ct] = kBig;
+      m2s[e * kCT + ct] = kBig;
+      jts[e * kCT + ct] = kNoTile | (kNoTile << 16);
+    }
+    // element 16 p + 4 nb + e of acc (and part) is element 4 nb + e of the
+    // unit's tile p
+    float acc[64], part[64];
+    uint32_t a[kTerms][4];
+
+    // a position in the scan: k16 step h of chunk c of the unit whose first
+    // tile (within the launch) is j0, in stage st of parity ph
+    struct Cursor {
+      int st, ph, c, h, j0;
+    };
+    auto advance = [&](Cursor& k) {
+      if (++k.h < 2) return;
+      k.h = 0;
+      if (++k.st == stages) { k.st = 0; k.ph ^= 1; }
+      if (++k.c < nch) return;
+      k.c = 0;
+      k.j0 += kUnit;
+    };
+    // one k16 step: the query fragments, then its cross terms chained into
+    // a fresh part, the smallest first
+    auto issue = [&](const Cursor& k) {
+      if (k.h == 0) hopper::bar_wait(&full[k.st], k.ph);
+      const unsigned char* sb = ring + k.st * stage_bytes;
 #pragma unroll
-      for (int i = 0; i < kTerms; ++i) mma::ldsm_x4(a[i], qb + i * kQTerm + ks * 32);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
+      for (int t = 0; t < kTerms; ++t) {
+        mma::ldsm_x4(a[t], sb + q_off + t * kQBox + hopper::sw64(a_row, 2 * k.h + (lane >> 4)));
       }
+      hopper::wgmma_fence();
+      bool first = true;
 #pragma unroll
       for (int b = kTerms - 1; b >= 0; --b) {
-        uint32_t b01[4], b23[4];
-        mma::ldsm_x4(b01, xb + b * kXTerm + ks * 32);
-        mma::ldsm_x4(b23, xb + b * kXTerm + 16 * kRow + ks * 32);
 #pragma unroll
-        for (int p = mma::cross_count(kTerms, kTerms) - 1; p >= 0; --p) {
-          if (mma::cross_b(kTerms, p) != b) continue;
-          const int ai = mma::cross_a(kTerms, p);
-          mma::mma_bf16(part[0], a[ai], b01[0], b01[1]);
-          mma::mma_bf16(part[1], a[ai], b01[2], b01[3]);
-          mma::mma_bf16(part[2], a[ai], b23[0], b23[1]);
-          mma::mma_bf16(part[3], a[ai], b23[2], b23[3]);
+        for (int pr = mma::cross_count(kTerms, kTerms) - 1; pr >= 0; --pr) {
+          if (mma::cross_b(kTerms, pr) != b) continue;
+          const int ai = mma::cross_a(kTerms, pr);
+          const uint64_t desc = hopper::desc_sw64(sb + b * kXUnit) + 2 * k.h;   // 32 bytes on
+          hopper::wgmma_m64n128k16(part, a[ai], desc, first ? 0 : 1);
+          first = false;
         }
       }
+      hopper::wgmma_commit();
+    };
+    auto consume = [&](const Cursor& k) {
+      hopper::fence_operands(part);
+      if (k.c == 0 && k.h == 0) {
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+        for (int e = 0; e < 64; ++e) acc[e] = part[e];
+      } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nb][e] = __fadd_rn(acc[nb][e], part[nb][e]);
+        for (int e = 0; e < 64; ++e) acc[e] = __fadd_rn(acc[e], part[e]);
       }
-    }
-
-    if (ch == nch - 1) {
-      const float* snr = reinterpret_cast<const float*>(st + kTerms * kXTerm);
+    };
+    // after a unit's last step: each pair's bins through the unit's tiles
+    // in order
+    auto bins_update = [&](const Cursor& k) {
+      const float* sn_st = reinterpret_cast<const float*>(ring + k.st * stage_bytes + kLoad);
+      const int live = min(kUnit, ntiles - k.j0);   // the unit's tiles within the launch
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const float2 sv = *reinterpret_cast<const float2*>(snr + nb * 8 + 2 * t4);
+      for (int k2 = 0; k2 < 16; ++k2) {
+        const int nb = k2 >> 2, e = k2 & 3;
+        const int cls = nb * 8 + 2 * t4 + (e & 1);
+        float m1 = m1s[k2 * kCT + ct], m2 = m2s[k2 * kCT + ct];
+        uint32_t t1 = jts[k2 * kCT + ct] & 0xFFFFu, t2 = jts[k2 * kCT + ct] >> 16;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = nb * 4 + e;
-          const float s = __fmaf_rn(-2.f, acc[nb][e], (e & 1) ? sv.y : sv.x);
-          if constexpr (kDepth == 1) {
-            if (s < m1[k]) { m1[k] = s; jt[k] = j; }
-          } else if (s < m2[k]) {
-            const bool b1 = s < m1[k];
-            const float lose_v = b1 ? m1[k] : s;
-            const uint32_t lose_t = b1 ? jt[k] & 0xFFFFu : (uint32_t)j;
-            if (b1) { m1[k] = s; jt[k] = (jt[k] & 0xFFFF0000u) | j; }
-            if (lose_v < m2[k]) { m2[k] = lose_v; jt[k] = (jt[k] & 0xFFFFu) | (lose_t << 16); }
+        for (int p = 0; p < kUnit; ++p) {
+          if (p >= live) break;
+          const uint32_t j = k.j0 + p;
+          // 2 * acc is exact, so this is sn - 2 dot rounded once
+          const float s = __fmaf_rn(-2.f, acc[16 * p + k2], sn_st[p * kCS + cls]);
+          const bool b1 = s < m1;
+          if constexpr (kDepth == 2) {
+            const float lose_v = b1 ? m1 : s;
+            const uint32_t lose_t = b1 ? t1 : j;
+            const bool b2 = lose_v < m2;
+            m2 = b2 ? lose_v : m2;
+            t2 = b2 ? lose_t : t2;
           }
+          m1 = b1 ? s : m1;
+          t1 = b1 ? j : t1;
         }
+        m1s[k2 * kCT + ct] = m1;
+        if constexpr (kDepth == 2) m2s[k2 * kCT + ct] = m2;
+        jts[k2 * kCT + ct] = t1 | (t2 << 16);
       }
-    }
-  }
+    };
+    // a stage is released after its second step (and, with a unit's last
+    // chunk, the bins update that reads its norms)
+    auto step_end = [&](const Cursor& k) {
+      if (k.h == 0) return;
+      if (k.c == nch - 1) bins_update(k);
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(&empty[k.st]);
+    };
 
-  const size_t width = (size_t)kDepth * B;
+    // One step in flight while the previous one's sums and bins update
+    // run; the issue in the loop is unconditional (see flat_scan_kernel)
+    const int total = units * nch * 2;
+    Cursor now{0, 0, 0, 0, 0}, next = now;
+    issue(next);
+    advance(next);
+    for (int i = 0; i + 1 < total; ++i) {
+      hopper::wgmma_wait<0>();
+      consume(now);
+      issue(next);
+      advance(next);
+      step_end(now);
+      advance(now);
+    }
+    hopper::wgmma_wait<0>();
+    consume(now);
+    step_end(now);
+
+    const size_t width = (size_t)kDepth * B;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const int nb = k >> 2, e = k & 3;
-    const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
-    if (qi >= nq) continue;
-    const int cls = s0 + nb * 8 + 2 * t4 + (e & 1);
-    const size_t o = (size_t)qi * width + cls;
-    const uint32_t t1 = jt[k] & 0xFFFFu, t2 = jt[k] >> 16;
-    bins_v[o] = m1[k];
-    bins_i[o] = t1 == kNoTile ? 0 : (tile0 + (int)t1) * B + cls;
-    if constexpr (kDepth == 2) {
-      bins_v[o + B] = m2[k];
-      bins_i[o + B] = t2 == kNoTile ? 0 : (tile0 + (int)t2) * B + cls;
+    for (int k = 0; k < 16; ++k) {
+      const int nb = k >> 2, e = k & 3;
+      const int qi = q0 + wg * 64 + wl * 16 + g + 8 * (e >> 1);
+      if (qi >= nq) continue;
+      const int cls = s0 + nb * 8 + 2 * t4 + (e & 1);
+      const size_t o = (size_t)qi * width + cls;
+      const uint32_t jt = jts[k * kCT + ct], t1 = jt & 0xFFFFu, t2 = jt >> 16;
+      bins_v[o] = m1s[k * kCT + ct];
+      bins_i[o] = t1 == kNoTile ? 0 : (tile0 + (int)t1) * B + cls;
+      if constexpr (kDepth == 2) {
+        bins_v[o + B] = m2s[k * kCT + ct];
+        bins_i[o + B] = t2 == kNoTile ? 0 : (tile0 + (int)t2) * B + cls;
+      }
     }
   }
 }
@@ -705,58 +790,38 @@ struct Maps {
   CUtensorMap q, x, sn;
 };
 
-template <int kDepth, int kTerms, bool kARegs>
-int launch_wgmma(const Maps& maps, const Plan& plan, float* bins_v, int* bins_i, int nq,
-                 int dk, int B, int tile0, int ntiles, cudaStream_t stream) {
-  auto kern = flat_scan_kernel<kDepth, kTerms, kARegs>;
-  // setmaxnreg moves registers within the block's launch allocation: a
-  // smaller allocation than the launch bounds give would hang the raise
+// setmaxnreg moves registers within the block's launch allocation: a
+// smaller allocation than the launch bounds give would hang the raise
+template <typename Kernel>
+int prepare(Kernel kern, int smem) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return (int)err;
   if (attr.numRegs < kLaunchRegs) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nq + kQT - 1) / kQT, B / kCS);
-  kern<<<grid, kScanThreads, plan.smem, stream>>>(
-      maps.q, maps.x, maps.sn, bins_v, bins_i, nq, B, dk / kChunk, tile0, ntiles, plan.tps,
-      plan.stages, plan.stage_bytes);
-  return (int)cudaGetLastError();
+  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 template <int kDepth, int kTerms>
-int launch_streamed(const uint16_t* q, size_t q_ts, const uint16_t* x, const float* sn,
-                    float* bins_v, int* bins_i, int nq, int n, int dk, int B, int tile0,
-                    int ntiles, cudaStream_t stream) {
-  auto kern = flat_scan_streamed_kernel<kDepth, kTerms>;
-  const int smem = kStreamStages * streamed_stage_bytes<kTerms>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+int launch_terms(const Maps& a, const Plan& plan, float* bins_v, int* bins_i, int nq,
+                 int dk, int B, int tile0, int ntiles, cudaStream_t stream) {
   const dim3 grid((nq + kQT - 1) / kQT, B / kCS);
-  kern<<<grid, kStreamThreads, smem, stream>>>(q, q_ts, x, sn, bins_v, bins_i, nq, n, dk, B,
-                                               tile0, ntiles);
-  return (int)cudaGetLastError();
-}
-
-struct ScanArgs {
-  const uint16_t* q;
-  size_t q_ts;
-  const uint16_t* x;
-  const float* sn;
-  int nq, n, dk, B;
-};
-
-template <int kDepth, int kTerms>
-int launch_terms(const ScanArgs& a, const Maps* maps, const Plan& plan, float* bins_v,
-                 int* bins_i, int tile0, int ntiles, cudaStream_t stream) {
-  if (plan.tps == 0) {
-    return launch_streamed<kDepth, kTerms>(a.q, a.q_ts, a.x, a.sn, bins_v, bins_i, a.nq, a.n,
-                                           a.dk, a.B, tile0, ntiles, stream);
+  if (plan.wide) {
+    auto kern = flat_scan_wide_kernel<kDepth, kTerms>;
+    const int err = prepare(kern, plan.smem);
+    if (err) return err;
+    kern<<<grid, kScanThreads, plan.smem, stream>>>(a.q, a.x, a.sn, bins_v, bins_i, nq, B,
+                                                    dk / kChunk, tile0, ntiles, plan.stages,
+                                                    plan.stage_bytes);
+    return (int)cudaGetLastError();
   }
-  auto run = a.dk == kChunk ? &launch_wgmma<kDepth, kTerms, true>
-                            : &launch_wgmma<kDepth, kTerms, false>;
-  return run(*maps, plan, bins_v, bins_i, a.nq, a.dk, a.B, tile0, ntiles, stream);
+  auto kern = dk == kChunk ? flat_scan_kernel<kDepth, kTerms, true>
+                           : flat_scan_kernel<kDepth, kTerms, false>;
+  const int err = prepare(kern, plan.smem);
+  if (err) return err;
+  kern<<<grid, kScanThreads, plan.smem, stream>>>(a.q, a.x, a.sn, bins_v, bins_i, nq, B,
+                                                  dk / kChunk, tile0, ntiles, plan.tps,
+                                                  plan.stages, plan.stage_bytes);
+  return (int)cudaGetLastError();
 }
 
 using ScanLaunch = decltype(&launch_terms<1, 1>);
@@ -769,17 +834,17 @@ const ScanLaunch kScan[2][3] = {
 }  // namespace
 
 // The scan's plan for rows of dk columns (a multiple of 32) and `terms`
-// terms: out[0..3] = tiles a stage, stages, bytes a stage, dynamic shared
-// memory; tiles a stage 0: the streamed mma.sync kernel (its stages and
-// shared memory). Returns 0.
+// terms: out[0..4] = wide (1: flat_scan_wide_kernel, the query terms a stage
+// at a time), tiles a stage (wide: a unit), stages, bytes a stage, dynamic
+// shared memory. Returns 0.
 extern "C" int annsearch_flat_scan_plan(int dk, int terms, void* out) {
   const Plan p = scan_plan(dk, terms);
   int* o = (int*)out;
-  o[0] = p.tps;
-  o[1] = p.tps ? p.stages : kStreamStages;
-  o[2] = p.stage_bytes;
-  o[3] = p.tps ? p.smem
-               : kStreamStages * (terms * kCS * kRow + kCS * 4 + terms * kQT * kRow);
+  o[0] = p.wide;
+  o[1] = p.tps;
+  o[2] = p.stages;
+  o[3] = p.stage_bytes;
+  o[4] = p.smem;
   return 0;
 }
 
@@ -811,34 +876,30 @@ extern "C" int annsearch_flat_scan(
   }
   const Plan plan = scan_plan(dk, terms);
   Maps maps;
-  if (plan.tps > 0) {
-    const cuuint64_t esz = 2, row = (cuuint64_t)dk * esz;
-    const cuuint64_t q_dims[3] = {(cuuint64_t)dk, (cuuint64_t)nq, (cuuint64_t)terms};
-    const cuuint64_t q_strides[2] = {row, (cuuint64_t)nq_total * row};
-    const cuuint32_t q_box[3] = {kChunk, 64, (cuuint32_t)terms};
-    const cuuint64_t x_dims[3] = {(cuuint64_t)dk, (cuuint64_t)n, (cuuint64_t)terms};
-    const cuuint64_t x_strides[2] = {row, (cuuint64_t)n * row};
-    const cuuint32_t x_box[3] = {kChunk, kCS, 1};
-    const cuuint64_t sn_dims[2] = {(cuuint64_t)B, (cuuint64_t)tiles};
-    const cuuint64_t sn_strides[1] = {(cuuint64_t)B * 4};
-    const cuuint32_t sn_box[2] = {kCS, 1};
-    if (!hopper::make_map(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q_terms, q_dims,
-                          q_strides, q_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-        !hopper::make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x_terms, x_dims,
-                          x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-        !hopper::make_map(&maps.sn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sn, sn_dims,
-                          sn_strides, sn_box, CU_TENSOR_MAP_SWIZZLE_NONE)) {
-      return (int)cudaErrorInvalidValue;
-    }
+  const cuuint64_t esz = 2, row = (cuuint64_t)dk * esz;
+  const cuuint64_t q_dims[3] = {(cuuint64_t)dk, (cuuint64_t)nq, (cuuint64_t)terms};
+  const cuuint64_t q_strides[2] = {row, (cuuint64_t)nq_total * row};
+  const cuuint32_t q_box[3] = {kChunk, 64, (cuuint32_t)terms};
+  const cuuint64_t x_dims[3] = {(cuuint64_t)dk, (cuuint64_t)n, (cuuint64_t)terms};
+  const cuuint64_t x_strides[2] = {row, (cuuint64_t)n * row};
+  const cuuint32_t x_box[3] = {kChunk, kCS, 1};
+  const cuuint64_t sn_dims[2] = {(cuuint64_t)B, (cuuint64_t)tiles};
+  const cuuint64_t sn_strides[1] = {(cuuint64_t)B * 4};
+  const cuuint32_t sn_box[2] = {kCS, 1};
+  if (!hopper::make_map(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q_terms, q_dims,
+                        q_strides, q_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x_terms, x_dims,
+                        x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::make_map(&maps.sn, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sn, sn_dims,
+                        sn_strides, sn_box, CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const ScanArgs args{(const uint16_t*)q_terms, (size_t)nq_total * dk, (const uint16_t*)x_terms,
-                      (const float*)sn, nq, n, dk, B};
   cudaStream_t st = (cudaStream_t)stream;
   for (int t0 = 0; t0 < tiles; t0 += run) {
     const bool first = t0 == 0;
     const int err = kScan[depth - 1][terms - 1](
-        args, &maps, plan, (float*)(first ? bins_v : bins_v2), (int*)(first ? bins_i : bins_i2),
-        t0, min(run, tiles - t0), st);
+        maps, plan, (float*)(first ? bins_v : bins_v2), (int*)(first ? bins_i : bins_i2), nq, dk,
+        B, t0, min(run, tiles - t0), st);
     if (err) return err;
     if (!first) {
       const size_t pairs = (size_t)nq * B;

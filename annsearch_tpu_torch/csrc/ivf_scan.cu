@@ -24,6 +24,11 @@
 //             bf16 query terms, any selection (RaBitQ's fused
 //             estimator: the cells are +-1 sign rows scaled by
 //             |x - c| / |R u|_1, the scales ones; models/binary/rabitq.py);
+//   K1-bf16-decode  bf16 cells under the int8-decode modes K1a-bf16 does
+//             not take: mode i8dec (l2 or cos_renorm), i8dec_residual under
+//             cos_renorm, and the residual l2 with one query term; one or
+//             two terms, any selection (the instances are compiled in
+//             ivf_scan_bf16.cu, which includes this file);
 //   K1-fold1  any fold variant above with fold depth 1 (one survivor per
 //             stride class: 128, not 256), _scan_body's fold_depth=1;
 //   K1-exact-i8  the int8-decode prologues (K1a, K1b, K1d-i8dec) with the
@@ -174,6 +179,19 @@
 #include "bitonic.cuh"
 #include "hopper.cuh"
 #include "mma_terms.cuh"
+
+// The last launch of any K1 entry: blocks an SM (the occupancy calculator),
+// dynamic shared memory, whether its rows were wide, its stage's bytes and
+// stages; then the launches since the library was loaded with the query
+// terms whole and a stage at a time. ivf_scan_bf16.cu compiles more
+// instances of the template below (it includes this file with
+// ANNSEARCH_IVF_SCAN_TEMPLATE_ONLY, which leaves out this file's instance
+// tables and C entries), and its launches write here too.
+#ifdef ANNSEARCH_IVF_SCAN_TEMPLATE_ONLY
+extern int g_last_launch[7];
+#else
+int g_last_launch[7];
+#endif
 
 namespace {
 
@@ -1040,12 +1058,6 @@ ivf_scan_kernel(const __grid_constant__ CUtensorMap cmap,   // cells [nblk * seg
   }
 }
 
-// the last launch: blocks an SM (the occupancy calculator), dynamic shared
-// memory, whether its rows were wide, its stage's bytes and stages; then
-// the launches since the library was loaded with the query terms whole and
-// a stage at a time
-int g_last_launch[7];
-
 template <typename CellT>
 constexpr CUtensorMapDataType cell_type() {
   return std::is_same<CellT, float>::value            ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -1135,6 +1147,7 @@ constexpr Launch kBySel[3] = {
     launch<CellT, kPro, kEpi, kFold2, kSplit>,
 };
 
+#ifndef ANNSEARCH_IVF_SCAN_TEMPLATE_ONLY
 // K1c-f32 (exact) and K1d-f32 (fold): f32 cells, l2 or cos_plain: [cosine][sel]
 const Launch* const kF32[2] = {kBySel<float, kPlain, kL2>, kBySel<float, kPlain, kCosPlain>};
 // K1c-bf16 (exact: the f32 query in three terms) and K1d-bf16 (fold: the
@@ -1157,7 +1170,8 @@ const Launch* const kResidualL2[2] = {kBySel<int8_t, kResidual, kL2, false>,
 const Launch* const kResidualCos[2] = {kBySel<int8_t, kScaledCent, kCosRenorm, false>,
                                        kBySel<int8_t, kScaledCent, kCosRenorm, true>};
 // K1a-bf16: bf16 residual cells, l2, two query terms (RaBitQ's estimator
-// takes fused_ivf_scan's q_split=True; one term is refused): [sel]. A bf16
+// takes fused_ivf_scan's q_split=True; one term and the other int8-decode
+// prologues and epilogues over bf16 cells: ivf_scan_bf16.cu): [sel]. A bf16
 // stage holds 64 columns, so d 128 and 256 take two and four stages a chunk
 const Launch* const kResidualBf16 = kBySel<__nv_bfloat16, kResidual, kL2, true>;
 // K1d-i8dec: int8 decode cells, l2 or cos_renorm: [cosine][split][sel]
@@ -1165,6 +1179,7 @@ const Launch* const kI8dec[2][2] = {
     {kBySel<int8_t, kScaled, kL2, false>, kBySel<int8_t, kScaled, kL2, true>},
     {kBySel<int8_t, kScaled, kCosRenorm, false>, kBySel<int8_t, kScaled, kCosRenorm, true>},
 };
+#endif
 
 // `sel` is 0, 1 or 2; a fold's segment holds fewer than kNoChunk chunks
 int bad_sel(int sel, int seg) {
@@ -1175,6 +1190,7 @@ int bad_sel(int sel, int seg) {
 
 }  // namespace
 
+#ifndef ANNSEARCH_IVF_SCAN_TEMPLATE_ONLY
 // Launches on `stream`; each returns the launch's cudaError_t (0 on
 // success). The caller validates shapes, types, contiguity and alignment.
 // `sel` is the selection: 0 exact, 1 or 2 the fold at that depth; `nblk`
@@ -1307,3 +1323,4 @@ extern "C" int annsearch_ivf_scan_sq8(
   return kSq8[cosine != 0][sel](lists, task_seg, cnt, queries, nullptr, nullptr, cells,
                                 sn, out_d, out_i, R, maxq, seg, d, dp, kb, stream, nblk, nq1, scratch, scratch_bytes);
 }
+#endif  // ANNSEARCH_IVF_SCAN_TEMPLATE_ONLY

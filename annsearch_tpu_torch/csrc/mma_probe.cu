@@ -1,7 +1,7 @@
 // One tensor-core product of the scans on given operands, so that a test
 // can read what the tensor cores keep of a sum: D = A B + C for P problems.
-// mma_probe_kernel: one mma.sync m16n8k16 (mma_terms.cuh, the K1 scans and
-// K2's streamed variant), one warp a problem, A [P][16][16], Bt [P][8][16]
+// mma_probe_kernel: one mma.sync m16n8k16 (mma_terms.cuh; no scan issues
+// it), one warp a problem, A [P][16][16], Bt [P][8][16]
 // (B transposed, as the scans hold database rows), C and D [P][16][8].
 // wgmma_probe_kernel: one wgmma.mma_async m64n64k16 as K2's scan issues it
 // (hopper.cuh: A from registers, B K-major in the 64-byte swizzle through

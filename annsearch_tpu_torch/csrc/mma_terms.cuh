@@ -6,7 +6,7 @@
 // cross terms into one f32 accumulator (flat_scan_pallas.py::_CROSS,
 // ivf_scan_pallas.py::_scan_body). The port does the same on Hopper's
 // tensor cores: this header holds the split, the fragment loads (ldmatrix)
-// and the mma.sync product of K2's streamed scan and the probe (the wgmma
+// and the mma.sync product of the probe (mma_probe.cu; the scans' wgmma
 // products are in hopper.cuh).
 //
 // Split. Term i < kTerms - 1 is the residual rounded to bf16 by integer
@@ -40,9 +40,8 @@
 // register for every k and every tile: the scans keep their selection
 // state there.
 //
-// Shared-memory rows are 16-byte aligned with a stride of an odd number of
-// 16-byte units (or in the 64-byte swizzle, hopper.cuh), so the eight rows
-// of one ldmatrix matrix fall in distinct banks.
+// Shared-memory rows are in the 64-byte swizzle (hopper.cuh), so the eight
+// rows of one ldmatrix matrix fall in distinct banks.
 
 #pragma once
 
@@ -84,21 +83,6 @@ __host__ __device__ constexpr int cross_b(int xt, int p) {
   return xt == 1 ? 0 : (p == 1 ? 1 : p == 3 ? 2 : p == 5 ? 1 : 0);
 }
 
-// the byte offset that `lane` passes to ldmatrix.x4 for an A tile of 16
-// rows x 32 bytes at `stride` bytes a row: matrices (rows 0-7, bytes
-// 0-15), (rows 8-15, 0-15), (rows 0-7, 16-31), (rows 8-15, 16-31) are
-// a[0..3] of the product
-__device__ __forceinline__ int a_offset(int lane, int stride) {
-  return ((lane & 7) + ((lane >> 3) & 1) * 8) * stride + (lane >> 4) * 16;
-}
-
-// the same for two B tiles of 8 rows x 32 bytes (rows 0-7 and 8-15):
-// registers 0, 1 are the first tile's b[0], b[1], registers 2, 3 the
-// second's
-__device__ __forceinline__ int b_offset(int lane, int stride) {
-  return ((lane & 7) + (lane >> 4) * 8) * stride + ((lane >> 3) & 1) * 16;
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -121,13 +105,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 }  // namespace mma

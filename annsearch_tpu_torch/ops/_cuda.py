@@ -46,6 +46,7 @@ _SIGNATURES = {
     "annsearch_ivf_scan_k1a": [_P] * 10 + [_I] * 7 + _K1_TAIL,
     "annsearch_ivf_scan_k1b_l2": [_P] * 10 + [_I] * 7 + _K1_TAIL,
     "annsearch_ivf_scan_k1a_bf16": [_P] * 10 + [_I] * 7 + _K1_TAIL,
+    "annsearch_ivf_scan_bf16_decode": [_P] * 10 + [_I] * 10 + _K1_TAIL,
     "annsearch_ivf_scan_k1b_cos": [_P] * 10 + [_I] * 8 + _K1_TAIL,
     "annsearch_ivf_scan_i8dec": [_P] * 9 + [_I] * 9 + _K1_TAIL,
     "annsearch_ivf_scan_f32": [_P] * 8 + [_I] * 8 + _K1_TAIL,

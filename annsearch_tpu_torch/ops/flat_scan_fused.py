@@ -9,11 +9,12 @@ when more than ``depth`` of the top-k share a class, so ``B`` (from
 ``block_db`` and ``n``) is part of the result, not a tuning knob.
 
 A CUDA tensor goes to the hand-written kernels in ``csrc/flat_scan.cu`` (or
-raises): a scan on ``wgmma`` fed by TMA, or, for rows too wide for the
-query terms to stay in shared memory (:func:`scan_plan`), the streamed scan
-on ``mma.sync``; then an extraction by a sort network. A CPU tensor goes to
-``flat_topk_fused_plain``, the same function in tensor operations, which
-is also what the kernels are held against.
+raises): a scan on ``wgmma`` fed by TMA, with the query terms held in
+shared memory, or, for rows too wide for them to stay (:func:`scan_plan`),
+the wide scan, which brings them a 32-column chunk at a time beside the
+same chunk of four database tiles; then an extraction by a sort network.
+A CPU tensor goes to ``flat_topk_fused_plain``, the same function in
+tensor operations, which is also what the kernels are held against.
 
 Grade of the dots. The Pallas kernel sums bf16 cross terms of a mantissa
 split on the MXU; the port sums the same terms on the tensor cores:
@@ -57,6 +58,9 @@ _MAX_BINS = 4096
 _MAX_KB = 128
 #: db tiles one scan launch covers (a bin keeps its tile in 16 bits)
 _RUN_TILES = 65_534
+#: shared memory of the wide scan's bins: m1, m2 and the tiles of 16 pairs
+#: for each of its 256 consumer threads
+_WIDE_BINS = 3 * 16 * 256 * 4
 
 
 def _pow2ceil(v: int) -> int:
@@ -86,35 +90,39 @@ def _cols(d: int) -> int:
     return -(-d // 32) * 32
 
 
-def scan_plan(d: int, passes: int = 1) -> tuple[int, int, int, int]:
-    """``(tiles a stage, stages, bytes a stage, dynamic shared memory)`` of
-    the scan at row width ``d``, as ``csrc/flat_scan.cu::scan_plan`` sizes
-    it for T terms and dk = d rounded up to 32 columns (nch chunks of 32):
-    up to 1024 bytes of alignment slack, 1024 of barriers, the 128 queries'
-    terms (2 × nch × T boxes of 64 rows × 64 bytes), then the ring: a tile
-    is nch × T boxes of 32 rows × 64 bytes and its 32 norms, a stage an even
-    number of tiles (as many as fit 16 KiB, at least two: one product reads
-    a pair) rounded up to 1024 bytes, up to 8 stages in 227 KiB. Tiles a
-    stage 0: two stages do not fit, and the query is streamed (the
-    ``mma.sync`` kernel, three stages of T × 32 x rows and T × 128 query
-    rows of 80 bytes, and the 32 norms)."""
+def scan_plan(d: int, passes: int = 1) -> tuple[int, int, int, int, int]:
+    """``(wide, tiles a stage, stages, bytes a stage, dynamic shared
+    memory)`` of the scan at row width ``d``, as
+    ``csrc/flat_scan.cu::scan_plan`` sizes it for T terms and dk = d rounded
+    up to 32 columns (nch chunks of 32): up to 1024 bytes of alignment
+    slack, 1024 of barriers, the 128 queries' terms (2 × nch × T boxes of 64
+    rows × 64 bytes), then the ring: a tile is nch × T boxes of 32 rows × 64
+    bytes and its 32 norms, a stage an even number of tiles (as many as fit
+    16 KiB, at least two: one product reads a pair) rounded up to 1024
+    bytes, up to 8 stages in 227 KiB. Where two stages do not fit, ``wide``
+    is 1: the wide scan, whose stage holds one 32-column chunk of T terms of
+    a unit of 4 tiles (4 × 32 rows × 64 bytes each), of the 128 queries (2 ×
+    64 rows × 64 bytes each) and the unit's 128 norms, rounded up to 1024
+    bytes, up to 8 stages beside 48 KiB of bins."""
     return _plan(_cols(d), split_terms(passes))
 
 
-def _plan(dk: int, t: int) -> tuple[int, int, int, int]:
+def _stage_of(b: int) -> int:
+    return -(-b // 1024) * 1024
+
+
+def _plan(dk: int, t: int) -> tuple[int, int, int, int, int]:
     nch = dk // 32
     tile = nch * t * 2048 + 128
     fixed = 2048 + 2 * nch * t * 4096
-
-    def stage_of(b):
-        return -(-b // 1024) * 1024
-
     tps = max(2, 16384 // tile // 2 * 2)
-    stages = (227 * 1024 - fixed) // stage_of(tps * tile)
+    stages = (227 * 1024 - fixed) // _stage_of(tps * tile)
     if stages < 2:
-        return 0, 3, 0, 3 * (t * 32 * 80 + 128 + t * 128 * 80)
+        stage = _stage_of(t * (4 * 2048 + 2 * 4096) + 4 * 128)
+        stages = min((227 * 1024 - 2048 - _WIDE_BINS) // stage, 8)
+        return 1, 4, stages, stage, 2048 + _WIDE_BINS + stages * stage
     stages = min(stages, 8)
-    return tps, stages, stage_of(tps * tile), fixed + stages * stage_of(tps * tile)
+    return 0, tps, stages, _stage_of(tps * tile), fixed + stages * _stage_of(tps * tile)
 
 
 def _prepare(q, x, metric, x_sqnorm, n_valid):
@@ -258,7 +266,7 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
     bins_i2 = torch.empty_like(bins_i) if many else None
     fn = load_library().annsearch_flat_scan
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    streamed = _plan(dk, terms)[0] == 0
+    wide = _plan(dk, terms)[0]
     for s in range(0, nq, slab):
         m = min(slab, nq - s)
         err = fn(
@@ -271,7 +279,7 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
         if err:
             raise RuntimeError(f"flat_topk_fused launch failed: cudaError {err}")
         flat_topk_fused.launches += 1
-        flat_topk_fused.mma_sync_launches += streamed
+        flat_topk_fused.wide_launches += wide
     return out_d, out_i
 
 
@@ -349,15 +357,15 @@ def flat_topk_fused(
     CUDA tensors launch the kernels (or raise), in slabs of queries whose
     bins fit 512 MiB of scratch (twice that past 65,534 database tiles),
     one count in ``flat_topk_fused.launches`` per slab, and one more in
-    ``flat_topk_fused.mma_sync_launches`` where the rows are too wide for
-    the ``wgmma`` scan (:func:`scan_plan`); CPU tensors run the plain
-    version."""
+    ``flat_topk_fused.wide_launches`` where the rows are too wide for the
+    query terms to stay in shared memory (the wide scan, :func:`scan_plan`);
+    CPU tensors run the plain version."""
     scan = _scan_cuda if q.is_cuda else _scan_plain
     return _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db)
 
 
 #: kernel launches (slabs) since the last reset; plain calls do not count
 flat_topk_fused.launches = 0
-#: of those, the slabs that took the streamed ``mma.sync`` scan
-flat_topk_fused.mma_sync_launches = 0
+#: of those, the slabs that took the wide scan (the query terms a stage at a time)
+flat_topk_fused.wide_launches = 0
 flat_extract.launches = 0

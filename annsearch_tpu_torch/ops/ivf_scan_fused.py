@@ -35,11 +35,16 @@ version here:
   ``fold_depth``. The IVF indexes pass it as a keyword where the JAX
   package reads ``ANNSEARCH_IVF_FOLD1``;
 * K1a-bf16, ``ivf_cell_scan_bf16_residual``: K1a's residual prologue and
-  ``l2`` epilogue over bf16 cells, two bf16 query terms (``q_split``; one
-  term over bf16 cells is refused, as no index asks for it), the fold at either depth or the exact selection — RaBitQ's fused
+  ``l2`` epilogue over bf16 cells, two bf16 query terms (``q_split``), the
+  fold at either depth or the exact selection — RaBitQ's fused
   estimator, whose cells are ±1 sign rows scaled by ``‖x−c‖ / ‖R·u‖₁`` in
   bf16 (the Pallas body casts any cell type to bf16; the int8 launchers
   take int8 cells only);
+* K1-bf16-decode, ``ivf_cell_scan_bf16_decode``: bf16 cells under the rest
+  of the int8-decode modes, as the Pallas body computes them — mode
+  ``i8dec`` (``l2`` or ``cos_renorm``), ``i8dec_residual`` under
+  ``cos_renorm``, and its ``l2`` with one query term; one or two terms,
+  any selection. No index routes to them; ``fused_ivf_scan`` does;
 * K1-exact-i8, ``ivf_cell_scan_i8_exact``: the int8-decode prologues with
   the exact selection (``selection="exact"`` over ``i8dec`` /
   ``i8dec_residual`` cells). No index routes to it, as in the JAX
@@ -102,6 +107,7 @@ __all__ = [
     "ivf_cell_scan_i8dec",
     "ivf_cell_scan_i8_exact",
     "ivf_cell_scan_bf16_residual",
+    "ivf_cell_scan_bf16_decode",
     "ivf_cell_scan_plain",
     "ivf_cell_scan_f32_exact",
     "ivf_cell_scan_f32_fold",
@@ -498,12 +504,14 @@ def _sel(fold_depth: int) -> int:
 
 
 def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
-                  cells, sn, kb, flags=(), cell_dtype=torch.int8, terms=1, residual=True):
-    """Validate and launch one int8-decode variant (``cent_x`` None: the
-    entry takes no centroids); ``flags`` are its trailing int arguments (the
-    last is ``sel``), ``cell_dtype`` the type its entry takes (bf16 for
-    K1a-bf16), ``terms`` its query terms, ``residual`` whether its prologue
-    is the residual's."""
+                  cells, sn, kb, flags=(), cell_dtype=torch.int8, terms=1, residual=True,
+                  cents_arg=False):
+    """Validate and launch one int8-decode variant (``cent_x`` None: no
+    centroids, and the entry takes none unless ``cents_arg``, which passes a
+    null pointer); ``flags`` are its trailing int arguments (the last is
+    ``sel``), ``cell_dtype`` the type its entry takes (bf16 for K1a-bf16 and
+    K1-bf16-decode), ``terms`` its query terms, ``residual`` whether its
+    prologue is the residual's."""
     from ._cuda import load_library
 
     specs = [("lists", lists, torch.int32, 2), ("task_seg", task_seg, torch.int32, 1),
@@ -521,11 +529,11 @@ def _launch_i8dec(name, entry, lists, task_seg, cnt, queries_x, cent_x, scales,
     _, seg, dp = cells.shape
     out_d, out_i = _outputs(lists, kb)
     tensors = [lists, task_seg, cnt, queries_x]
-    tensors += [scales] if cent_x is None else [cent_x, scales]
+    tensors += [scales] if cent_x is None and not cents_arg else [cent_x, scales]
     tensors += [cells, sn, out_d, out_i]
     scratch = _query_scratch(cells, queries_x, terms, False, residual, flags[-1], kb)
     err = getattr(load_library(), entry)(
-        *(t.data_ptr() for t in tensors), R, maxq, seg, d, dp, kb, *flags,
+        *(None if t is None else t.data_ptr() for t in tensors), R, maxq, seg, d, dp, kb, *flags,
         *_tail(torch.cuda.current_stream(lists.device).cuda_stream, cells, queries_x, scratch),
     )
     if err:
@@ -694,6 +702,41 @@ def ivf_cell_scan_bf16_residual(
 ivf_cell_scan_bf16_residual.launches = 0
 
 
+def ivf_cell_scan_bf16_decode(
+    lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb: int,
+    cosine: bool = False, q_split: bool = False, fold_depth: int = 2, exact: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1-bf16-decode: bf16 ``cells [nseg+1, seg, dp]`` under the
+    int8-decode prologues and epilogues K1a-bf16 does not take, as the
+    Pallas body takes any cell type: mode ``i8dec`` with ``cent_x`` None
+    (``qk = q·scales``; ``l2`` with ``qadd = ‖q‖²``, or ``cos_renorm``),
+    mode ``i8dec_residual`` with ``cent_x`` under ``cos_renorm`` (K1b-cos's
+    prologue), or its ``l2`` with one query term (K1a's). ``q_split`` two
+    bf16 query terms (the residual ``l2`` with two is K1a-bf16 and raises
+    here); the fold at ``fold_depth``, or with ``exact`` the exact
+    selection. Other arguments and the result as :func:`ivf_cell_scan`."""
+    if not lists.is_cuda:
+        return ivf_cell_scan_plain(
+            lists, task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+            cosine=cosine, q_split=q_split, fold_depth=fold_depth, exact=exact,
+        )
+    residual = cent_x is not None
+    if residual and not cosine and q_split:
+        raise ValueError("ivf_cell_scan_bf16_decode: the residual l2 scan with two query "
+                         "terms is K1a-bf16 (ivf_cell_scan_bf16_residual)")
+    out = _launch_i8dec("ivf_cell_scan_bf16_decode", "annsearch_ivf_scan_bf16_decode", lists,
+                        task_seg, cnt, queries_x, cent_x, scales, cells, sn, kb,
+                        (int(residual), int(cosine), int(q_split),
+                         0 if exact else _sel(fold_depth)),
+                        cell_dtype=torch.bfloat16, terms=1 + q_split,
+                        residual=residual and not cosine, cents_arg=True)
+    ivf_cell_scan_bf16_decode.launches += 1
+    return out
+
+
+ivf_cell_scan_bf16_decode.launches = 0
+
+
 def _launch_dense(name, entry, cell_dtype, lists, task_seg, cnt, queries_x,
                   cells, sn, kb, cosine, sel):
     from ._cuda import load_library
@@ -834,9 +877,10 @@ def fused_ivf_scan(
     ``[nq, k]`` ascending, ``best_i`` positions in the sorted storage.
     ``queries`` are the scoring-space queries: for mode ``sq8`` the int8
     query codes. ``q_split`` defaults to one bf16 query pass, what
-    ``IvfBase`` resolves its ``None`` to for the int8-decode modes. Mode
-    ``i8dec_residual`` over bf16 cells is K1a-bf16 (``l2`` and
-    ``q_split=True`` only).
+    ``IvfBase`` resolves its ``None`` to for the int8-decode modes. Over
+    bf16 cells the int8-decode modes take K1a-bf16 (``i8dec_residual``,
+    ``l2``, ``q_split=True``) or K1-bf16-decode (every other mode, epilogue
+    and term count).
     ``groups > 1`` is the forests' per-tree merge (see
     :func:`regroup_topk`): the result is then ``[nq, groups·k]``,
     group-major."""
@@ -874,15 +918,13 @@ def fused_ivf_scan(
     else:
         sc = scales.float().contiguous()
         cent_x = None if mode == "i8dec" else torch.cat([seg_centroids.float(), zero_row])
-        if cells.dtype == torch.bfloat16:
-            if mode != "i8dec_residual" or cosine or not q_split:
-                raise ValueError(
-                    f"bf16 cells under mode {mode!r}, {metric}, q_split={q_split}: the "
-                    "bf16-cell residual scan (K1a-bf16) takes mode 'i8dec_residual' with "
-                    "the l2 epilogue and two query terms"
-                )
+        if cells.dtype == torch.bfloat16 and cent_x is not None and not cosine and q_split:
             cd, ci = ivf_cell_scan_bf16_residual(*task, cent_x, sc, cells, sn, kb,
                                                  fold_depth=fold_depth, exact=exact)
+        elif cells.dtype == torch.bfloat16:
+            cd, ci = ivf_cell_scan_bf16_decode(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
+                                               q_split=q_split, fold_depth=fold_depth,
+                                               exact=exact)
         elif exact:
             cd, ci = ivf_cell_scan_i8_exact(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
                                             q_split=q_split)

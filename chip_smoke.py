@@ -5,9 +5,10 @@
 Phase 1 builds the CUDA kernels from ``annsearch_tpu_torch/csrc``, prints
 ptxas's registers and spills of each instance and counts the tensor-core
 and TMA instructions in each scan instance's SASS (HGMMA or IGMMA and
-UTMALDG in every K1 instance and K2's ``wgmma`` scan, HMMA in K2's streamed
-scan; or their PTX names where the toolkit has no ``cuobjdump``), and
-fails where one lacks its own or a K1 instance holds an ``mma.sync``. Phase 1b runs one
+UTMALDG in every K1 and K2 scan instance; or their PTX names where the
+toolkit has no ``cuobjdump``), and fails where one lacks its own, a scan
+instance holds an ``mma.sync`` or ptxas reports a serialised ``wgmma``
+(C7513 / C7517); it also counts the K1-bf16-decode instances. Phase 1b runs one
 ``mma.sync`` of the scans and one ``wgmma`` as K2 issues it on chosen and
 random operands and prints what the tensor cores keep of a sum (24 bits of
 its largest term, chopped), failing if fewer. The f32-grade kernels (K2 at
@@ -52,7 +53,20 @@ cluster scan, with build seconds, ms per batch, recall@10 and index bytes.
 Phase 2e holds K2 (the fused flat top-k) against its plain version at nq
 4,096 / 4,097, n 200,000 / 200,001, d 32, 100 and 128, kb 8, 16 and 64,
 both metrics, ``passes`` 1 and 6, depth 1 and 2: bit for bit on grid inputs,
-by tolerance on Gaussian inputs. Phase 9 builds the kNN graph of
+by tolerance on Gaussian inputs. Phase 2h holds K2's wide rows (the
+query terms a stage at a time: ``flat_scan_wide_kernel``) against the
+plain version on one slab of 16,384 queries each: d 256, 384, 768 (n
+290,000) and 960 (n 200,000) at ``passes=6``, kb 16 and 64, d 256 at
+``passes=3`` and d 512 at ``passes=1``, with ``_grade`` at ``passes=6``,
+the bound and the two-call yardstick (``torch.mm`` f32, then
+``torch.topk``). Phase 21 builds HNSW (m 16, ef_construction 100) under
+cosine on 290,000 × 256d normalised Gaussian-cluster rows (the shape of
+ann-benchmarks' NYTimes-256-angular): the build by stage, K2's launches
+by layer (every layer above 4,096 nodes is a K2 scan at 256 columns), the
+build and its base graph's K2 time, 10,000 queries at ef 64 and 128
+(recall@10 against f64 on the first 2,000; under ``--parent`` no lower
+than an index built with the parent's kernels, less 0.002), and K2's
+entry on the base graph's first slab. Phase 9 builds the kNN graph of
 ``benchmarks/bench_knn_graph.py`` (1M × 32d lowrank, k 15) through
 ``NNDescentIndex`` (K2; K2's device time split by kernel under
 ``torch.profiler``), three more times to compare, with recall@15 on 8,192
@@ -290,6 +304,18 @@ SH_PQ_MS = (128, 64)
 SH_BEAM_RECALL_MIN = {32: 0.96, 64: 0.99}                           # 0.972687, 0.994193
 SH_RING_RECALL_MIN = {"exact": 0.999, "beam": 0.98}                # 0.999837, 0.990194
 SH_IVF_RECALL_MIN = {"ivf": 0.98, ("pq", 128): 0.93, ("pq", 64): 0.80}  # 0.98685, 0.945, 0.8185
+# phase 2h: K2's wide rows (rows whose query terms do not stay in the scan's
+# shared memory whole), one slab of 16,384 queries each against Gaussian rows:
+# (d, passes, n, kb values)
+K2W_NQ = 16_384
+K2W_SLABS = ((256, 6, 290_000, (16, 64)), (384, 6, 290_000, (16, 64)),
+             (768, 6, 290_000, (16, 64)), (960, 6, 200_000, (16, 64)),
+             (256, 3, 290_000, (16,)), (512, 1, 290_000, (16,)))
+# phase 21: HNSW on the shape of ann-benchmarks' NYTimes-256-angular (290,000 x
+# 256d, angular; the data set is not in the repository: Gaussian clusters drawn
+# on the card and normalised), 10,000 queries of the same draw, k 10
+HW_N, HW_D, HW_CLUSTERS, HW_NQ, HW_NQ_GT, HW_K, HW_EFS = (
+    290_000, 256, 100, 10_000, 2_000, 10, (64, 128))
 # phase 17: the flat quantised indexes on phase 6's data, its first 10k queries
 FQ_NQ = 10_000
 #: recall@10 floors of phase 17 (against the exact f32 scan)
@@ -512,6 +538,13 @@ def _against_parent(timer, fn, *args, **kw):
         before = [w.launches for w in wrappers]
         try:
             out = timer(fn, *args, **kw)
+        except AttributeError as e:   # an entry this tree added
+            if got["parent"] or got["this"]:
+                raise
+            _cuda.load_library = own
+            print(f"    the parent's kernels lack this call's entry ({e}): this tree's alone",
+                  flush=True)
+            return timer(fn, *args, **kw)
         finally:
             _cuda.load_library = own
         got[who].append(out[0] if isinstance(out, tuple) else out)
@@ -905,6 +938,9 @@ def _k1_kind(wrapper, a, kw) -> tuple:
         return (cell, pro, epi, sel, 0), (nbytes, terms, mode == "sq8")
     if name == "ivf_cell_scan_bf16_residual":
         return ("13__nv_bfloat16", 0, 0, sel, 1), (2, 2, False)
+    if name == "ivf_cell_scan_bf16_decode":   # residual (K1a's or K1b-cos's) or i8dec
+        pro = (4 if cosine else 0) if a[4] is not None else 3
+        return ("13__nv_bfloat16", pro, 3 if cosine else 0, sel, split), (2, 1 + split, False)
     split = 1 if name == "ivf_cell_scan_split" else split
     if name == "ivf_cell_scan_i8dec" or (name == "ivf_cell_scan_i8_exact" and a[4] is None):
         pro, epi = 3, 3 if cosine else 0
@@ -1147,10 +1183,11 @@ def _plain_i8dec(q_split=None, cosine=None, cents=True):
 
 
 def phase_i8dec_kernels(dev) -> None:
-    """Phase 2d: K1b-l2, K1b-cos and K1d-i8dec against the plain version at
-    K1a's phase-2 shapes (R 384, maxq 256, seg 1024, d 128, kb 16). Under
-    cosine the queries are unit vectors and sn = ‖c + dec‖² (‖dec‖² for mode
-    i8dec), as a cosine index stores them."""
+    """Phase 2d: K1b-l2, K1b-cos, K1d-i8dec and K1-bf16-decode (the same
+    cells in bf16) against the plain version at K1a's phase-2 shapes (R 384,
+    maxq 256, seg 1024, d 128, kb 16). Under cosine the queries are unit
+    vectors and sn = ‖c + dec‖² (‖dec‖² for mode i8dec), as a cosine index
+    stores them."""
     from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1174,10 +1211,34 @@ def phase_i8dec_kernels(dev) -> None:
                           (*head, qn if cosine else queries, scales, cells, sn, kb),
                           {"cosine": cosine, "q_split": split},
                           BF16_FLOP_S / (1 + split), 0))
+    # K1-bf16-decode: the same cells as bf16 (exact), under each mode,
+    # epilogue and term count K1a-bf16 does not take
+    cb = cells.to(torch.bfloat16)
+    cases.append(("K1-bf16-decode residual l2 nq_t 1", tsf.ivf_cell_scan_bf16_decode,
+                  tsf.ivf_cell_scan_plain, (*head, queries, cents, scales, cb, sn, kb), {},
+                  BF16_FLOP_S, D * 4))
+    for split in (False, True):
+        cases.append((f"K1-bf16-decode residual cos_renorm nq_t {1 + split}",
+                      tsf.ivf_cell_scan_bf16_decode, tsf.ivf_cell_scan_plain,
+                      (*head, qn, cents, scales, cb, sn_cos, kb),
+                      {"cosine": True, "q_split": split}, BF16_FLOP_S / (1 + split), D * 4))
+        for cosine in (False, True):
+            cases.append((f"K1-bf16-decode i8dec {'cos_renorm' if cosine else 'l2'} nq_t "
+                          f"{1 + split}", tsf.ivf_cell_scan_bf16_decode, tsf.ivf_cell_scan_plain,
+                          (*head, qn if cosine else queries, None, scales, cb, sn, kb),
+                          {"cosine": cosine, "q_split": split}, BF16_FLOP_S / (1 + split), 0))
     for name, wrapper, plain, a, kw, peak, seg_bytes in cases:
         cosine = kw.get("cosine", wrapper is tsf.ivf_cell_scan_cos)
         _kernel_entry(f"{name} (R=384, maxq=256, seg=1024, d=128, kb=16)", wrapper, plain,
-                      (a, kw), 1, peak, seg_bytes, cosine=cosine)
+                      (a, kw), 2 if a[-3].dtype == torch.bfloat16 else 1, peak, seg_bytes,
+                      cosine=cosine)
+    # and the exact selection over bf16 decode cells, one case each way
+    for name, a, kw in (("residual l2 nq_t 1", (*head, queries, cents, scales, cb, sn, kb), {}),
+                        ("i8dec cos_renorm nq_t 2", (*head, qn, None, scales, cb, sn, kb),
+                         {"cosine": True, "q_split": True})):
+        _agree(f"K1-bf16-decode {name}, exact selection", *tsf.ivf_cell_scan_bf16_decode(
+            *a, exact=True, **kw), *tsf.ivf_cell_scan_plain(*a, exact=True, **kw),
+            scale=_l2_scale(a, kw.get("cosine", False)))
 
 
 # -- phase 3: the IVF-PQ main path --------------------------------------------
@@ -1689,7 +1750,7 @@ def phase_quantised_cosine(dev, x, q) -> None:
 
 FUSED_WRAPPERS = ("ivf_cell_scan", "ivf_cell_scan_split", "ivf_cell_scan_cos",
                   "ivf_cell_scan_i8dec", "ivf_cell_scan_i8_exact",
-                  "ivf_cell_scan_bf16_residual") + tuple(
+                  "ivf_cell_scan_bf16_residual", "ivf_cell_scan_bf16_decode") + tuple(
     f"ivf_cell_scan_{m}_{s}" for m in ("f32", "bf16", "sq8") for s in ("exact", "fold"))
 
 
@@ -2044,11 +2105,13 @@ def phase_flat_kernel(dev) -> None:
         (4096, 200_000, None, 128, 60, False, 6, 2),
         (4097, 200_000, 150_000, 128, 8, True, 6, 2),
     ]
-    for d in (32, 100, 128):
+    for d in (32, 100, 128, 160, 256, 512, 960):
         for passes in (1, 6):
-            tps, stages, _, smem = ff.scan_plan(d, passes)
+            wide, tps, stages, _, smem = ff.scan_plan(d, passes)
             print(f"  scan at d {d}, passes {passes}: "
-                  + (f"wgmma, {stages} stages of {tps} tiles" if tps else "mma.sync, streamed")
+                  + (f"wide (the query terms a stage at a time), {stages} stages of a "
+                     f"{tps}-tile unit's 32-column chunk" if wide else
+                     f"the query terms whole, {stages} stages of {tps} tiles")
                   + f", {smem:,} bytes of dynamic shared memory", flush=True)
     for nq, n, n_valid, d, k, cosine, passes, depth in cases:
         metric = Dist.COSINE if cosine else Dist.EUCLIDEAN
@@ -2077,6 +2140,163 @@ def phase_flat_kernel(dev) -> None:
         print(f"    kernel {ms:.3f} ms ({2.0 * nq * n * d / ms / 1e9:.2f} TFLOP/s of the f32 "
               f"dots), plain {pms:.3f} ms, bound {bound:.4f} ms ({by})"
               f"{_ffma(name + ' Gaussian')}", flush=True)
+
+
+def _k2_yardstick(q, x, kb) -> float:
+    """K2's two-call yardstick on one slab: ``torch.mm`` of the queries
+    against every row in f32 (TF32 off), then ``torch.topk(k=kb,
+    largest=False)`` over each query's row of products (the exact top-kb of
+    the dots, not the bins' fold). The port never calls them. Returns both
+    calls' milliseconds together, or None where the products do not fit."""
+    from annsearch_tpu_torch.utils.dist import fp32_matmul
+
+    try:
+        with fp32_matmul():
+            prod = torch.mm(q, x.T)
+            mm_ms = _cuda_ms(lambda: torch.mm(q, x.T, out=prod), reps=3)
+        topk_ms = _cuda_ms(lambda: torch.topk(prod, kb, dim=1, largest=False), reps=3)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        print("    yardstick not measured: the products do not fit the card", flush=True)
+        return None
+    del prod
+    torch.cuda.empty_cache()
+    print(f"    yardstick of two library calls: torch.mm {tuple(q.shape)} x "
+          f"{tuple(x.T.shape)} f32 {mm_ms:.3f} ms, then torch.topk(k={kb}) {topk_ms:.3f} ms: "
+          f"{mm_ms + topk_ms:.3f} ms together", flush=True)
+    return mm_ms + topk_ms
+
+
+def phase_k2_wide(dev) -> list[dict]:
+    """Phase 2h: K2 on rows whose query terms do not stay whole in the
+    scan's shared memory, one slab of K2W_NQ queries (the first rows of x)
+    at each of K2W_SLABS: the kernel against its plain version (phase 2e's
+    tolerances; ``_grade`` at ``passes=6``), its time (in turns under
+    ``--parent``), the plain version's (one call), the bound and, at the
+    first kb, the two-call yardstick. Returns one JSON entry a width (its
+    first kb)."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    entries = []
+    for d, passes, n, kbs in K2W_SLABS:
+        plan = ff.scan_plan(d, passes)
+        x = torch.randn(n, d, generator=gen, device=dev)
+        q, sn = x[:K2W_NQ], (x * x).sum(1)
+        print(f"  d {d}, passes {passes}, n {n}: plan {plan}", flush=True)
+        for kb in kbs:
+            kw = dict(x_sqnorm=sn, passes=passes)
+            name = f"K2 wide rows d {d} passes {passes} kb {kb} (nq {K2W_NQ}, n {n})"
+            before = ff.flat_topk_fused.launches
+            k_out = ff.flat_topk_fused(q, x, kb, Dist.EUCLIDEAN, **kw)
+            launches = ff.flat_topk_fused.launches - before
+            plain_s, p_out = _timed(lambda: ff.flat_topk_fused_plain(q, x, kb, Dist.EUCLIDEAN,
+                                                                     **kw))
+            err = _k2_agree(name, k_out, p_out, False, _k2_truth(q, x, sn, True))
+            if passes == 6:
+                _grade(name, k_out, p_out, lambda tw: _k2_truth(q, x, sn, True, tw))
+            del k_out, p_out
+            ms = _cuda_ms(lambda: ff.flat_topk_fused(q, x, kb, Dist.EUCLIDEAN, **kw), reps=3)
+            if kb == kbs[0]:   # its products cost what they cost at any kb
+                _k2_yardstick(q, x, kb)
+            bound, by = _k2_bound(K2W_NQ, n, d, kb, passes)
+            print(f"    kernel {ms:.3f} ms ({2.0 * passes * K2W_NQ * n * d / ms / 1e9:.2f} "
+                  f"TFLOP/s of its bf16 passes), plain {plain_s * 1e3:.3f} ms (one call), "
+                  f"bound {bound:.4f} ms ({by}), kernel / bound {ms / bound:.3f}", flush=True)
+            if kb == kbs[0]:
+                entries.append({
+                    "name": f"flat_topk_fused ({name})", "route": "cuda",
+                    "source": "annsearch_tpu_torch/csrc/flat_scan.cu",
+                    "replaces": "annsearch_tpu/ops/flat_scan_pallas.py:66",
+                    "launches": launches, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None})
+        del x, q, sn
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_hnsw_wide(dev) -> dict:
+    """Phase 21: HNSW (m 16, ef_construction 100) under cosine on HW_N ×
+    HW_D normalised Gaussian-cluster rows (the shape of NYTimes-256-angular):
+    every layer above 4,096 nodes builds on K2 (the brute budget keeps
+    them exact); the build by stage, K2's launches by layer, the build and
+    its base graph's K2 time (in turns under ``--parent``), HW_NQ queries at
+    each of HW_EFS (ms a batch, recall@HW_K against f64 on the first
+    HW_NQ_GT; under ``--parent`` also on an index built with the parent's
+    kernels, which this one may trail by at most 0.002). Returns K2's entry
+    on the base graph's first slab."""
+    import annsearch_tpu_torch as at
+    import annsearch_tpu_torch.models.graph as tmg
+    from annsearch_tpu_torch.ops import _cuda
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.utils.data import generate_clustered_data_device
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    t_phase = time.time()
+    data, _ = generate_clustered_data_device(HW_N + HW_NQ, HW_D, HW_CLUSTERS, seed=SEED,
+                                             device=dev)
+    data = data / data.norm(dim=1, keepdim=True)
+    x, q = data[:HW_N].contiguous(), data[HW_N:].contiguous()
+    del data
+    truth = _f64_truth(x, q[:HW_NQ_GT], HW_K)
+
+    def build(verbose):
+        return at.build_hnsw_index(x, "cosine", m=H_M, seed=SEED, verbose=verbose, device=dev)
+
+    calls = []
+    brute = tmg.brute_knn_graph
+
+    def counted(*a, **kw):
+        before = ff.flat_topk_fused.launches
+        out = brute(*a, **kw)
+        calls.append((a[0].shape[0], ff.flat_topk_fused.launches - before))
+        return out
+
+    tmg.brute_knn_graph = counted
+    try:
+        index, launches, _ = _graph_build(f"hnsw {HW_N} x {HW_D}d cosine", build)
+    finally:
+        tmg.brute_knn_graph = brute
+    layer_calls = calls[-len(calls) // 2:] if calls else []
+    print(f"  hnsw {HW_N} x {HW_D}d: {index.n_layers} levels, layers "
+          f"{[len(g[0]) for g in index.layers]}; K2 launches by layer built on it "
+          f"(rows, launches): {layer_calls}", flush=True)
+    build_ms, _ = _wall_ms(lambda: build(False), reps=1)
+    vecs = index.vectors[:HW_N]
+    kk = min(max(2 * H_M, 100 // 2), HW_N - 1) + 1
+    base_ms = _cuda_ms(lambda: blocked_query_topk(vecs, vecs, kk, Dist.COSINE,
+                                                  precision="highest", selector="fused"),
+                       reps=1)
+    print(f"  hnsw {HW_N} x {HW_D}d: build {build_ms / 1e3:.3f} s (one run after a warm-up), "
+          f"its base graph's K2 {base_ms:.1f} ms ({layer_calls[0][1] if layer_calls else 0} "
+          "launches)", flush=True)
+    runs = _graph_runs(f"hnsw {HW_N} x {HW_D}d ef", lambda qq, ef: index.query(
+        qq, HW_K, ef_search=ef, exact_fallback=False), HW_EFS, q, truth, HW_N, {})
+    if "lib" in _PARENT:
+        own = _cuda.load_library
+        _cuda.load_library = lambda: _PARENT["lib"]
+        try:
+            theirs = build(False)
+            prun = _graph_runs(f"hnsw {HW_N} x {HW_D}d ef, built with the parent's kernels",
+                               lambda qq, ef: theirs.query(qq, HW_K, ef_search=ef,
+                                                           exact_fallback=False),
+                               HW_EFS, q, truth, HW_N, {})
+        finally:
+            _cuda.load_library = own
+        del theirs
+        for ef in HW_EFS:
+            if runs[ef][1] < prun[ef][1] - 0.002:
+                raise AssertionError(f"hnsw {HW_N} x {HW_D}d at ef {ef}: recall {runs[ef][1]:.6f} "
+                                     f"trails the parent's {prun[ef][1]:.6f} by more than 0.002")
+    entry = _k2_entry(f"flat_topk_fused (HNSW base graph, {HW_N} x {HW_D}d cosine, kk {kk})",
+                      vecs[:K2W_NQ], vecs, None, kk, Dist.COSINE, launches)
+    del index, x, q, vecs
+    torch.cuda.empty_cache()
+    print(f"  phase 21 took {time.time() - t_phase:.1f} s", flush=True)
+    return entry
 
 
 def _k2_entry(name, q, x, sn, k, metric, launches) -> dict:
@@ -2145,8 +2365,8 @@ def _device_split(name, call, parts, part_of) -> None:
 
 
 def _k2_split(name, call) -> None:
-    """K2's device time: the scan (``flat_scan_kernel``, or the streamed
-    ``flat_scan_streamed_kernel``), the extraction (``flat_extract_kernel``),
+    """K2's device time: the scan (``flat_scan_kernel``, or
+    ``flat_scan_wide_kernel``), the extraction (``flat_extract_kernel``),
     the merge of runs, and the wrapper's tensor code (the split into bf16
     terms, the padded norms, the clamps)."""
     _device_split(name, call, ("scan", "extraction", "merge", "tensor code"),
@@ -2801,8 +3021,8 @@ def phase_kmknn(dev, x_np, q_np) -> None:
 
 def phase_mma_adder(dev) -> None:
     """Phase 1b: what one tensor-core product of the scans keeps of its sum,
-    bf16 → f32: ``mma.sync`` m16n8k16 (``_cuda.mma_sync_once``: the K1 scans,
-    K2's streamed scan) and its ``wgmma`` twin, m64n64k16 as K2's scan
+    bf16 → f32: ``mma.sync`` m16n8k16 (``_cuda.mma_sync_once``; no scan
+    issues it now) and its ``wgmma`` twin, m64n64k16 as K2's scan
     issues it (``_cuda.wgmma_once``: A from registers, B through the
     64-byte-swizzled descriptor). Beside a product of 1 (or C = 1): a second
     term of 2⁻ᵏ, the largest k it still counts in; 1 + 2⁻²⁴ + 2⁻²⁵ (round to
@@ -2908,19 +3128,20 @@ def _graph_build(name, build, warm=True):
 
 
 def _graph_runs(name, query, settings, q, truth, n, floors) -> dict:
-    """ms per batch (median of 3) and recall@k against f64 at each setting
-    of ``query(q, setting)``; ``floors`` {setting: least recall}. Returns
-    {setting: (ms, recall)}."""
+    """ms per batch (median of 3) and recall@k against f64 (``truth``: the
+    first queries' f64 top-k) at each setting of ``query(q, setting)``;
+    ``floors`` {setting: least recall}. Returns {setting: (ms, recall)}."""
     import annsearch_tpu_torch as at
 
     out = {}
     for s in settings:
         ms, (ids, d) = _wall_ms(lambda: query(q, s))
         _check_ids(f"{name} {s}", ids, d, q.shape[0], truth.shape[1], n)
-        recall = at.calculate_recall(truth, ids, truth.shape[1])
+        recall = at.calculate_recall(truth, ids[: truth.shape[0]], truth.shape[1])
         print(f"  {name} at {s}: {ms:.1f} ms a batch of {q.shape[0]} (median of 3) = "
               f"{q.shape[0] / ms * 1e3:.0f} QPS, recall@{truth.shape[1]} against f64 "
-              f"{recall:.6f}", flush=True)
+              f"{recall:.6f}" + (f" on the first {truth.shape[0]}" if truth.shape[0] < q.shape[0]
+                                 else ""), flush=True)
         if s in floors and recall < floors[s]:
             raise AssertionError(f"{name} at {s}: recall {recall:.6f} < {floors[s]}")
         out[s] = (ms, recall)
@@ -3876,38 +4097,47 @@ def phase_sharded_flat_ivf(dev, x, q, ti) -> None:
                 (q ** 2).sum(1) + (x * x).sum(1).max())
 
 
-def _check_mma_counts(found) -> None:
+def _bf16_decode(kernel: str) -> bool:
+    """Whether a K1 instance is K1-bf16-decode's (``csrc/ivf_scan_bf16.cu``):
+    bf16 cells under the i8dec prologue (3), the cosine residual's (4) or
+    the residual's with one query term (0, split 0)."""
+    head = "ivf_scan_kernelI13__nv_bfloat16Li"
+    return kernel.startswith((head + "3E", head + "4E")) or (
+        kernel.startswith(head + "0ELi0E") and "ELb0ELb" in kernel)
+
+
+def _check_mma_counts(found, log: str) -> None:
     """Phase 1: every scan instance holds its tensor-core instructions: each
-    K1 ``ivf_scan_kernel`` and K2's scan (``flat_scan_kernel``) wgmma
-    (HGMMA, IGMMA for the sq8 instances) and TMA loads (UTMALDG), and no K1
-    instance an ``mma.sync`` (HMMA, IMMA); K2's streamed scan
-    (``flat_scan_streamed_kernel``) HMMA; counted in the SASS, or in the PTX
-    (``mma.sync``, ``wgmma.mma_async``, ``cp.async.bulk.tensor``) where the
-    toolkit has no ``cuobjdump``."""
+    K1 ``ivf_scan_kernel`` and each K2 scan (``flat_scan_kernel``,
+    ``flat_scan_wide_kernel``) wgmma (HGMMA, IGMMA for the sq8 instances)
+    and TMA loads (UTMALDG), and none an ``mma.sync`` (HMMA, IMMA); counted
+    in the SASS, or in the PTX (``mma.sync``, ``wgmma.mma_async``,
+    ``cp.async.bulk.tensor``) where the toolkit has no ``cuobjdump``. The
+    build ``log`` holds no ptxas line of a serialised wgmma (C7513 /
+    C7517) in a scan."""
     kind, counts = found
     scans = {k: v for k, v in counts.items() if k.startswith(("flat_scan_", "ivf_scan_kernel"))}
     for k, (bf16, s8, gmma, tma) in sorted(scans.items()):
         print(f"  {kind} instructions: {k}: {bf16} mma bf16, {s8} mma int8, {gmma} wgmma, "
               f"{tma} TMA loads", flush=True)
-
-    def missing(k, v):
-        bf16, s8, gmma, tma = v
-        if k.startswith("ivf_scan_kernel"):
-            return gmma == 0 or tma == 0 or bf16 + s8 > 0
-        if k.startswith("flat_scan_kernel"):
-            return gmma == 0 or tma == 0
-        return bf16 == 0
-
-    bad = [k for k, v in scans.items() if missing(k, v)]
-    on_wgmma = sum(k.startswith(("flat_scan_kernel", "ivf_scan_kernel")) for k in scans)
-    print(f"  {len(scans)} scan instances ({on_wgmma} on wgmma and TMA), {len(bad)} without "
-          "their tensor-core (and TMA) instructions", flush=True)
-    # 90 K1 and 12 K2 instances on wgmma (K2: depth x terms x query
-    # fragments kept or reloaded), 6 K2 streamed instances on mma.sync
-    if len(scans) < 108 or on_wgmma < 102 or bad:
-        raise AssertionError(f"scan instances without their tensor-core (and TMA) "
-                             f"instructions: {bad} ({len(scans)} instances found, "
-                             f"{on_wgmma} on wgmma)")
+    bad = [k for k, (bf16, s8, gmma, tma) in scans.items()
+           if gmma == 0 or tma == 0 or bf16 + s8 > 0]
+    k1 = [k for k in scans if k.startswith("ivf_scan_kernel")]
+    added = sum(_bf16_decode(k) for k in k1)
+    serial = [ln.strip() for ln in log.splitlines()
+              if ("C7513" in ln or "C7517" in ln) and ("flat_scan" in ln or "ivf_scan" in ln)]
+    print(f"  {len(scans)} scan instances ({len(k1)} K1, of them {added} K1-bf16-decode "
+          f"instances added in csrc/ivf_scan_bf16.cu; {len(scans) - len(k1)} K2), all on wgmma "
+          f"and TMA but {len(bad)}; {len(serial)} ptxas lines of a serialised wgmma", flush=True)
+    for ln in serial:
+        print(f"  ptxas: {ln}", flush=True)
+    # K1: 90 instances and 42 K1-bf16-decode (selection x fold depth x width
+    # class); K2: 12 flat_scan_kernel (depth x terms x query fragments kept
+    # or reloaded) and 6 flat_scan_wide_kernel (depth x terms)
+    if len(k1) < 132 or added < 42 or len(scans) - len(k1) < 18 or bad or serial:
+        raise AssertionError(f"scan instances without their wgmma and TMA instructions, or with "
+                             f"an mma.sync: {bad}; {len(k1)} K1 ({added} K1-bf16-decode) and "
+                             f"{len(scans) - len(k1)} K2 instances found; serialised: {serial}")
 
 
 def main(argv=None) -> int:
@@ -3952,7 +4182,7 @@ def main(argv=None) -> int:
         _load_parent()
     for kernel, used in _cuda.kernel_resources():
         print(f"  ptxas: {kernel}: {used}", flush=True)
-    _check_mma_counts(_cuda.mma_counts())
+    _check_mma_counts(_cuda.mma_counts(), _cuda.build_log())
     phase("1b: what one mma.sync and one wgmma keep of a sum")
     phase_mma_adder(dev)
 
@@ -3967,6 +4197,10 @@ def main(argv=None) -> int:
 
     phase("2e: K2 against its plain version")
     phase_flat_kernel(dev)
+    phase("2h: K2's wide rows, one slab of 16,384 queries at d 256 to 960")
+    k2_wide = phase_k2_wide(dev)
+    phase("21: HNSW, 290,000 x 256d cosine (NYTimes-256-angular's shape), every layer on K2")
+    k2_hnsw_wide = phase_hnsw_wide(dev)
     phase("2f: K1-fold1, K1-exact-i8 and wide rows against their plain versions")
     phase_new_variants(dev)
     phase("2g: IvfIndex over 20,000 x 4,224 rows (wide rows, both tiers)")
@@ -4070,7 +4304,8 @@ def main(argv=None) -> int:
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1a, k1a_fold1, exact, fold, *quant, *i8dec, *wide, forest,
-                                  ball, lsh, k2, k2_flat, k2_hnsw, k2_vamana, *binary]}),
+                                  ball, lsh, k2, k2_flat, k2_hnsw, k2_vamana, *binary,
+                                  *k2_wide, k2_hnsw_wide]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1a, K1b-l2, K1b-cos, K1d-i8dec, K1c-f32,
 K1d-f32, K1c-bf16, K1d-bf16, K1c-sq8, K1d-sq8, their fold-1 and wide-row
-instances, K1-exact-i8, K1a-bf16 and K2) against their plain PyTorch
+instances, K1-exact-i8, K1a-bf16, K1-bf16-decode and K2, its wide rows
+included) against their plain PyTorch
 versions, on the card, and the IVF, graph, HNSW, Vamana, tree, LSH, kMkNN,
 flat quantised and binary paths on the card against the CPU. The kernels sum bf16 cross terms of a mantissa split on the tensor
 cores (int8 products in int32 for sq8); the cases cover each variant's term
@@ -509,8 +510,8 @@ def _flat_inputs(gen, dev, nq, n, d, grid, cosine):
     (300, 5000, 100, 10, True, 1, 1, 4500, 2048),   # d no multiple of 32
     (129, 3001, 30, 8, False, 6, 2, None, 2048),    # d no multiple of 4: padded
     (1000, 50000, 128, 60, True, 6, 2, None, 2048), # kb 64
-    (200, 20000, 512, 8, False, 6, 2, None, 2048),  # the query tile streamed
-    (200, 20000, 512, 8, True, 3, 1, None, 2048),   # two terms, streamed
+    (200, 20000, 512, 8, False, 6, 2, None, 2048),  # the wide scan (query terms a stage at a time)
+    (200, 20000, 512, 8, True, 3, 1, None, 2048),   # two terms, wide
     (300, 5000, 64, 10, False, 1, 2, None, 2048),   # one term, depth 2
     (1000, 50000, 128, 16, False, 3, 2, 49000, 2048),
     (4097, 200001, 32, 15, False, 6, 2, 199990, 2048),
@@ -519,10 +520,22 @@ def _flat_inputs(gen, dev, nq, n, d, grid, cosine):
     (300, 30001, 64, 10, False, 6, 2, 29999, 2048), # two chunks a tile, k16 steps by ldmatrix
     (200, 20000, 512, 8, False, 1, 2, None, 2048),  # one term at d 512: wgmma, two stages
     (200, 20000, 160, 8, False, 3, 2, None, 2048),  # two terms at d 160: three stages
-    (200, 20000, 160, 8, True, 6, 1, None, 2048),   # the narrowest streamed rows, three terms
+    (200, 20000, 160, 8, True, 6, 1, None, 2048),   # the narrowest wide rows, three terms
     (300, 9000, 32, 100, False, 6, 1, None, 128),   # kb 128, depth 1 (B 128)
     (300, 9000, 32, 100, False, 3, 2, 8000, 128),   # kb 128, depth 2
     (129, 30000, 32, 40, True, 6, 2, None, 2048),   # kb 64
+    # the wide scan at the embedding widths: n_valid inside a tile, kb 16 /
+    # 64 / 128, a unit of tiles cut by the database's end, nq short of a block
+    (300, 20000, 256, 16, False, 6, 2, 19_990, 2048),
+    (300, 20000, 256, 60, True, 6, 1, None, 2048),
+    (200, 20000, 384, 100, False, 6, 2, 15_000, 2048),
+    (200, 20000, 384, 16, True, 3, 1, 18_001, 2048),
+    (200, 20000, 768, 16, True, 3, 2, None, 2048),
+    (200, 20000, 768, 60, False, 6, 2, 19_999, 2048),
+    (200, 12000, 960, 60, False, 6, 2, 11_111, 2048),
+    (200, 20000, 960, 16, True, 1, 1, None, 2048),
+    (129, 9000, 160, 100, False, 6, 2, 8000, 128),  # kb 128 at B 128
+    (65, 5000, 512, 10, False, 1, 2, 4321, 2048),   # one term, one partial query block
 ])
 def test_k2_matches_plain(dev, grid, nq, n, d, k, cosine, passes, depth, n_valid, block_db):
     """K2 against its plain version, each term count (``passes`` 1, 3, 6):
@@ -567,6 +580,25 @@ def test_k2_runs_of_tiles_match_plain(dev, depth, n_valid, passes):
     q, x = _flat_inputs(gen, dev, 100, 2_200_001, 16, True, False)
     kw = dict(n_valid=n_valid, passes=passes, depth=depth, block_db=32)
     assert ff.fused_shapes(x.shape[0], 10, 32)[1] == 32
+    kd, ki = ff.flat_topk_fused(q, x, 10, Dist.EUCLIDEAN, **kw)
+    pd, pi = ff.flat_topk_fused_plain(q, x, 10, Dist.EUCLIDEAN, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("depth,n_valid,passes", [(2, 2_150_000, 6), (1, None, 3)])
+def test_k2_wide_runs_of_tiles_match_plain(dev, depth, n_valid, passes):
+    """The wide scan past 65,534 database tiles (B 32, 68,751 tiles of
+    256-column rows): its runs' bins merged, on grid inputs the plain
+    version's bit for bit (the second run's 3,217 tiles end inside a unit of
+    four)."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, x = _flat_inputs(gen, dev, 100, 2_200_001, 256, True, False)
+    kw = dict(n_valid=n_valid, passes=passes, depth=depth, block_db=32)
+    assert ff.scan_plan(256, passes)[0] == 1
     kd, ki = ff.flat_topk_fused(q, x, 10, Dist.EUCLIDEAN, **kw)
     pd, pi = ff.flat_topk_fused_plain(q, x, 10, Dist.EUCLIDEAN, **kw)
     torch.cuda.synchronize()
@@ -683,35 +715,41 @@ def test_k2_extraction_is_the_rounds_bit_for_bit(dev, width, kb, case):
 
 
 def test_k2_plans_agree_with_the_library(dev):
-    """The wrapper's scan plan (which scan, tiles a stage, stages, shared
-    memory) is the C entry's for every row width and term count, so
-    ``flat_topk_fused.mma_sync_launches`` counts what the library runs."""
+    """The wrapper's scan plan (which scan, tiles a stage or unit, stages,
+    shared memory) is the C entry's for every row width and term count, so
+    ``flat_topk_fused.wide_launches`` counts what the library runs."""
     import ctypes
 
     from annsearch_tpu_torch.ops import _cuda
     from annsearch_tpu_torch.ops import flat_scan_fused as ff
 
     lib = _cuda.load_library()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     for dk in range(32, 1088, 32):
         for terms, passes in ((1, 1), (2, 3), (3, 6)):
             assert lib.annsearch_flat_scan_plan(dk, terms, ctypes.addressof(out)) == 0
             assert tuple(out) == ff.scan_plan(dk, passes), (dk, terms)
 
 
-def test_k2_counts_the_streamed_scan(dev):
-    """Rows too wide for the wgmma scan take the streamed mma.sync scan,
-    chosen by shape and counted apart."""
+def test_k2_counts_the_wide_scan(dev):
+    """Rows whose query terms do not stay in shared memory take the wide
+    scan (the terms a stage at a time), chosen by shape as ``scan_plan``
+    says and counted apart; the plan's route is the one taken."""
     from annsearch_tpu_torch.ops import flat_scan_fused as ff
     from annsearch_tpu_torch.utils.dist import Dist
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, x = _flat_inputs(gen, dev, 10, 3000, 160, True, False)
-    for passes, streamed in ((6, 1), (3, 0), (1, 0)):
-        before, mma = ff.flat_topk_fused.launches, ff.flat_topk_fused.mma_sync_launches
-        ff.flat_topk_fused(q, x, 8, Dist.EUCLIDEAN, passes=passes)
+    for d, passes, wide in ((160, 6, 1), (160, 3, 0), (160, 1, 0), (192, 3, 0), (224, 3, 1),
+                            (416, 1, 0), (448, 1, 1), (128, 6, 0)):
+        assert ff.scan_plan(d, passes)[0] == wide
+        q, x = _flat_inputs(gen, dev, 10, 3000, d, True, False)
+        before, wl = ff.flat_topk_fused.launches, ff.flat_topk_fused.wide_launches
+        kd, ki = ff.flat_topk_fused(q, x, 8, Dist.EUCLIDEAN, passes=passes)
         assert ff.flat_topk_fused.launches == before + 1
-        assert ff.flat_topk_fused.mma_sync_launches == mma + streamed
+        assert ff.flat_topk_fused.wide_launches == wl + wide
+        pd, pi = ff.flat_topk_fused_plain(q, x, 8, Dist.EUCLIDEAN, passes=passes)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
 def test_k2_slabs_and_refusals(dev):
@@ -1111,6 +1149,46 @@ def test_k1a_bf16_matches_plain(dev, shape, kb, sel):
     cnt = args[2]
     assert (kd[cnt == 0] == np.float32(3e38)).all() and (ki[cnt == 0] == 0).all()
     assert torch.equal(kd == np.float32(3e38), pd == np.float32(3e38))
+
+
+@pytest.mark.parametrize("sel", ["exact", "fold1", "fold2"])
+@pytest.mark.parametrize("residual,cosine,q_split", [
+    (True, False, False), (True, True, False), (True, True, True),
+    (False, False, False), (False, False, True), (False, True, False), (False, True, True),
+])
+@pytest.mark.parametrize("shape", [dict(), dict(R=16, maxq=40, seg=256, d=1536)],
+                         ids=["d128", "wide"])
+def test_bf16_decode_matches_plain(dev, sel, residual, cosine, q_split, shape):
+    """K1-bf16-decode, each of its 21 launchers (at d 128 with the query
+    terms whole, at d 1,536 a stage at a time): bf16 cells under mode
+    i8dec or the residual's cosine or one-term prologue, against the plain
+    version; under cosine unit queries (sn the cells' squared norms, as a
+    cosine index keeps them)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lists, task_seg, cnt, queries, cents, _, cells, sn = _rabitq_tasks(gen, dev, **shape)
+    scales = torch.rand(queries.shape[1], generator=gen, device=dev) + 0.5
+    if cosine:
+        queries = queries / queries.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        sn = (cells.float() ** 2).sum(-1)
+    args = (lists, task_seg, cnt, queries, cents if residual else None, scales, cells, sn)
+    kw = dict(cosine=cosine, q_split=q_split, exact=sel == "exact",
+              fold_depth=2 if sel == "fold2" else 1)
+    before = tsf.ivf_cell_scan_bf16_decode.launches
+    kd, ki = tsf.ivf_cell_scan_bf16_decode(*args, 16, **kw)
+    assert tsf.ivf_cell_scan_bf16_decode.launches == before + 1
+    pd, pi = tsf.ivf_cell_scan_plain(*args, 16, **kw)
+    _assert_close(kd, ki, pd, pi)
+    assert (kd[cnt == 0] == np.float32(3e38)).all() and (ki[cnt == 0] == 0).all()
+
+
+def test_bf16_decode_refuses_the_k1a_bf16_case(dev):
+    """The residual l2 scan with two query terms over bf16 cells is
+    K1a-bf16's: the K1-bf16-decode wrapper refuses it, and
+    ``fused_ivf_scan`` routes it to K1a-bf16."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    args = _rabitq_tasks(gen, dev, R=8)
+    with pytest.raises(ValueError, match="K1a-bf16"):
+        tsf.ivf_cell_scan_bf16_decode(*args, 16, q_split=True)
 
 
 def _selection_tasks(gen, dev, R=64, maxq=64, seg=1024, d=64, nseg=8, nq=200):

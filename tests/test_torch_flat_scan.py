@@ -96,7 +96,7 @@ def test_k_past_kb_pads_with_inf():
     np.testing.assert_array_equal(dt, dj)
 
 
-@pytest.mark.parametrize("d", [100, 30])
+@pytest.mark.parametrize("d", [100, 30, 160, 256])
 def test_grid_odd_widths_bit_for_bit(d):
     rng = np.random.default_rng(5)
     it, dt, ij, dj = _both(_grid(rng, (20, d)), _grid(rng, (333, d)), 10, "euclidean",
@@ -185,17 +185,70 @@ def test_shapes_and_plain_alias():
     assert fused_shapes(40, 3, 128) == (8, 128)
     assert fused_shapes(700, 65) == (128, 1024)
     assert slab_rows(2048) == 16_384 and slab_rows(128, 1) == 524_288
-    assert scan_plan(30) == scan_plan(32) == (6, 8, 13_312, 116_736)   # six one-term tiles a stage
-    assert scan_plan(32, passes=6) == (2, 8, 13_312, 133_120)    # three terms a side
-    assert scan_plan(128, passes=6) == (2, 2, 50_176, 200_704)
-    assert scan_plan(160, passes=3)[:2] == (2, 3) and scan_plan(160, passes=6)[0] == 0
-    assert scan_plan(1024) == (0, 3, 0, 38_784)      # the query tile streamed (mma.sync)
+    assert scan_plan(30) == scan_plan(32) == (0, 6, 8, 13_312, 116_736)   # six one-term tiles
+    assert scan_plan(32, passes=6) == (0, 2, 8, 13_312, 133_120)    # three terms a side
+    assert scan_plan(128, passes=6) == (0, 2, 2, 50_176, 200_704)
+    assert scan_plan(160, passes=3)[:3] == (0, 2, 3) and scan_plan(160, passes=6)[0] == 1
+    assert scan_plan(256, passes=6) == (1, 4, 3, 50_176, 201_728)   # the wide scan
+    assert scan_plan(1024) == (1, 4, 8, 17_408, 190_464)
     rng = np.random.default_rng(8)
     q, x = torch.tensor(_grid(rng, (5, 8))), torch.tensor(_grid(rng, (200, 8)))
     a = flat_topk_fused(q, x, 4, Dist.EUCLIDEAN, passes=6)
     b = flat_topk_fused_plain(q, x, 4, Dist.EUCLIDEAN, passes=6)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert a[1].dtype == torch.int64 and flat_topk_fused.launches == 0
+
+
+def _c_constants() -> dict:
+    """The integer constants of ``csrc/flat_scan.cu`` (``constexpr int kX =
+    <expression of earlier constants>;``), evaluated in order."""
+    import re
+    from pathlib import Path
+
+    from annsearch_tpu_torch.ops import _cuda
+
+    src = (Path(_cuda.SOURCE_DIR) / "flat_scan.cu").read_text()
+    env: dict = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src, re.M):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+def _c_plan(dk: int, terms: int, c: dict) -> tuple:
+    """``csrc/flat_scan.cu::scan_plan`` / ``wide_plan`` written out from the
+    source's constants: the narrow scan where the query terms and two
+    stages of two tiles fit, else the wide scan."""
+    def stage_of(b):
+        return (b + 1023) // 1024 * 1024
+
+    nch = (dk + c["kChunk"] - 1) // c["kChunk"]
+    tile = nch * terms * c["kBox"] + c["kCS"] * 4
+    fixed = 2048 + 2 * nch * terms * c["kQBox"]
+    tps = max(2, c["kStageTarget"] // tile // 2 * 2)
+    stages = (c["kSmemMax"] - fixed) // stage_of(tps * tile)
+    if stages >= 2:
+        s = min(stages, c["kMaxStages"])
+        return 0, tps, s, stage_of(tps * tile), fixed + s * stage_of(tps * tile)
+    stage = stage_of(terms * (c["kXUnit"] + 2 * c["kQBox"]) + c["kUnit"] * c["kCS"] * 4)
+    s = min((c["kSmemMax"] - 2048 - c["kWideBins"]) // stage, c["kMaxStages"])
+    return 1, c["kUnit"], s, stage, 2048 + c["kWideBins"] + s * stage
+
+
+def test_scan_plan_mirrors_the_c_plan():
+    """``scan_plan`` (which scan, tiles a stage or unit, stages, bytes a
+    stage, shared memory) is the C plan for every width and term count, the
+    C plan computed from ``csrc/flat_scan.cu``'s own constants; every plan
+    fits 227 KiB with at least two stages, and the wide scan takes exactly
+    the widths the narrow one cannot (the card test
+    ``test_k2_plans_agree_with_the_library`` asks the built library)."""
+    c = _c_constants()
+    assert c["kUnit"] == 4 and c["kXUnit"] == 4 * c["kBox"] and c["kWideBins"] == 3 * 16 * 256 * 4
+    for dk in range(32, 4128, 32):
+        for passes, terms in ((1, 1), (3, 2), (6, 3)):
+            plan = scan_plan(dk, passes)
+            assert plan == _c_plan(dk, terms, c), (dk, passes)
+            assert plan[2] >= 2 and plan[4] <= c["kSmemMax"]
+            assert plan[0] == (dk > {1: 416, 2: 192, 3: 128}[terms])
 
 
 def test_given_sqnorms_are_used():

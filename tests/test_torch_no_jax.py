@@ -47,7 +47,7 @@ def test_every_kernel_source_has_a_loader_entry():
     from annsearch_tpu_torch.ops import _cuda
 
     sources = {p.name for p in _cuda.SOURCE_DIR.glob("*.cu")}
-    assert sources == {"ivf_scan.cu", "flat_scan.cu", "mma_probe.cu"}
+    assert sources == {"ivf_scan.cu", "ivf_scan_bf16.cu", "flat_scan.cu", "mma_probe.cu"}
     exported = set()
     for p in _cuda.SOURCE_DIR.glob("*.cu"):
         exported |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))

@@ -218,28 +218,77 @@ def test_k1a_bf16_plain_matches_the_pallas_kernel(data, exh, selection, fold_dep
     assert (np.abs(td.numpy() - jd)[fin] <= (1e-5 * np.broadcast_to(scale, jd.shape))[fin]).all()
 
 
-def test_the_bf16_residual_scan_refuses_cosine(exh):
-    _, t = exh
+@pytest.mark.parametrize("mode,cosine,q_split,selection,fold_depth", [
+    ("i8dec", False, False, "fold", 2),
+    ("i8dec", False, True, "fold", 1),
+    ("i8dec", True, False, "fold", 2),
+    ("i8dec", True, True, "exact", 2),
+    ("i8dec_residual", True, False, "fold", 2),
+    ("i8dec_residual", True, True, "exact", 2),
+    ("i8dec_residual", False, False, "fold", 2),
+    ("i8dec_residual", False, False, "exact", 2),
+], ids=["i8dec-l2", "i8dec-l2-split-fold1", "i8dec-cos", "i8dec-cos-split-exact",
+        "residual-cos", "residual-cos-split-exact", "residual-l2-one-term",
+        "residual-l2-one-term-exact"])
+def test_bf16_decode_plain_matches_the_pallas_kernel(data, exh, mode, cosine, q_split,
+                                                      selection, fold_depth):
+    """K1-bf16-decode: ``fused_ivf_scan`` over the estimator's bf16 cells
+    under the modes, epilogues and term counts K1a-bf16 does not take (its
+    plain version on the CPU) against the JAX ``fused_ivf_scan`` in
+    interpret mode, which casts any cell type, on the same queries (unit
+    under cosine), scales, task lists and cells: ids on ≥ 99% of entries,
+    distances on shared ids within 1e-5 of the identity's terms (l2:
+    ``‖q − c‖² + sn``; cos_renorm: 1 + |1 − d|, the renormalised dot's
+    size). The fold is approximate, so both are also held to the same
+    recall band against the exact scan."""
+    j, t = exh
+    _, q, ti_true = data
+    jblocks, jsn = j._est_blocks()
     cells, sn = t._est_blocks()
-    q = t._encode_queries(torch.zeros(3, t.dim))
-    with pytest.raises(ValueError, match="K1a-bf16"):
-        tsf.fused_ivf_scan(q, torch.zeros(1, dtype=torch.long), torch.zeros((1, 4), dtype=torch.long),
-                           torch.zeros((3, 1), dtype=torch.long), cells, sn, t.seg_offsets,
-                           t.seg_counts, t._scan_seg_centroids(), 5, Dist.COSINE,
-                           "i8dec_residual", torch.ones(q.shape[1]), 8)
-
-
-def test_the_bf16_residual_scan_refuses_one_query_term(exh):
-    """K1a-bf16 is built for two query terms alone (RaBitQ's q_split=True):
-    one term over bf16 cells is refused on every device."""
-    _, t = exh
-    cells, sn = t._est_blocks()
-    q = t._encode_queries(torch.zeros(3, t.dim))
-    with pytest.raises(ValueError, match="two query terms"):
-        tsf.fused_ivf_scan(q, torch.zeros(1, dtype=torch.long), torch.zeros((1, 4), dtype=torch.long),
-                           torch.zeros((3, 1), dtype=torch.long), cells, sn, t.seg_offsets,
-                           t.seg_counts, t._scan_seg_centroids(), 5, Dist.EUCLIDEAN,
-                           "i8dec_residual", torch.ones(q.shape[1]), 8, q_split=False)
+    nbits = j.encoder.n_words * 32
+    qe = t._encode_queries(torch.tensor(q))
+    if cosine:
+        qe = qe / qe.norm(dim=1, keepdim=True)
+    scales = np.random.default_rng(3).uniform(0.5, 1.5, nbits).astype(np.float32)
+    metric, jmetric = (Dist.COSINE, JDist.COSINE) if cosine else (Dist.EUCLIDEAN,
+                                                                   JDist.EUCLIDEAN)
+    nseg = int(j.seg_offsets.shape[0])
+    nprobe_seg = min(nseg, max(4, -(-4 * nseg) // j.nlist))
+    maxq, R = device_probe_shapes(len(q), nprobe_seg, nseg, 1)
+    probes = j_route(jnp.asarray(q), j.seg_centroids, nprobe_seg, JDist.EUCLIDEAN)
+    cids, lists, gmap = j_build(probes.astype(np.int32), nseg, maxq, R)
+    k = 20
+    jd, ji = jsp.fused_ivf_scan(
+        jnp.asarray(qe.numpy()), cids, lists, gmap, jblocks, jsn, j.seg_offsets,
+        j.seg_counts, j._scan_seg_centroids(), k, jmetric, mode, jnp.asarray(scales), 32,
+        interpret=True, q_split=q_split, fold_depth=fold_depth, selection=selection,
+    )
+    tsf.ivf_cell_scan_bf16_decode.launches = 0
+    td, ti = tsf.fused_ivf_scan(
+        qe, torch.tensor(np.asarray(cids)), torch.tensor(np.asarray(lists)),
+        torch.tensor(np.asarray(gmap)), cells, sn, t.seg_offsets, t.seg_counts,
+        t._scan_seg_centroids(), k, metric, mode, torch.tensor(scales), 32, q_split=q_split,
+        fold_depth=fold_depth, selection=selection,
+    )
+    assert tsf.ivf_cell_scan_bf16_decode.launches == 0   # the plain version counts none
+    jd, ji, td, ti = np.asarray(jd), np.asarray(ji), td.numpy(), ti.numpy()
+    shared = ti == ji
+    assert shared.mean() >= 0.99
+    fin = np.isfinite(jd)
+    assert (np.isfinite(td) == fin).all()
+    if cosine:
+        scale = 1.0 + np.abs(1.0 - np.where(fin, jd, 1.0))
+    else:
+        c_max = float(t.seg_centroids.norm(dim=1).max())
+        qn = np.linalg.norm(qe.numpy(), axis=1, keepdims=True)
+        scale = np.broadcast_to(1.0 + (qn + c_max) ** 2 + float(sn.max()), jd.shape)
+    ok = fin & shared
+    assert (np.abs(td - jd)[ok] <= 1e-5 * scale[ok]).all()
+    # the two packages' recall against the exact scan, in one band
+    orig = np.concatenate([t.original_ids.numpy(), np.full(cells.numel(), -1)])
+    r_t = at.calculate_recall(ti_true, torch.tensor(orig[ti]), K)
+    r_j = at.calculate_recall(ti_true, torch.tensor(orig[ji]), K)
+    assert abs(r_t - r_j) <= 0.01
 
 
 # -- the fused estimator tier -----------------------------------------------------------
@@ -256,7 +305,7 @@ def test_fused_estimator_against_jax_interpret(data, exh, monkeypatch):
                         lambda *a, **kw: calls.append(kw) or plain(*a, **kw))
     ji, jd = j.query(q, K, nprobe=4)
     ti, td = t.query(q, K, nprobe=4)
-    assert calls   # two query terms: K1a-bf16 takes no other (see the refusal test)
+    assert calls   # RaBitQ's two query terms over bf16 cells: K1a-bf16
     r_j = at.calculate_recall(ti_true, torch.tensor(np.asarray(ji)), K)
     r_t = at.calculate_recall(ti_true, ti, K)
     assert abs(r_j - r_t) <= 0.01
