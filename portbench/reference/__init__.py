@@ -1,0 +1,6 @@
+"""The benchmark's plain reference (``exact``): plain torch, no import of the
+program or of JAX."""
+
+from .exact import LOWER_PRECISION, control_knn, distances_of, exact_knn
+
+__all__ = ["LOWER_PRECISION", "control_knn", "distances_of", "exact_knn"]
