@@ -138,6 +138,8 @@ def _ivf_state(cls, arrays, meta, names, scalars, storage_dtype, device, dtypes=
         dtype = (dtypes or {}).get(name, dtype)
         setattr(obj, name, t.to(device=dev, dtype=dtype))
     obj._cluster_ptr = np.asarray(arrays["cluster_ptr"], dtype=np.int64)
+    if "seg_counts" in names:
+        obj._seg_counts_host = np.asarray(arrays["seg_counts"], np.int64)
     obj.vectors = None
     obj.sqnorms = None
     return obj

@@ -49,6 +49,7 @@ from ..ops.probe_device import (
     expand_probes_device,
     route_pair_stats,
 )
+from ..utils import profiling
 from ..utils.dist import Dist, matmul_t, normalise, sq_norms
 from .base import BaseIndex, host_f64
 from .kmeans import (
@@ -78,13 +79,14 @@ def route_to_cells(
     ``precision`` is accepted and ignored. The
     selection is a stable sort, so equal distances go to the lower index:
     the segment centroids of a split cell are exact duplicates, and
-    ``torch.topk`` promises no tie order."""
-    dots = matmul_t(q, centroids, "highest")
-    if metric == Dist.COSINE:
-        d = 1.0 - dots
-    else:
-        d = sq_norms(q)[:, None] + sq_norms(centroids)[None, :] - 2.0 * dots
-    return torch.sort(d, dim=1, stable=True).indices[:, :nprobe]
+    ``torch.topk`` promises no tie order. Stage ``ivf.route``."""
+    with profiling.stage("ivf.route", q):
+        dots = matmul_t(q, centroids, "highest")
+        if metric == Dist.COSINE:
+            d = 1.0 - dots
+        else:
+            d = sq_norms(q)[:, None] + sq_norms(centroids)[None, :] - 2.0 * dots
+        return torch.sort(d, dim=1, stable=True).indices[:, :nprobe]
 
 
 def _seg_radii(storage, sqn, seg_cents, row_seg, nseg: int) -> torch.Tensor:
@@ -128,6 +130,19 @@ def _cert_flags(q, centroids, radii, dk, npr_used, metric: Dist):
     return m_need, m_need > torch.clamp(npr_used, min=1)
 
 
+def _lane_counts(cluster_ids, lists, seg_counts, nq: int, cap: int) -> dict[str, int]:
+    """The cluster scan's ``lanes``, the ``ncl·maxq·cap`` (slot, row) pairs
+    it scores over host lists, and ``pad_lanes``, those of slots holding the
+    sentinel query or of rows past their segment's count (the sentinel
+    segment has none)."""
+    ncl, maxq = lists.shape
+    sizes = np.append(np.asarray(seg_counts, np.int64), 0)
+    real = (lists < nq).sum(axis=1)
+    seg = np.minimum(cluster_ids.astype(np.int64), len(sizes) - 1)
+    lanes = ncl * maxq * cap
+    return {"lanes": lanes, "pad_lanes": lanes - int((real * sizes[seg]).sum())}
+
+
 def _exact_rescore(q, storage, d, i, k: int, metric: Dist):
     """f32 rescore of a candidate pool, elementwise (``Σ(q−v)²`` or
     ``1 − Σ q·v``; no matmul identity); pool entries whose scan distance is
@@ -157,6 +172,9 @@ class IvfBase(BaseIndex):
         "seg_offsets", "seg_counts", "original_ids",
     )
     _state_scalars = ("n", "dim", "nlist", "seg_size")
+    #: host copy of ``seg_counts`` (set at build and load), read only for
+    #: the cluster scan's lane counts while tracing is on
+    _seg_counts_host: np.ndarray | None = None
 
     def __init__(
         self,
@@ -188,6 +206,7 @@ class IvfBase(BaseIndex):
         self._cluster_ptr = layout.cluster_ptr
         self.seg_offsets = torch.as_tensor(layout.seg_offsets, device=self.device)
         self.seg_counts = torch.as_tensor(layout.seg_counts, device=self.device)
+        self._seg_counts_host = np.asarray(layout.seg_counts, np.int64)
         self.seg_centroids = self.centroids[
             torch.as_tensor(layout.seg_cluster, device=self.device).long()
         ]
@@ -342,18 +361,20 @@ class IvfBase(BaseIndex):
                 "plain-f32 IVF index): quantised storage cannot certify exact "
                 "distances"
             )
-        q64 = self._f64_queries(query_mat) if k_scan is None else None
-        if q64 is not None:
-            k_scan = min(2 * self._clamp_k(k), self.n)
-        q = self._prep_queries(query_mat)
-        ids, d = self._query_prepped(q, k, nprobe, k_scan, approx, q_split, fold_depth)
-        if q64 is not None:
-            ids, d = self._rescore_f64(q64, ids, k)
-        if certify:
-            npr = self.default_nprobe() if nprobe is None else nprobe
-            if max(1, min(npr, self.nlist)) < self.nlist:
-                ids, d = self._certify(q, ids, d, k, npr, k_scan, q64)
-        return ids, d
+        with profiling.stage("ivf.query", self.device) as st:
+            q64 = self._f64_queries(query_mat) if k_scan is None else None
+            if q64 is not None:
+                k_scan = min(2 * self._clamp_k(k), self.n)
+            q = self._prep_queries(query_mat)
+            st.count(queries=q.shape[0])
+            ids, d = self._query_prepped(q, k, nprobe, k_scan, approx, q_split, fold_depth)
+            if q64 is not None:
+                ids, d = self._rescore_f64(q64, ids, k)
+            if certify:
+                npr = self.default_nprobe() if nprobe is None else nprobe
+                if max(1, min(npr, self.nlist)) < self.nlist:
+                    ids, d = self._certify(q, ids, d, k, npr, k_scan, q64)
+            return ids, d
 
     def _certify(self, q, ids, d, k, nprobe, k_scan, q64):
         """Run the certificate (:func:`_cert_flags`) and re-query every
@@ -437,13 +458,10 @@ class IvfBase(BaseIndex):
     def _scan_approx(self, q, k, nprobe, q_split, fold_depth=2):
         # route straight to segments: a split cell's segments are duplicate
         # routing rows, probed together
-        nq = q.shape[0]
-        nseg = int(self.seg_offsets.shape[0])
         nprobe_seg = self._segment_probes(nprobe)
-        maxq, R = device_probe_shapes(nq, nprobe_seg, nseg, 1)
         kb = max(8, 1 << (max(k, 1) - 1).bit_length())
         probes = route_to_cells(q, self.seg_centroids, nprobe_seg, self.metric)
-        cluster_ids, lists, gmap = build_probe_lists_device(probes, nseg, maxq, R)
+        cluster_ids, lists, gmap = self._device_lists(probes, nprobe_seg)
         return fused_ivf_scan(
             self._encode_queries(q), cluster_ids, lists, gmap, *self._fused_args(), k,
             self.metric, self.mode, self._codebooks(), kb, q_split=q_split,
@@ -460,25 +478,40 @@ class IvfBase(BaseIndex):
         nq = q.shape[0]
         nseg = int(self.seg_offsets.shape[0])
         probes = route_to_cells(q, self.centroids, nprobe, self.metric)
+        host = None
         if self._seg_s_max() == 1 and nq * nprobe < (1 << 26):
-            maxq, R = device_probe_shapes(nq, nprobe, nseg, 1)
-            seg_probes = expand_probes_device(probes, self._cluster_ptr_dev(), 1, nseg)
-            lists = build_probe_lists_device(seg_probes, nseg, maxq, R)
+            lists = self._device_lists(
+                expand_probes_device(probes, self._cluster_ptr_dev(), 1, nseg), nprobe)
         else:
-            qs, segs = expand_probes_to_segments(
-                probes.cpu().numpy(), np.asarray(self._cluster_ptr)
+            with profiling.stage("ivf.host_lists", q):
+                qs, segs = expand_probes_to_segments(
+                    probes.cpu().numpy(), np.asarray(self._cluster_ptr)
+                )
+                host = build_probe_lists_from_pairs(qs, segs, nseg, nq)
+                lists = tuple(torch.as_tensor(a.astype(np.int64), device=self.device)
+                              for a in host)
+        with profiling.stage("ivf.cluster_scan", q) as st:
+            if st and host is not None and self._seg_counts_host is not None:
+                st.count(**_lane_counts(*host[:2], self._seg_counts_host, nq, self.seg_size))
+            return ivf_cluster_scan(
+                self._encode_queries(q) if q_eff is None else q_eff, *lists, self.storage,
+                self.store_sqnorms, self.seg_offsets, self.seg_counts,
+                self._scan_seg_centroids(), k, self.metric, self.seg_size,
+                self.mode if mode is None else mode, codebooks=self._codebooks(),
+                aux=self._aux(),
             )
-            lists = tuple(
-                torch.as_tensor(a.astype(np.int64), device=self.device)
-                for a in build_probe_lists_from_pairs(qs, segs, nseg, nq)
-            )
-        return ivf_cluster_scan(
-            self._encode_queries(q) if q_eff is None else q_eff, *lists, self.storage,
-            self.store_sqnorms, self.seg_offsets, self.seg_counts,
-            self._scan_seg_centroids(), k, self.metric, self.seg_size,
-            self.mode if mode is None else mode, codebooks=self._codebooks(),
-            aux=self._aux(),
-        )
+
+    def _device_lists(self, seg_probes, nprobe):
+        """Task lists of the segment probes ``[nq, nprobe·s]`` (sentinel
+        ``nseg``), built on the device: stage ``ivf.lists``, whose counts are
+        the ``nq·nprobe`` (query, segment) pairs and the lists' slots."""
+        nq, T = seg_probes.shape
+        nseg = int(self.seg_offsets.shape[0])
+        with profiling.stage("ivf.lists", seg_probes) as st:
+            maxq, R = device_probe_shapes(nq, nprobe, nseg, T // nprobe)
+            if st:
+                st.count(pairs=nq * nprobe, slots=R * maxq)
+            return build_probe_lists_device(seg_probes, nseg, maxq, R)
 
     def _scan_exact(self, q, k, nprobe):
         """Recall-1.0 tier: route to clusters, expand to segments, exact
@@ -496,18 +529,20 @@ class IvfBase(BaseIndex):
         probes = route_to_cells(q, self.centroids, nprobe, self.metric)
         if s_max == 1:
             # no split cells: the dense expansion is the identity
-            maxq, R = device_probe_shapes(nq, nprobe, nseg, s_max)
-            seg_probes = expand_probes_device(probes, ptr, s_max, nseg)
-            cluster_ids, lists, gmap = build_probe_lists_device(seg_probes, nseg, maxq, R)
+            cluster_ids, lists, gmap = self._device_lists(
+                expand_probes_device(probes, ptr, s_max, nseg), nprobe)
         else:
             # split cells: the dense [nq, nprobe·s_max] expansion is mostly
             # sentinels on skewed layouts, so size the lists to the real
             # (query, segment) pairs — two scalars read back to the host
-            total, qmax = route_pair_stats(probes, ptr).tolist()
-            P, T_g, maxq, R = compact_probe_shapes(total, qmax, nseg)
-            cluster_ids, lists, gmap = build_probe_lists_compact(
-                probes, ptr, P, T_g, nseg, maxq, R
-            )
+            with profiling.stage("ivf.lists", q) as st:
+                total, qmax = route_pair_stats(probes, ptr).tolist()
+                P, T_g, maxq, R = compact_probe_shapes(total, qmax, nseg)
+                if st:
+                    st.count(pairs=total, slots=R * maxq)
+                cluster_ids, lists, gmap = build_probe_lists_compact(
+                    probes, ptr, P, T_g, nseg, maxq, R
+                )
         d, i = fused_ivf_scan(
             self._encode_queries(q), cluster_ids, lists, gmap, *self._fused_args(),
             min(2 * k, 128) if rescored else k, self.metric, self.mode,

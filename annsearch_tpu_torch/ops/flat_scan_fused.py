@@ -266,7 +266,6 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
     bins_i2 = torch.empty_like(bins_i) if many else None
     fn = load_library().annsearch_flat_scan
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    wide = _plan(dk, terms)[0]
     for s in range(0, nq, slab):
         m = min(slab, nq - s)
         err = fn(
@@ -279,7 +278,6 @@ def _scan_cuda(q, x, sn, qadd, n_valid: int, B: int, depth: int, kb: int, terms:
         if err:
             raise RuntimeError(f"flat_topk_fused launch failed: cudaError {err}")
         flat_topk_fused.launches += 1
-        flat_topk_fused.wide_launches += wide
     return out_d, out_i
 
 
@@ -356,16 +354,14 @@ def flat_topk_fused(
 
     CUDA tensors launch the kernels (or raise), in slabs of queries whose
     bins fit 512 MiB of scratch (twice that past 65,534 database tiles),
-    one count in ``flat_topk_fused.launches`` per slab, and one more in
-    ``flat_topk_fused.wide_launches`` where the rows are too wide for the
-    query terms to stay in shared memory (the wide scan, :func:`scan_plan`);
-    CPU tensors run the plain version."""
+    one count in ``flat_topk_fused.launches`` per slab; rows too wide for
+    the query terms to stay in shared memory take the wide scan
+    (``flat_scan_wide_kernel``, :func:`scan_plan`). CPU tensors run the
+    plain version."""
     scan = _scan_cuda if q.is_cuda else _scan_plain
     return _run(scan, q, x, k, metric, x_sqnorm, n_valid, passes, depth, block_db)
 
 
 #: kernel launches (slabs) since the last reset; plain calls do not count
 flat_topk_fused.launches = 0
-#: of those, the slabs that took the wide scan (the query terms a stage at a time)
-flat_topk_fused.wide_launches = 0
 flat_extract.launches = 0

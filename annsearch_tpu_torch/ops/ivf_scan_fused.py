@@ -95,6 +95,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from ..utils.dist import Dist, _sqrt_f32, fp32_matmul, mantissa_split
 
 __all__ = [
@@ -883,67 +884,69 @@ def fused_ivf_scan(
     and term count).
     ``groups > 1`` is the forests' per-tree merge (see
     :func:`regroup_topk`): the result is then ``[nq, groups·k]``,
-    group-major."""
+    group-major. Stage ``ivf.scan``, the merge its child."""
     if mode not in _FUSED_MODES or selection not in ("fold", "exact"):
         raise ValueError(
             f"fused scan mode={mode!r} selection={selection!r}: the fused scan "
             f"takes modes {_FUSED_MODES} with selection 'fold' or 'exact'; the "
             "PQ-coded modes belong to the cluster scan (ops/ivf_scan.py)"
         )
-    nq, d = queries.shape
-    nseg = seg_offsets.shape[0]
-    dev = queries.device
-    zero_row = torch.zeros((1, d), device=dev)
-    queries_x = torch.cat([queries.float(), zero_row])
-    offs_x = torch.cat([seg_offsets.long(), torch.zeros(1, dtype=torch.long, device=dev)])
-    cnts_x = torch.cat([seg_counts.int(), torch.zeros(1, dtype=torch.int32, device=dev)])
-    cid = torch.clamp(cluster_ids.long(), max=nseg)
-    qid = torch.clamp(probe_lists, max=nq).int().contiguous()
-    task = (qid, cid.int(), cnts_x[cid].contiguous(), queries_x)
-    cosine = metric == Dist.COSINE
-    exact = selection == "exact"
+    with profiling.stage("ivf.scan", queries):
+        nq, d = queries.shape
+        nseg = seg_offsets.shape[0]
+        dev = queries.device
+        zero_row = torch.zeros((1, d), device=dev)
+        queries_x = torch.cat([queries.float(), zero_row])
+        offs_x = torch.cat([seg_offsets.long(), torch.zeros(1, dtype=torch.long, device=dev)])
+        cnts_x = torch.cat([seg_counts.int(), torch.zeros(1, dtype=torch.int32, device=dev)])
+        cid = torch.clamp(cluster_ids.long(), max=nseg)
+        qid = torch.clamp(probe_lists, max=nq).int().contiguous()
+        task = (qid, cid.int(), cnts_x[cid].contiguous(), queries_x)
+        cosine = metric == Dist.COSINE
+        exact = selection == "exact"
 
-    # the cosine epilogue: cos_plain for f32 / bf16 rows (stored
-    # normalised), cos_qnorm for sq8 codes
-    dense = {
-        "f32": (ivf_cell_scan_f32_exact, ivf_cell_scan_f32_fold),
-        "bf16": (ivf_cell_scan_bf16_exact, ivf_cell_scan_bf16_fold),
-        "sq8": (ivf_cell_scan_sq8_exact, ivf_cell_scan_sq8_fold),
-    }
-    if mode in dense:
-        if exact:
-            cd, ci = dense[mode][0](*task, cells, sn, kb, cosine=cosine)
+        # the cosine epilogue: cos_plain for f32 / bf16 rows (stored
+        # normalised), cos_qnorm for sq8 codes
+        dense = {
+            "f32": (ivf_cell_scan_f32_exact, ivf_cell_scan_f32_fold),
+            "bf16": (ivf_cell_scan_bf16_exact, ivf_cell_scan_bf16_fold),
+            "sq8": (ivf_cell_scan_sq8_exact, ivf_cell_scan_sq8_fold),
+        }
+        if mode in dense:
+            if exact:
+                cd, ci = dense[mode][0](*task, cells, sn, kb, cosine=cosine)
+            else:
+                cd, ci = dense[mode][1](*task, cells, sn, kb, cosine=cosine,
+                                        fold_depth=fold_depth)
         else:
-            cd, ci = dense[mode][1](*task, cells, sn, kb, cosine=cosine, fold_depth=fold_depth)
-    else:
-        sc = scales.float().contiguous()
-        cent_x = None if mode == "i8dec" else torch.cat([seg_centroids.float(), zero_row])
-        if cells.dtype == torch.bfloat16 and cent_x is not None and not cosine and q_split:
-            cd, ci = ivf_cell_scan_bf16_residual(*task, cent_x, sc, cells, sn, kb,
-                                                 fold_depth=fold_depth, exact=exact)
-        elif cells.dtype == torch.bfloat16:
-            cd, ci = ivf_cell_scan_bf16_decode(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
-                                               q_split=q_split, fold_depth=fold_depth,
-                                               exact=exact)
-        elif exact:
-            cd, ci = ivf_cell_scan_i8_exact(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
-                                            q_split=q_split)
-        elif mode == "i8dec":
-            cd, ci = ivf_cell_scan_i8dec(*task, sc, cells, sn, kb, cosine=cosine,
-                                         q_split=q_split, fold_depth=fold_depth)
-        elif cosine:
-            cd, ci = ivf_cell_scan_cos(*task, cent_x, sc, cells, sn, kb, q_split=q_split,
-                                       fold_depth=fold_depth)
-        elif q_split:
-            cd, ci = ivf_cell_scan_split(*task, cent_x, sc, cells, sn, kb,
-                                         fold_depth=fold_depth)
-        else:
-            cd, ci = ivf_cell_scan(*task, cent_x, sc, cells, sn, kb, fold_depth=fold_depth)
-    # lane → sorted-storage row; a sentinel lane of a short segment lands
-    # in the padded trailing storage rows
-    gi = offs_x[cid][:, None, None] + ci.long()
+            sc = scales.float().contiguous()
+            cent_x = None if mode == "i8dec" else torch.cat([seg_centroids.float(), zero_row])
+            if cells.dtype == torch.bfloat16 and cent_x is not None and not cosine and q_split:
+                cd, ci = ivf_cell_scan_bf16_residual(*task, cent_x, sc, cells, sn, kb,
+                                                     fold_depth=fold_depth, exact=exact)
+            elif cells.dtype == torch.bfloat16:
+                cd, ci = ivf_cell_scan_bf16_decode(*task, cent_x, sc, cells, sn, kb,
+                                                   cosine=cosine, q_split=q_split,
+                                                   fold_depth=fold_depth, exact=exact)
+            elif exact:
+                cd, ci = ivf_cell_scan_i8_exact(*task, cent_x, sc, cells, sn, kb, cosine=cosine,
+                                                q_split=q_split)
+            elif mode == "i8dec":
+                cd, ci = ivf_cell_scan_i8dec(*task, sc, cells, sn, kb, cosine=cosine,
+                                             q_split=q_split, fold_depth=fold_depth)
+            elif cosine:
+                cd, ci = ivf_cell_scan_cos(*task, cent_x, sc, cells, sn, kb, q_split=q_split,
+                                           fold_depth=fold_depth)
+            elif q_split:
+                cd, ci = ivf_cell_scan_split(*task, cent_x, sc, cells, sn, kb,
+                                             fold_depth=fold_depth)
+            else:
+                cd, ci = ivf_cell_scan(*task, cent_x, sc, cells, sn, kb, fold_depth=fold_depth)
+        # lane → sorted-storage row; a sentinel lane of a short segment lands
+        # in the padded trailing storage rows
+        gi = offs_x[cid][:, None, None] + ci.long()
 
-    return regroup_topk(cd.reshape(-1, kb), gi.reshape(-1, kb), gather_map, k, groups)
+        return regroup_topk(cd.reshape(-1, kb), gi.reshape(-1, kb), gather_map, k, groups)
 
 
 def regroup_topk(
@@ -962,7 +965,13 @@ def regroup_topk(
     ``T`` gather lanes split into ``groups`` equal runs in the gather map's
     order (``T`` must divide), each run takes its own top-k, and the result
     is ``[nq, groups·k]``, group-major. The caller keeps one lane per probe
-    in probe order, so that a run is one tree's probes."""
+    in probe order, so that a run is one tree's probes. Stage
+    ``ivf.merge``."""
+    with profiling.stage("ivf.merge", flat_d):
+        return _regroup(flat_d, flat_i, gather_map, k, groups)
+
+
+def _regroup(flat_d, flat_i, gather_map, k, groups):
     dev = flat_d.device
     nq, T = gather_map.shape
     kb = flat_d.shape[1]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from ..utils.dist import Dist, pairwise_dist, sq_norms
 
 __all__ = [
@@ -192,7 +193,9 @@ def blocked_query_topk(
     which selection a caller gets. Under ``"fused"``, ``precision`` sets
     the grade of the dots: ``"highest"`` → ``passes=6``, ``"high"`` → 3,
     anything else → 1 (bf16 operands). ``approx`` is accepted and ignored,
-    as in :func:`chunked_topk`."""
+    as in :func:`chunked_topk`. The selectors but ``"fused"`` are stage
+    ``topk.exact``, whose count ``steps`` is the (query block, database
+    chunk) steps."""
     del approx
     if selector not in ("exact", "approx", "bins", "fused"):
         raise ValueError(f"unknown selector {selector!r}")
@@ -205,17 +208,22 @@ def blocked_query_topk(
             q, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
             passes=_FUSED_PASSES.get(precision, 1),
         )
-    parts = []
-    for s in range(0, q.shape[0], query_block):
-        block = q[s : s + query_block]
-        if selector == "bins":
-            parts.append(chunked_topk_bins(
-                block, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
-                bins=min(db_chunk, 2048), precision=precision,
-            ))
-        else:
-            parts.append(chunked_topk(
-                block, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
-                db_chunk=db_chunk, precision=precision,
-            ))
-    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    with profiling.stage("topk.exact", q) as st:
+        if st:
+            n = x.shape[0]
+            chunk = min(db_chunk, 2048, max(128, n)) if selector == "bins" else db_chunk
+            st.count(steps=-(-q.shape[0] // query_block) * -(-n // chunk))
+        parts = []
+        for s in range(0, q.shape[0], query_block):
+            block = q[s : s + query_block]
+            if selector == "bins":
+                parts.append(chunked_topk_bins(
+                    block, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
+                    bins=min(db_chunk, 2048), precision=precision,
+                ))
+            else:
+                parts.append(chunked_topk(
+                    block, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
+                    db_chunk=db_chunk, precision=precision,
+                ))
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

@@ -1,0 +1,12 @@
+"""fallback_host_ms_per_step: host ms of the program's stage ``topk.exact`` over
+its steps (``ops/topk.blocked_query_topk``): what the host takes to launch one
+(query block, database chunk) step, or to wait for the card."""
+
+from portbench import spans
+
+start = spans.start
+
+
+def read(ctx):
+    ns, steps = spans.stat(ctx, "topk.exact", "host_ns"), spans.stat(ctx, "topk.exact", "steps")
+    return None if ns is None or not steps else ns * 1e-6 / steps

@@ -717,7 +717,7 @@ def test_k2_extraction_is_the_rounds_bit_for_bit(dev, width, kb, case):
 def test_k2_plans_agree_with_the_library(dev):
     """The wrapper's scan plan (which scan, tiles a stage or unit, stages,
     shared memory) is the C entry's for every row width and term count, so
-    ``flat_topk_fused.wide_launches`` counts what the library runs."""
+    ``scan_plan`` says which scan the library runs."""
     import ctypes
 
     from annsearch_tpu_torch.ops import _cuda
@@ -734,7 +734,7 @@ def test_k2_plans_agree_with_the_library(dev):
 def test_k2_counts_the_wide_scan(dev):
     """Rows whose query terms do not stay in shared memory take the wide
     scan (the terms a stage at a time), chosen by shape as ``scan_plan``
-    says and counted apart; the plan's route is the one taken."""
+    says; the plan's route is the kernel a profiler trace names."""
     from annsearch_tpu_torch.ops import flat_scan_fused as ff
     from annsearch_tpu_torch.utils.dist import Dist
 
@@ -743,13 +743,55 @@ def test_k2_counts_the_wide_scan(dev):
                             (416, 1, 0), (448, 1, 1), (128, 6, 0)):
         assert ff.scan_plan(d, passes)[0] == wide
         q, x = _flat_inputs(gen, dev, 10, 3000, d, True, False)
-        before, wl = ff.flat_topk_fused.launches, ff.flat_topk_fused.wide_launches
-        kd, ki = ff.flat_topk_fused(q, x, 8, Dist.EUCLIDEAN, passes=passes)
+        before = ff.flat_topk_fused.launches
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            kd, ki = ff.flat_topk_fused(q, x, 8, Dist.EUCLIDEAN, passes=passes)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()}
         assert ff.flat_topk_fused.launches == before + 1
-        assert ff.flat_topk_fused.wide_launches == wl + wide
+        assert any("flat_scan_wide_kernel" in n for n in names) == bool(wide), (d, passes)
+        assert any("flat_scan_kernel" in n for n in names) == (not wide), (d, passes)
         pd, pi = ff.flat_topk_fused_plain(q, x, 8, Dist.EUCLIDEAN, passes=passes)
         torch.cuda.synchronize()
         assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_stages_time_the_ivf_paths_on_the_card(dev, monkeypatch):
+    """With tracing on, the IVF-PQ fused tier's and cluster scan's stages
+    take device intervals from their CUDA events, a child's within its
+    parent's, resolved after the caller's synchronise with none of their
+    own."""
+    import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.utils import profiling
+    from annsearch_tpu_torch.utils.data import generate_clustered_data, subsample_with_noise
+
+    def no_sync(*a, **k):
+        raise AssertionError("a stage synchronised")
+
+    x, _ = generate_clustered_data(20000, 128, 20, seed=6)
+    q = torch.as_tensor(subsample_with_noise(x, 2000, seed=6), device=dev)
+    idx = at.build_ivf_pq_index(x, nlist=32, m=128, seed=1, device=dev)
+    idx.query(q, 10, nprobe=6, approx=True)
+    profiling.reset()
+    profiling.enable()
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", no_sync)
+            idx.query(q, 10, nprobe=6, approx=True)
+            idx.query(q, 10, nprobe=6)
+        torch.cuda.synchronize()
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    for name in ("ivf.query", "ivf.route", "ivf.lists", "ivf.scan", "ivf.cluster_scan",
+                 "ivf.merge"):
+        assert snap[name]["device_ns"] > 0 and snap[name]["device_self_ns"] >= 0, name
+    assert snap["ivf.query"]["calls"] == 2
+    inner = sum(snap[n]["device_ns"] for n in snap if snap[n]["parent"] == "ivf.query")
+    assert inner <= snap["ivf.query"]["device_ns"]
+    assert snap["ivf.query"]["device_self_ns"] == snap["ivf.query"]["device_ns"] - inner
 
 
 def test_k2_slabs_and_refusals(dev):
