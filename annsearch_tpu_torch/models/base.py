@@ -196,12 +196,16 @@ class BaseIndex:
         return self.vectors[: self.n], sq, None
 
     def _exact_query_small(self, q: torch.Tensor, k: int):
-        """Exact top-k ``(ids, dists)`` over the full-precision rows."""
+        """Exact top-k ``(ids, dists)`` over the full-precision rows: on the
+        card through ``selector="certified"`` (one K2 scan and a rescan of
+        the classes it cannot certify; ``"exact"`` past K2's 128 ranks),
+        elsewhere through ``"exact"``, as the JAX package scans."""
         from ..ops.topk import blocked_query_topk
 
         vecs, sq, ids = self._fallback_vectors()
         k = max(1, min(int(k), vecs.shape[0]))
-        d, i = blocked_query_topk(q, vecs, k, self.metric, x_sqnorm=sq, precision="highest")
+        d, i = blocked_query_topk(q, vecs, k, self.metric, x_sqnorm=sq, precision="highest",
+                                  selector="certified" if q.is_cuda else "exact")
         return (i if ids is None else ids[i]), d
 
     def _rescore_f64(self, q64: np.ndarray, ids: torch.Tensor, k: int):

@@ -11,7 +11,11 @@ is never materialised. ``blocked_query_topk`` selects by one of
 * ``"bins"``: :func:`chunked_topk_bins`, the running-bins scan in tensor
   operations (the JAX function reaches no kernel either);
 * ``"fused"``: kernel K2, ``ops.flat_scan_fused.flat_topk_fused`` (the
-  kernel on a CUDA tensor, its plain version on a CPU tensor).
+  kernel on a CUDA tensor, its plain version on a CPU tensor);
+* ``"certified"``: the exact answer from K2 and a certificate
+  (:func:`_certified_topk`): K2 at f32 grade for ``k + 1`` ranks, and an
+  exact rescan of the column classes where K2 may have dropped a true
+  neighbour.
 
 All results are ascending; ties go to the lower index, as ``lax.top_k``
 breaks them. Rows at or past ``n_valid`` never win.
@@ -170,6 +174,105 @@ def chunked_topk_bins(
 #: ``selector="fused"`` passes (the grade of K2's dots) by precision
 _FUSED_PASSES = {"highest": 6, "high": 3}
 
+#: bytes of gathered rows a step of the certified rescan holds: colliding
+#: queries go through in groups whose candidates' rows fit
+_RESCAN_BYTES = 256 * 1024 * 1024
+
+
+def _colliding_pairs(ids: torch.Tensor, B: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rows [P], classes [P])``: each (query, class) pair where two or
+    more of a row of ``ids`` share the class ``col mod B``, once, in row
+    order."""
+    cls, _ = torch.sort(ids % B, dim=1)
+    same = cls[:, 1:] == cls[:, :-1]
+    first = same.clone()
+    first[:, 1:] &= ~same[:, :-1]
+    r, j = first.nonzero(as_tuple=True)
+    return r, cls[r, j + 1]
+
+
+def _rescan(q, x, k, metric, x_sqnorm, n_valid: int, B: int, ids, rows, classes):
+    """The exact top-k of the queries ``rows`` (ascending, repeated per
+    class) over their candidates: their K2 ids ``ids [nq, k+1]`` and every
+    row below ``n_valid`` of each colliding class ``classes``, scored
+    together in fp32 (one distance matrix per group of queries), each id
+    once, ties to the lower id. ``(queries [R], dists [R, k], ids [R,
+    k])``."""
+    dev, n = q.device, x.shape[0]
+    uq, inv, counts = torch.unique_consecutive(rows, return_inverse=True, return_counts=True)
+    R, cmax = uq.numel(), int(counts.max())
+    slot = torch.arange(rows.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[inv]
+    pcls = torch.full((R, cmax), -1, dtype=torch.long, device=dev)
+    pcls[inv, slot] = classes
+    # every row of each colliding class (n marks no row), then K2's ids
+    # outside those classes
+    members = pcls[:, :, None] + B * torch.arange(-(-n_valid // B), device=dev)
+    members = torch.where((pcls[:, :, None] >= 0) & (members < n_valid), members, n)
+    own = ids[uq]
+    own = torch.where(((own % B)[:, :, None] == pcls[:, None, :]).any(-1), n, own)
+    cand, _ = torch.sort(torch.cat([own, members.view(R, -1)], dim=1), dim=1)
+    g = max(1, _RESCAN_BYTES // (cand.shape[1] * x.shape[1] * 4))
+    out_d = torch.empty((R, k), device=dev)
+    out_i = torch.empty((R, k), dtype=torch.long, device=dev)
+    for s in range(0, R, g):
+        c = cand[s : s + g]
+        valid = c < n
+        safe = torch.where(valid, c, 0)
+        xs = None if x_sqnorm is None else x_sqnorm[safe]
+        d = pairwise_dist(q[uq[s : s + g], None, :], x[safe], metric, x_sqnorm=xs,
+                          precision="highest")[:, 0]
+        vals, pos = topk_smallest(torch.where(valid, d, float("inf")), k)
+        out_d[s : s + g], out_i[s : s + g] = vals, torch.gather(c, 1, pos)
+    return uq, out_d, out_i
+
+
+def _certified_topk(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    k: int,
+    metric: Dist,
+    x_sqnorm: torch.Tensor | None = None,
+    n_valid: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact top-k at f32 grade from one K2 scan and a certificate;
+    ``k + 1`` at most K2's 128 ranks and at most ``n_valid``.
+
+    K2 (``passes=6``, depth 2) keeps of each column class ``col mod B`` the
+    best two rows in the order of ``(score, col)``, as the sequential scan
+    keeps them, exact ties included, and extracts the first ``k + 1`` of
+    those bins in the same order. A row K2 dropped ranks after both bins of
+    its class; had it been among the true top k, both bins would be too,
+    and so among K2's first k. So where no class holds two of a query's
+    first k ids, they are the exact answer, ties at the k-th rank included.
+    A query where some class does is rescanned: every row of each such
+    class and K2's ``k + 1`` candidates, scored together in fp32
+    (:func:`pairwise_dist`, TF32 off), and the top k taken by
+    :func:`topk_smallest`, ties to the lower id. With ``n ≤ B`` every
+    column is its own class and nothing is rescanned. Stage
+    ``topk.certified``, counts ``queries`` and ``rescanned`` (queries with
+    a colliding class). Result as ``"exact"``'s: ``(dists [nq, k], ids
+    [nq, k] int64)``."""
+    from .flat_scan_fused import flat_topk_fused, fused_shapes
+
+    n = x.shape[0]
+    nv = n if n_valid is None else max(0, min(int(n_valid), n))
+    if metric == Dist.EUCLIDEAN and x_sqnorm is None:
+        x_sqnorm = sq_norms(x)
+    with profiling.stage("topk.certified", q) as st:
+        d, i = flat_topk_fused(q, x, k + 1, metric, x_sqnorm=x_sqnorm, n_valid=nv, passes=6)
+        best_d, best_i = d[:, :k].contiguous(), i[:, :k].contiguous()
+        B = fused_shapes(n, k + 1)[1]
+        rescanned = 0
+        if n > B:
+            rows, classes = _colliding_pairs(best_i, B)
+            if rows.numel():
+                redo, rd, ri = _rescan(q, x, k, metric, x_sqnorm, nv, B, i, rows, classes)
+                best_d[redo], best_i[redo] = rd, ri
+                rescanned = redo.numel()
+        if st:
+            st.count(queries=q.shape[0], rescanned=rescanned)
+    return best_d, best_i
+
 
 def blocked_query_topk(
     q: torch.Tensor,
@@ -182,7 +285,7 @@ def blocked_query_topk(
     db_chunk: int = DEFAULT_DB_CHUNK,
     precision: str = "highest",
     approx: bool = False,
-    selector: str = "exact",   # "exact" | "approx" | "bins" | "fused"
+    selector: str = "exact",   # "exact" | "approx" | "bins" | "fused" | "certified"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k for any number of queries, streamed in query blocks; see the
     module docstring for the selectors.
@@ -192,15 +295,26 @@ def blocked_query_topk(
     unrolled extraction at ``kb = 128``; the port keeps it, since it fixes
     which selection a caller gets. Under ``"fused"``, ``precision`` sets
     the grade of the dots: ``"highest"`` → ``passes=6``, ``"high"`` → 3,
-    anything else → 1 (bf16 operands). ``approx`` is accepted and ignored,
-    as in :func:`chunked_topk`. The selectors but ``"fused"`` are stage
-    ``topk.exact``, whose count ``steps`` is the (query block, database
-    chunk) steps."""
+    anything else → 1 (bf16 operands). ``"certified"``
+    (:func:`_certified_topk`) takes ``"exact"`` where ``k + 1`` passes K2's
+    128 ranks or the ``n_valid`` rows; it and ``"exact"`` take only
+    ``precision="highest"``. ``approx`` is accepted and ignored, as in
+    :func:`chunked_topk`. The selectors but ``"fused"`` and ``"certified"``
+    are stage ``topk.exact``, whose count ``steps`` is the (query block,
+    database chunk) steps."""
     del approx
-    if selector not in ("exact", "approx", "bins", "fused"):
+    if selector not in ("exact", "approx", "bins", "fused", "certified"):
         raise ValueError(f"unknown selector {selector!r}")
     if selector == "fused" and k > 64:
         selector = "bins"
+    if selector == "certified":
+        if precision != "highest":
+            raise ValueError(f"precision must be 'highest', got {precision!r}")
+        nv = x.shape[0] if n_valid is None else n_valid
+        if k + 1 > min(nv, 128):
+            selector = "exact"
+        else:
+            return _certified_topk(q, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid)
     if selector == "fused":
         from .flat_scan_fused import flat_topk_fused
 

@@ -12,7 +12,7 @@ Host clocks time what was enqueued, not what ran: end a timed region with
 
 The query paths open a :func:`stage` at each layer boundary (``ivf.query``,
 ``ivf.route``, ``ivf.lists``, ``ivf.host_lists``, ``ivf.scan``,
-``ivf.cluster_scan``, ``ivf.merge``, ``topk.exact``). A stage does nothing
+``ivf.cluster_scan``, ``ivf.merge``, ``topk.exact``, ``topk.certified``). A stage does nothing
 but test one flag unless tracing is on (:func:`enable`) or a
 ``torch.profiler`` is recording:
 

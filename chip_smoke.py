@@ -75,8 +75,9 @@ sampled rows against the exact selector, and reads the same scan through
 products of one slab as a diagnostic. Phase 9b runs the flat index
 of ``benchmarks/bench_config1_exhaustive.py`` (100k × 128d, k 10 self-query)
 through the three selectors. Phase 10 queries phase 9's index with 10,000
-queries: the exact fallback, the same queries through K2, then the beam
-search at beam 32 and 64.
+queries: the exact fallback (K2 and its certificate, held against f64 up
+to ties), the same queries through K2 alone, then the beam search at beam
+32 and 64.
 Phase 2f holds the last K1 variants against their plain versions: fold
 depth 1 for the seven fold kernels at their phase-2 shapes, the exact
 selection over int8-decode cells (K1-exact-i8) at K1a's shapes, and
@@ -88,7 +89,8 @@ Phases 11 to 14 run the tree, LSH and kMkNN indexes on phase 9's data:
 Annoy and the kd-forest (16 trees) on its first 500,000 rows, self-queries
 through the facade at k 15 (the fused route with the per-tree merge); a
 ball tree over all 1M rows with phase 10's 10,000 queries at budget 0.01
-and 0.05 (the fused route), through the facade (the exact fallback), and a
+and 0.05 (the fused route), through the facade (the exact fallback, held
+against f64 up to ties), and a
 30,000-row tree (the gather route); LSH with 8 tables at 16 bits (the
 cluster scan) and 12 bits (the fused route); kMkNN (nlist 1,000), exact up
 to ties. The last K1d-f32 call of each fused run in phases 11 to 13 is held
@@ -2505,9 +2507,12 @@ def phase_flat_index(dev) -> dict:
 
 
 def phase_graph_queries(dev, index, x_np) -> dict:
-    """Phase 10: 10,000 queries on phase 9's index, k 15. Returns {beam:
-    (ms, recall)} of the beam search."""
+    """Phase 10: 10,000 queries on phase 9's index, k 15. The default call
+    takes the exact fallback (on the card K2 and its certificate), held
+    against f64 up to ties. Returns {beam: (ms, recall)} of the beam
+    search."""
     import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
     from annsearch_tpu_torch.ops.topk import blocked_query_topk
     from annsearch_tpu_torch.utils.data import subsample_with_noise
     from annsearch_tpu_torch.utils.dist import Dist
@@ -2523,15 +2528,19 @@ def phase_graph_queries(dev, index, x_np) -> dict:
             raise AssertionError(f"{name}: distances not finite and ascending")
         return at.calculate_recall(truth, ids, G_K)
 
+    ff.flat_topk_fused.launches = 0
     ms, (ids, d) = _wall_ms(lambda: index.query(q, G_K))
+    launches = ff.flat_topk_fused.launches
     r_fb = check("exact fallback", ids, d)
     print(f"  default call (the exact fallback): {ms:.1f} ms (median of 3) = "
-          f"{G_NQ / ms * 1e3:.0f} QPS, recall@{G_K} {r_fb:.6f}; nav graph built: "
-          f"{index.nav_graph is not None}", flush=True)
-    if r_fb < 0.9999 or index.nav_graph is not None:
-        raise AssertionError("the default call did not take the exact fallback")
-    # F3: the same scan through K2, which the fallback (the JAX rule) does not take
+          f"{G_NQ / ms * 1e3:.0f} QPS, recall@{G_K} {r_fb:.6f} against the exact selector; "
+          f"K2 launches {launches}; nav graph built: {index.nav_graph is not None}", flush=True)
+    if launches == 0 or index.nav_graph is not None:
+        raise AssertionError("the default call did not take the exact fallback on K2")
     xs, sn = index.vectors[:G_N], index.sqnorms[:G_N]
+    _f64_up_to_ties("the exact fallback against f64", xs, q, ids, G_K)
+    # F3: the same scan through K2 alone, with no certificate
+
     ms, (d, ids) = _wall_ms(lambda: blocked_query_topk(q, xs, G_K, Dist.EUCLIDEAN, x_sqnorm=sn,
                                                        selector="fused"))
     print(f"  the same queries through K2 (selector 'fused'; F3): {ms:.1f} ms (median of 3), "
@@ -2749,6 +2758,18 @@ def _f64_truth(x, q, k, self_rows=None, block=512):
     return torch.cat(out)
 
 
+def _f64_up_to_ties(name, x, q, ids, k) -> None:
+    """``ids`` against the f64 top-k of queries ``q`` over ``x``, slot by
+    slot on the f64 distances of both lists, up to ties
+    (:func:`_up_to_ties`): an f32 scan that rounds otherwise than the
+    exact selector swaps near-ties, never a neighbour beyond them."""
+    ref = _f64_truth(x, q, k)
+    x64, q64 = x.double(), q.double()
+    d = ((q64[:, None, :] - x64[ids]) ** 2).sum(-1)
+    ref_d = ((q64[:, None, :] - x64[ref]) ** 2).sum(-1)
+    _up_to_ties(name, ids, d, ref, ref_d, (q64 * q64).sum(1) + (x64 * x64).sum(1).max())
+
+
 def _sample_truth(x, q, k):
     """``(ids, dists)`` of the exact top-k of queries ``q`` against ``x``
     (the exact selector, fp32)."""
@@ -2879,6 +2900,7 @@ def phase_balltree(dev, x_np, q_np) -> dict:
     gather route on a 30,000-row tree (256 cells). Returns the kernel's
     entry from budget 0.01."""
     import annsearch_tpu_torch as at
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
     from annsearch_tpu_torch.ops import ivf_scan_fused as tsf
 
     os.environ.pop("ANNSEARCH_NO_EXACT_FALLBACK", None)
@@ -2909,12 +2931,15 @@ def phase_balltree(dev, x_np, q_np) -> dict:
         entry = entry or e
         del cap
     tsf.ivf_cell_scan_f32_fold.launches = 0
+    ff.flat_topk_fused.launches = 0
     ms, (ids, d) = _wall_ms(lambda: at.query_balltree_index(q, index, T_K, return_dist=True))
     rec = at.calculate_recall(truth, ids, T_K)
-    print(f"  query_balltree_index (the exact fallback): {ms:.1f} ms, recall@15 {rec:.6f}, "
-          f"fused launches {tsf.ivf_cell_scan_f32_fold.launches}", flush=True)
-    if rec < 1.0 or tsf.ivf_cell_scan_f32_fold.launches:
-        raise AssertionError("the ball tree's exact fallback is not exact or ran the scan")
+    print(f"  query_balltree_index (the exact fallback): {ms:.1f} ms, recall@15 {rec:.6f} "
+          f"against the exact selector, fused launches {tsf.ivf_cell_scan_f32_fold.launches}, "
+          f"K2 launches {ff.flat_topk_fused.launches}", flush=True)
+    if tsf.ivf_cell_scan_f32_fold.launches or not ff.flat_topk_fused.launches:
+        raise AssertionError("the ball tree's exact fallback ran the scan or did not take K2")
+    _f64_up_to_ties("the ball tree's exact fallback against f64", x, q, ids, T_K)
     del index, scan
     small = x[:BALL_GATHER_N]
     qs = q[:2000]

@@ -843,6 +843,85 @@ def test_nndescent_on_the_card_matches_the_cpu(dev, metric):
     assert (fi.cpu() == ei).float().mean().item() >= 0.999
 
 
+def test_certified_fallback_on_the_card_answers_as_exact(dev, monkeypatch):
+    """An NN-descent index of 200,000 × 32d LowRank rows answers 2,000 noisy
+    queries at k 15 through its exact fallback, on the card
+    ``selector="certified"`` (K2 and the rescan of colliding classes), as
+    ``"exact"`` (cuBLAS fp32 and ``torch.topk``) does on the same rows. The
+    two round differently, so ids may differ, or swap ranks, only at
+    near-ties: an id one returns and the other does not lies, in float64,
+    within the identity's f32 rounding (8 ulps of ‖q‖² + max‖x‖², about
+    1e-3 here) of the other's k-th distance; the distances returned are
+    those of the ids returned, ascending."""
+    from annsearch_tpu_torch.models.graph import NNDescentIndex
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.utils import profiling
+    from annsearch_tpu_torch.utils.data import generate_data, subsample_with_noise
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    monkeypatch.delenv("ANNSEARCH_NO_EXACT_FALLBACK", raising=False)
+    x, _ = generate_data("lowrank", 200000, 32, 12, seed=7, intrinsic_dim=16)
+    q = torch.as_tensor(subsample_with_noise(x, 2000, seed=7), device=dev)
+    idx = NNDescentIndex(x, "euclidean", k=15, seed=1, device=dev)
+    profiling.reset()
+    profiling.enable()
+    try:
+        ids, d = idx.query(q, 15)
+        counts = profiling.snapshot()["topk.certified"]["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    ed, ei = blocked_query_topk(q, idx.vectors, 15, Dist.EUCLIDEAN, x_sqnorm=idx.sqnorms,
+                                selector="exact")
+    assert counts["queries"] == 2000 and counts["rescanned"] > 0
+    x64, q64 = idx.vectors.double(), q.double()
+    dc = ((q64[:, None, :] - x64[ids]) ** 2).sum(-1)
+    de = ((q64[:, None, :] - x64[ei]) ** 2).sum(-1)
+    tol = (2.0**-20 * (q64.pow(2).sum(1) + x64.pow(2).sum(1).max()))[:, None]
+    extra = ~(ids[:, :, None] == ei[:, None, :]).any(-1)
+    missed = ~(ei[:, :, None] == ids[:, None, :]).any(-1)
+    assert (dc <= de.max(1, keepdim=True).values + tol)[extra].all()
+    assert (de >= dc.max(1, keepdim=True).values - tol)[missed].all()
+    assert ((d.double() - dc).abs() <= tol).all()
+    assert (d[:, 1:] >= d[:, :-1]).all() and (~extra).float().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("n_valid", [None, 5500])
+def test_certified_through_ties_on_the_card_equals_the_plain_version(dev, k, n_valid):
+    """Grid rows past K2's 2,048 classes, where most queries tie at the k-th
+    rank and some classes collide (the CPU test's inputs, which the JAX
+    ``"exact"`` selector answers alike): on the card ``"certified"`` (K2's
+    scan, extraction and run merge, and the rescan on cuBLAS) gives the
+    answer of its plain version on the CPU bit for bit, so K2 orders tied
+    bins by column there too. Every distance of the grid is exact in f32."""
+    from annsearch_tpu_torch.ops import flat_scan_fused as ff
+    from annsearch_tpu_torch.ops.topk import blocked_query_topk
+    from annsearch_tpu_torch.utils import profiling
+    from annsearch_tpu_torch.utils.dist import Dist
+
+    rng = np.random.default_rng(13)
+    q = torch.tensor(rng.integers(-4, 5, (300, 8)) / 8, dtype=torch.float32)
+    x = torch.tensor(rng.integers(-4, 5, (6000, 8)) / 8, dtype=torch.float32)
+    pd, pi = blocked_query_topk(q, x, k, Dist.EUCLIDEAN, n_valid=n_valid, selector="certified")
+    ff.flat_topk_fused.launches = 0
+    profiling.reset()
+    profiling.enable()
+    try:
+        cd, ci = blocked_query_topk(q.to(dev), x.to(dev), k, Dist.EUCLIDEAN, n_valid=n_valid,
+                                    selector="certified")
+        torch.cuda.synchronize()
+        counts = profiling.snapshot()["topk.certified"]["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert ff.flat_topk_fused.launches > 0 and counts["rescanned"] > 0
+    assert torch.equal(ci.cpu(), pi) and torch.equal(cd.cpu(), pd)
+    full = ((q.double()[:, None, :] - x.double()[None, : n_valid or 6000]) ** 2).sum(-1)
+    full, _ = full.sort(dim=1)
+    assert (full[:, k - 1] == full[:, k]).sum().item() > 150
+
+
 # -- K1-fold1, K1-exact-i8 and wide rows ------------------------------------------
 
 

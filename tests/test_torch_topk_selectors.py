@@ -1,6 +1,7 @@
 """The flat scan's selectors (``"exact"``, ``"approx"``, ``"bins"``,
-``"fused"``) and ``n_valid``, port against the JAX package on the same
-numpy inputs.
+``"fused"``, ``"certified"``) and ``n_valid``, port against the JAX package
+on the same numpy inputs (``"certified"``, which the JAX package lacks,
+against its ``"exact"``).
 
 Inputs lie on a coarse grid (multiples of 1/8) wherever ids are compared
 one for one: every distance is then exact in f32 in both packages, so the
@@ -66,7 +67,7 @@ def test_chunked_topk_n_valid_equals_jax(grid):
 
 
 @pytest.mark.parametrize("metric", list(METRICS))
-@pytest.mark.parametrize("selector", SELECTORS)
+@pytest.mark.parametrize("selector", SELECTORS + ["certified"])
 @pytest.mark.parametrize("n_valid", [None, 1000])
 def test_blocked_selectors_equal_jax(grid, metric, selector, n_valid):
     q, x = grid
@@ -80,17 +81,78 @@ def test_blocked_selectors_equal_jax(grid, metric, selector, n_valid):
                            passes=6, interpret=True)
     else:
         dj, ij = jax_blocked(jnp.asarray(q), jnp.asarray(x), 10, jm, n_valid=n_valid,
-                             query_block=64, db_chunk=512, selector=selector)
+                             query_block=64, db_chunk=512,
+                             selector="exact" if selector == "certified" else selector)
     assert dt.shape == (90, 10) and it.dtype == torch.int64
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
-    if selector in ("bins", "fused"):
-        # the bins break ties by column in both packages
+    if selector in ("bins", "fused", "certified"):
+        # the bins break ties by column in both packages, as lax.top_k does
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     else:
         # exact ties at the 10th rank may name either row
         assert at.calculate_recall(np.array(ij), it, 10) >= 0.99
     if n_valid is not None:
         assert it.max() < n_valid
+
+
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("n_valid", [None, 5500])
+def test_certified_through_ties_equals_jax_exact(k, n_valid):
+    """Grid rows past K2's 2,048 classes, where most queries tie at the
+    k-th rank and some classes collide: ``"certified"`` (K2's certificate,
+    ties included, and the rescans) gives the JAX ``"exact"`` selector's
+    answer bit for bit, ties to the lower id, as ``lax.top_k`` orders."""
+    from annsearch_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(13)
+    q = (rng.integers(-4, 5, (300, 8)) / 8).astype(np.float32)
+    x = (rng.integers(-4, 5, (6000, 8)) / 8).astype(np.float32)
+    profiling.enable()
+    try:
+        dt, it = blocked_query_topk(torch.tensor(q), torch.tensor(x), k, Dist.EUCLIDEAN,
+                                    n_valid=n_valid, selector="certified")
+        counts = profiling.snapshot()["topk.certified"]["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    dj, ij = jax_blocked(jnp.asarray(q), jnp.asarray(x), k, JDist.EUCLIDEAN, n_valid=n_valid,
+                         selector="exact")
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    # most queries tie at the k-th rank (the grid's distances are exact in f64)
+    full = ((q[:, None, :].astype(np.float64) - x[None, : n_valid or len(x)]) ** 2).sum(-1)
+    full.sort(axis=1)
+    assert counts["rescanned"] > 0 and (full[:, k - 1] == full[:, k]).sum() > len(q) // 2
+
+
+@pytest.mark.parametrize("k", [15, 40])
+def test_certified_equals_exact_on_gaussian_rows(k):
+    """2,000 Gaussian queries against 20,000 rows (B 2,048: about 5% of the
+    queries collide at k 15, about 30% at k 40): ``"certified"`` answers as
+    ``"exact"`` does. The two sum their products in other orders, so ids
+    may differ only at near-ties: each id ``"certified"`` returns lies, in
+    float64, within the identity's f32 rounding of the distance
+    ``"exact"`` returns at that rank."""
+    from annsearch_tpu_torch.utils import profiling
+
+    g = torch.Generator().manual_seed(29)
+    q, x = torch.randn(2000, 16, generator=g), torch.randn(20000, 16, generator=g)
+    profiling.enable()
+    try:
+        dc, ic = blocked_query_topk(q, x, k, Dist.EUCLIDEAN, selector="certified")
+        counts = profiling.snapshot()["topk.certified"]["counts"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    de, ie = blocked_query_topk(q, x, k, Dist.EUCLIDEAN, selector="exact")
+    assert counts["queries"] == 2000 and counts["rescanned"] > 0
+    assert ic.dtype == torch.int64 and dc.shape == (2000, k)
+    # 8 ulps of ‖q‖² + max‖x‖², the terms the identity rounds
+    tol = 2.0**-20 * ((q * q).sum(1) + (x * x).sum(1).max())[:, None].double()
+    true = ((q.double()[:, None, :] - x.double()[ic]) ** 2).sum(-1)
+    assert ((true - de.double()).abs() <= tol).all()
+    assert ((dc.double() - de.double()).abs() <= tol).all()
+    assert (ic == ie).all(1).float().mean() >= 0.995
 
 
 def test_fused_wide_k_takes_bins(grid):

@@ -155,6 +155,27 @@ def test_exact_fallback_counts_its_steps(selector, chunk):
     assert profiling.snapshot()["topk.exact"]["calls"] == 1
 
 
+@pytest.mark.parametrize("k", [10, 40])
+def test_certified_fallback_counts_its_rescans(k):
+    """Stage ``topk.certified``: its queries and the queries two of whose
+    first k K2 ids share a column class (counted here from K2's plain
+    version by hand)."""
+    from annsearch_tpu_torch.ops.flat_scan_fused import flat_topk_fused_plain, fused_shapes
+
+    g = np.random.default_rng(5)
+    q = torch.tensor(g.integers(-4, 5, (300, 8)) / 8, dtype=torch.float32)
+    x = torch.tensor(g.integers(-4, 5, (6000, 8)) / 8, dtype=torch.float32)
+    B = fused_shapes(6000, k + 1)[1]
+    _, ids = flat_topk_fused_plain(q, x, k + 1, Dist.EUCLIDEAN, passes=6)
+    collide = sum(len({c % B for c in row[:k]}) < k for row in ids.tolist())
+    profiling.enable()
+    blocked_query_topk(q, x, k, Dist.EUCLIDEAN, selector="certified")
+    snap = profiling.snapshot()
+    assert snap["topk.certified"]["counts"] == {"queries": 300, "rescanned": collide}
+    assert snap["topk.certified"]["parent"] is None and "topk.exact" not in snap
+    assert 0 < collide < 300
+
+
 def test_exact_fallback_of_an_index_counts_its_steps(monkeypatch):
     """A small batch to the flat binary index's exact tier takes the exact
     fallback (``BaseIndex._exact_query_small``)."""
@@ -253,6 +274,7 @@ READERS = {
     "ivf_slot_use_pct": 40.0, "ivf_host_lists_ms_per_call": 20.0,
     "cluster_scan_ms_per_call": 2.5, "cluster_scan_pad_pct": 87.5,
     "fallback_steps_per_call": 620.0, "fallback_host_ms_per_step": 0.125,
+    "fallback_rescan_pct": 5.0,
 }
 
 
@@ -269,6 +291,7 @@ SNAPSHOT = {
     "ivf.host_lists": _stat(host_ms=20.0),
     "ivf.cluster_scan": _stat(device_ms=3.25, self_ms=2.5, lanes=8000, pad_lanes=7000),
     "topk.exact": _stat(host_ms=77.5, steps=2480),
+    "topk.certified": _stat(queries=40000, rescanned=2000),
 }
 
 
