@@ -4,7 +4,10 @@ Everything specific to a configuration, a traffic mix or a metric is a file
 that this module finds by the name ``BENCHMARK.json`` gives:
 
 * ``configs/<config>.json``: the deployment (data, index build, query
-  parameters, k, the stated precision);
+  parameters, k, the stated precision, and the metric: ``"euclidean"``
+  or ``"cosine"``, which the check judges under; any other is refused;
+  ``self_query.includes_self`` true where the self-query returns each
+  row's own id, as the reference then does);
 * ``traffic/<traffic>.json``: the calls (``pattern`` ``query``: batches of
   ``batch`` queries, each the next slice of a pool of ``pool`` noisy
   queries, with ``kwargs`` over the configuration's query keywords;
@@ -42,7 +45,7 @@ from types import ModuleType, SimpleNamespace
 import torch
 
 from . import check, data, stats
-from .reference import LOWER_PRECISION, control_knn
+from .reference import LOWER_PRECISION, check_metric, control_knn
 from .trace import Tracer
 
 __all__ = ["BENCH_DIR", "FORBIDDEN", "NoDevice", "Cell", "Reservoir", "load_manifest",
@@ -108,9 +111,14 @@ def load_cell(manifest: dict, name: str, bench_dir: Path = BENCH_DIR,
     if extra:
         raise ValueError(f"traffic {w['traffic']!r} ({traffic.get('pattern')!r}) holds keys "
                          f"the harness does not read: {sorted(extra)}")
+    cfg = read("configs", w["config"])
+    try:
+        check_metric(cfg.get("metric"))
+    except ValueError as e:
+        raise ValueError(f"configuration {w['config']!r}: {e}") from None
     return Cell(
         name=name, chips=int(w["chips"]), bench_dir=bench_dir,
-        cfg=read("configs", w["config"]), traffic=traffic,
+        cfg=cfg, traffic=traffic,
         limits=read("limits", name), end_to_end=e2e,
         per_layer=[m for m in manifest["per_layer"] if _applies(m, name, names)],
     )
@@ -269,7 +277,7 @@ def _sample(cell: Cell, x, pool, res: Reservoir):
         at = (calls * b) % p + rows
         return pool[at.to(pool.device)], ids, dists, None
     pick = rows.to(x.device)
-    return x[pick], ids, dists, pick
+    return x[pick], ids, dists, None if cell.cfg["self_query"].get("includes_self") else pick
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda",
@@ -392,7 +400,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
         result["check"] = {"failed_calls": {"value": failed, "limit": 0}}
         return result
     t = time.perf_counter()
-    numbers = check.compare(q, x, ids, dists, exclude)
+    metric = cell.cfg["metric"]
+    numbers = check.compare(q, x, ids, dists, exclude, metric)
     ok, result["check"] = check.judge(numbers, cell.limits["limits"])
     result["correct"] = ok
     log(f"check on {q.shape[0]} sampled queries in {time.perf_counter() - t:.3f} s: " +
@@ -400,7 +409,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
     if control:
         result["numbers"] = numbers
         prec = LOWER_PRECISION[cell.cfg["precision"]]
-        c_ids, c_d = control_knn(q, x, ids.shape[1], prec, exclude)
-        result["control"] = dict(check.compare(q, x, c_ids, c_d, exclude), precision=prec)
+        c_ids, c_d = control_knn(q, x, ids.shape[1], prec, exclude, metric)
+        result["control"] = dict(check.compare(q, x, c_ids, c_d, exclude, metric),
+                                 precision=prec)
     result["check"] = result.pop("check")
     return result

@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: the answers the timed calls
 returned, against the plain reference's exact answers for the same
-queries over the same data.
+queries over the same data, under the configuration's metric (squared
+euclidean or cosine, ``reference.METRICS``).
 
 The numbers, over the sampled query rows:
 
@@ -43,12 +44,13 @@ def _bad_rows(ids: torch.Tensor, dists: torch.Tensor, n: int, exclude) -> int:
 
 
 def compare(q: torch.Tensor, x: torch.Tensor, ids: torch.Tensor, dists: torch.Tensor,
-            exclude: torch.Tensor | None = None) -> dict[str, float]:
+            exclude: torch.Tensor | None = None, metric: str = "euclidean") -> dict[str, float]:
     """The numbers of answers ``(ids, dists) [nq, k]`` to queries ``q``
-    over rows ``x`` (``exclude[i]``: the row query i may not return)."""
+    over rows ``x`` under ``metric`` (``exclude[i]``: the row query i may
+    not return)."""
     k = ids.shape[1]
-    t_ids, t_d = exact_knn(q, x, k, exclude)
-    d_of = distances_of(q, x, ids)
+    t_ids, t_d = exact_knn(q, x, k, exclude, metric)
+    d_of = distances_of(q, x, ids, metric)
     scale = t_d[:, -1:].clamp_min(1e-30)
     return {
         "miss": 1.0 - stats.recall(t_ids, ids),

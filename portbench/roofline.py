@@ -17,7 +17,7 @@ from pathlib import Path
 
 import torch
 
-from .reference.exact import no_tf32
+from .reference.exact import no_tf32, unit_rows
 
 __all__ = [
     "PEAKS_FILE", "peaks_for", "least_time", "share_pct", "nearest_centroid_sizes",
@@ -52,31 +52,39 @@ def share_pct(flop: float, nbytes: float, device_s: float, flop_s: float,
     return 100.0 * least_time(flop, nbytes, flop_s, byte_s)[0] / device_s
 
 
-def _sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Squared euclidean distances ``[len(a), len(b)]`` in f32, TF32 off."""
+def _dist(a: torch.Tensor, b: torch.Tensor, metric: str) -> torch.Tensor:
+    """Distances ``[len(a), len(b)]`` under ``metric`` in f32, TF32 off:
+    squared euclidean, or cosine as ``1 − â·b̂``."""
+    cos = metric == "cosine"
+    if cos:
+        a, b = unit_rows(a), unit_rows(b)
     with no_tf32():
         dots = a @ b.T
+    if cos:
+        return 1.0 - dots
     return (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * dots
 
 
 def nearest_centroid_sizes(x: torch.Tensor, centroids: torch.Tensor,
-                           block: int = 65_536) -> torch.Tensor:
-    """``[nlist]`` int64: how many rows of ``x`` lie nearest each centroid."""
+                           block: int = 65_536, metric: str = "euclidean") -> torch.Tensor:
+    """``[nlist]`` int64: how many rows of ``x`` lie nearest each centroid
+    under ``metric``."""
     c = centroids.float()
-    owner = torch.cat([_sqdist(x[a : a + block], c).argmin(1)
+    owner = torch.cat([_dist(x[a : a + block], c, metric).argmin(1)
                        for a in range(0, x.shape[0], block)])
     return torch.bincount(owner, minlength=c.shape[0])
 
 
 def ivf_probe_work(q: torch.Tensor, centroids: torch.Tensor, sizes: torch.Tensor,
-                   nprobe: int, code_bytes: int, k: int) -> tuple[float, float]:
+                   nprobe: int, code_bytes: int, k: int,
+                   metric: str = "euclidean") -> tuple[float, float]:
     """``(operations, bytes)`` of scoring ``q`` against the rows of each
-    query's ``nprobe`` nearest cells (``sizes``: rows per cell, no padding):
-    two operations per (query, row, dimension); the codes and squared norms
-    of every probed row read once, the queries (f32) read once, ``k``
-    results a query written once."""
+    query's ``nprobe`` nearest cells under ``metric`` (``sizes``: rows per
+    cell, no padding): two operations per (query, row, dimension); the
+    codes and squared norms of every probed row read once, the queries
+    (f32) read once, ``k`` results a query written once."""
     nq, d = q.shape
-    probe = _sqdist(q.float(), centroids.float()).topk(nprobe, dim=1, largest=False).indices
+    probe = _dist(q.float(), centroids.float(), metric).topk(nprobe, dim=1, largest=False).indices
     pairs = float(sizes[probe].sum())
     probed = torch.zeros(sizes.shape[0], dtype=torch.bool, device=sizes.device)
     probed[probe.reshape(-1)] = True

@@ -85,6 +85,15 @@ def test_ivf_probe_work_counts_real_rows_of_probed_cells():
     assert flop == 2 * (4 + 5) * 2
     # every cell probed by someone: 6 rows of 2 code bytes and a 4 B norm
     assert nbytes == 6 * (2 + 4) + 2 * 2 * 4 + 2 * 10 * 8
+    # under cosine the angle alone ranks cells: (1, 1.5) lies nearer (1, 0)
+    # but at the smaller angle to (0, 5)
+    cents = torch.tensor([[1.0, 0.0], [0.0, 5.0]])
+    x = torch.tensor([[1.0, 1.5], [2.0, 0.1]])
+    assert roofline.nearest_centroid_sizes(x, cents).tolist() == [2, 0]
+    assert roofline.nearest_centroid_sizes(x, cents, metric="cosine").tolist() == [1, 1]
+    sizes = torch.tensor([3, 1])
+    assert roofline.ivf_probe_work(x[:1], cents, sizes, 1, 1, 1)[0] == 2 * 3 * 2
+    assert roofline.ivf_probe_work(x[:1], cents, sizes, 1, 1, 1, "cosine")[0] == 2 * 1 * 2
 
 
 def _trace_events():
@@ -173,6 +182,58 @@ def test_compare_and_judge():
     assert ok and out == {"miss": {"value": 0.1, "limit": 0.1}, "bad": {"value": 0.0, "limit": 0}}
     assert not check.judge({"miss": float("nan")}, {"miss": 1.0})[0]
     assert not check.judge({"miss": 0.2}, {"miss": 0.1})[0]
+
+
+def test_cosine_exact_knn_and_distances_by_hand():
+    # row 3 is zero: at distance 1 from every query
+    x = torch.tensor([[2.0, 0.0], [1.0, 3.0], [-1.0, 1.0], [0.0, 0.0]])
+    q = torch.tensor([[1.0, 0.0], [1.0, 2.0]])
+    ids, d = exact_knn(q, x, 3, metric="cosine")
+    assert ids.tolist() == [[0, 1, 3], [1, 0, 2]]
+    assert d[0].tolist() == pytest.approx([0.0, 1 - 10**-0.5, 1.0], abs=1e-15)
+    assert d[1].tolist() == pytest.approx([1 - 7 / 50**0.5, 1 - 5**-0.5, 1 - 10**-0.5],
+                                          abs=1e-15)
+    assert distances_of(q, x, torch.tensor([[2, 3], [3, 9]]), metric="cosine").flatten(
+        ).tolist() == pytest.approx([1 + 2**-0.5, 1.0, 1.0, 1.0], abs=1e-15)
+    # a zero query, too, lies at distance 1
+    assert distances_of(torch.zeros(1, 2), x, torch.tensor([[0]]), metric="cosine").item() == 1.0
+    with pytest.raises(ValueError, match="manhattan"):
+        exact_knn(q, x, 1, metric="manhattan")
+
+
+def test_cosine_controls():
+    x = torch.tensor([[3.0, 4.0 * (1 + 2**-11)], [7.0, -0.6], [0.0, 0.0]])
+    q = torch.tensor([[3.0, 4.0]])
+    # TF32: normalised in f32, operands rounded, 1 − product with TF32 off
+    xs = round_tf32(x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1e-30))
+    qs = round_tf32(q / 5.0)
+    ids, d = control_knn(q, x, 3, "tf32", metric="cosine")
+    assert ids.tolist() == [[0, 1, 2]]
+    assert d[0].tolist() == (1.0 - qs @ xs.T)[0].tolist()
+    assert d[0, 2].item() == 1.0
+    # int4: the rows stored first (codes of per-dimension scales), then normalised
+    r = int4_rows(x)
+    want = 1.0 - (q / 5.0) @ (r / torch.linalg.vector_norm(r, dim=1, keepdim=True)
+                               .clamp_min(1e-30)).T
+    ids, d = control_knn(q, x, 3, "int4", metric="cosine")
+    assert d[0].tolist() == pytest.approx(sorted(want[0].tolist()), abs=1e-7)
+    assert ids.tolist() == [want[0].argsort().tolist()]
+
+
+def test_compare_under_cosine():
+    g = torch.Generator().manual_seed(0)
+    # rows of unequal norms: squared euclidean ranks them otherwise
+    x = torch.randn(500, 8, generator=g) * torch.rand(500, 1, generator=g).mul(9.0).add(0.5)
+    q = torch.randn(40, 8, generator=g)
+    ids, d = exact_knn(q, x, 10, metric="cosine")
+    n = check.compare(q, x, ids, d.float(), metric="cosine")
+    assert n["miss"] == 0.0 and n["bad"] == 0.0
+    assert n["dist_err"] < 1e-6 and abs(n["gap"]) < 1e-6
+    e_ids, e_d = exact_knn(q, x, 10)
+    n = check.compare(q, x, e_ids, distances_of(q, x, e_ids, "cosine").float(), metric="cosine")
+    assert n["miss"] > 0.3 and n["gap"] > 0.1
+    # the same answers read under euclidean are exact
+    assert check.compare(q, x, e_ids, e_d.float())["miss"] == 0.0
 
 
 @pytest.mark.parametrize("kind", ["clusters", "lowrank"])

@@ -1,7 +1,9 @@
 """A run with the timed path broken underneath comes out not correct: the
 facade's functions are wrapped so that an answer is altered where it is
-produced, half of each batch is left out, or a build returns its state
-unchanged (CPU, small sizes; no card is looked for)."""
+produced, half of each batch is left out, a build that holds a kNN graph
+returns it unchanged from its random start, or a build is handed the rows
+in another order, so that every id it returns names the wrong row (CPU,
+small sizes; no card is looked for)."""
 
 from __future__ import annotations
 
@@ -9,8 +11,8 @@ import pytest
 import torch
 
 import annsearch_tpu_torch as at
-from portbench.cell import load_manifest
-from portbench.testing import REPO, run_small, small_cell
+from portbench.cell import load_cell, load_manifest
+from portbench.testing import REPO, run_small
 
 
 def _altered(ids, dists):
@@ -46,16 +48,36 @@ def _unchanged_build(fn):
     return faulty
 
 
+def _permuted_build(fn):
+    """The build is handed the rows in a seeded permuted order."""
+    def faulty(x, *a, **kw):
+        perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(0))
+        return fn(x[perm.to(x.device)], *a, **kw)
+    return faulty
+
+
+def _holds_knn_graph(cfg) -> bool:
+    """Whether the configuration's build returns an index that holds
+    ``knn_ids``: read from an index built of 64 random rows."""
+    build = getattr(at, cfg["index"]["build"])
+    x = torch.randn(64, cfg["data"]["dim"], generator=torch.Generator().manual_seed(0))
+    return hasattr(build(x, **cfg["index"].get("kwargs", {}), device="cpu"), "knn_ids")
+
+
 def _cases():
     out = []
-    for w in load_manifest(REPO)["workloads"]:
-        cell = small_cell(w["name"])
+    manifest = load_manifest(REPO)
+    for w in manifest["workloads"]:
+        cell = load_cell(manifest, w["name"])
         pattern = cell.traffic["pattern"]
         answer_fn = cell.cfg["query" if pattern == "query" else "self_query"]["fn"]
         for fault in ("altered", "half"):
             out.append((w["name"], answer_fn, fault))
         if pattern == "build":
-            out.append((w["name"], cell.cfg["index"]["build"], "unchanged"))
+            build_fn = cell.cfg["index"]["build"]
+            out.append((w["name"], build_fn, "permuted"))
+            if _holds_knn_graph(cell.cfg):
+                out.append((w["name"], build_fn, "unchanged"))
     return out
 
 
@@ -64,6 +86,8 @@ def test_a_broken_path_is_not_correct(monkeypatch, workload, fn, fault):
     orig = getattr(at, fn)
     if fault == "unchanged":
         monkeypatch.setattr(at, fn, _unchanged_build(orig))
+    elif fault == "permuted":
+        monkeypatch.setattr(at, fn, _permuted_build(orig))
     else:
         monkeypatch.setattr(at, fn, _wrap_answers(
             orig, {"altered": _altered, "half": _half_left_out}[fault]))
